@@ -1,0 +1,599 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA card, kernels held to their
+plain versions.
+
+Run from the repository root with no arguments: ``python3 chip_smoke.py``.
+It needs one CUDA card and imports nothing of the JAX package. Phases, each
+of which fails the script (non-zero exit, no result line):
+
+1. device: the card's name and ``nvidia-smi`` name/power-limit line;
+2. build: both kernels (``ont_tcrconsensus_tpu_torch/csrc/*.cu``), one
+   ``nvcc`` each, started together; ptxas's registers and spills and each
+   instantiation's SASS instruction mix (``cuobjdump``) are printed;
+3. kernel parity: kernel B1 (banded SW stats) at B=2048, W=128 and kernel
+   B2 (pileup forward planes) at N=1024, W=64, each at L=2048 and L=3072
+   (the width buckets of 1.4-2.3 kb reads), plus B1 at the self-homology
+   band 512 and B2 at the 3072 bucket's band 128, against the plain
+   PyTorch version on the same card tensors: every output exactly equal.
+   Times are CUDA-event medians; the bound is the larger of bytes over the
+   HBM rate and the int32 operations the function needs over the int32
+   issue rate (``_bound_ms``); the design's own floor (its F doubling and
+   warp shuffles) is reported beside it. Then one polish round at a
+   main-path tile, split into the B2 forward, the traceback and the vote,
+   and traced once with ``torch.profiler`` for the card's busy share;
+4. small e2e: the tests' 4-region lane on ``cuda`` and on ``cpu`` (plain
+   versions): counts CSV and merged FASTA byte-identical, counts equal to
+   the simulator's truth;
+5. full-size e2e: the representative lane (about 10k untrimmed reads of
+   1.4-2.3 kb, 56 regions + 6 near-duplicate pairs + 2 negative controls,
+   the systematic ONT error model, read batch 1024, band 128, seed 33) on
+   ``cuda`` with ``polish_method: "poa"``, unobserved, ``--lane-runs``
+   times (2 by default, for the spread). Kernel launch counts are zeroed
+   just before the first run and read just after it; each kernel must have
+   launched, and every run's counts must equal the truth.
+
+Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``. ``--out PATH`` also writes every number
+to a JSON file.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(ROOT, "build", "chip_smoke")
+
+# H100 SXM rates. HBM3: 3.35 TB/s (the on-chip-measurement guide's table,
+# from NVIDIA's data sheet). int32: that table has no int32 rate; its
+# float32 rate, 67 TFLOP/s outside the tensor cores, is 132 SMs x 128 lanes
+# x 1.98 GHz with an FMA counted as two. An SM issues at most one warp
+# instruction (32 lanes) a clock in each of its four sub-partitions, 128
+# lane-operations a clock whatever the pipe, and the compiler issues int32
+# adds and moves as IMAD on the FMA pipe beside the 64-lane INT32 pipe, so
+# the INT32 lanes alone are not the ceiling: 132 x 128 x 1.98e9 =
+# 33.5 Tops/s. Warp shuffles: 32 a clock per SM (CUDA C++ Programming
+# Guide, arithmetic instruction throughput, compute capability 9.0).
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 128 * 1.98e9
+SHUFFLES_PER_S = 132 * 32 * 1.98e9
+
+# int32 operations a band cell needs, one per two-input add, compare,
+# select or logical op, counted from the plain versions' recurrences
+# (ops/sw_align.py, ops/pileup.py); loads and per-row terms are not
+# counted. F, the in-row ref-gap max-plus, is counted as the sequential
+# recurrence g[b] = max(tmp[b], g[b-1] - ext) with ties kept at b: it picks
+# the nearest origin, as the kernels' strictly-greater doubling does.
+SW_CELL_OPS = {
+    "cell index, validity, match test, substitution": 9,
+    "E: open vs extend, four channels, one more column": 9,
+    "diagonal: fresh test, score, four channels": 9,
+    "tmp: diagonal vs E vs fresh, five values each, band mask": 14,
+    "F: sequential max-plus, four channels, gap length": 9,
+    "F: open, column count": 3,
+    "H: F vs tmp, five values, band mask": 7,
+    "E: band mask": 1,
+    "best: compare, score, row, four channels": 7,
+}
+PILEUP_CELL_OPS = {
+    "cell index, validity, match test, substitution": 10,
+    "E: open vs extend": 4,
+    "diagonal: fresh test, score, direction": 4,
+    "tmp: diagonal vs E vs fresh with direction, band mask": 7,
+    "E-opened bit": 2,
+    "F: sequential max-plus, gap length": 5,
+    "F: open": 1,
+    "H: F vs tmp, band mask": 3,
+    "fjump and the packed plane": 5,
+    "E: band mask": 1,
+    "best: compare, score, row": 3,
+}
+# The kernels' design (csrc/*.cu): one F doubling step costs what one
+# sequential F step does (SW: shift-add, compare, value, four channels, gap
+# length; pileup: shift-add, compare, value, gap length), and the warp
+# shifts ``(E values, F values)`` along the band.
+SW_STEP_OPS, SW_SHIFTED = 9, (5, 6)
+PILEUP_STEP_OPS, PILEUP_SHIFTED = 5, (2, 2)
+
+
+def _design_per_cell(W: int, fn_ops: int, step_ops: int, shifted: tuple[int, int]):
+    """The kernel design's int32 operations and warp shuffles a cell: the F
+    doubling's log2(W) steps in place of one sequential step, and the band
+    shifts (E's values once; F's per doubling step below 32 slots, steps of
+    32 or more being register moves, and once more at the end), each
+    2 - 1/NS shuffles a slot for NS = W/32 slots a lane."""
+    steps = (W - 1).bit_length()
+    e_values, f_values = shifted
+    shifts = e_values + f_values * (min(steps, 5) + 1)
+    return fn_ops + step_ops * (steps - 1), shifts * (2 - 32 / W)
+
+
+def _costs(cells: int, n_bytes: int, W: int, cell_ops: dict, step_ops: int,
+           shifted: tuple[int, int]) -> dict:
+    fn_ops = sum(cell_ops.values())
+    bound, by = _bound_ms(n_bytes, cells * fn_ops)
+    design_ops, design_shuffles = _design_per_cell(W, fn_ops, step_ops, shifted)
+    design_ms = cells * max(design_ops / INT32_OPS_PER_S,
+                            design_shuffles / SHUFFLES_PER_S) * 1e3
+    return {"cells": cells, "bound_ms": bound, "bound_by": by, "fn_ops_per_cell": fn_ops,
+            "design_ops_per_cell": design_ops, "design_shuffles_per_cell": design_shuffles,
+            "design_bound_ms": design_ms}
+
+
+SASS_MNEMONICS = ("IMAD", "IADD3", "ISETP", "SEL", "LOP3", "VIMNMX", "IMNMX", "SHFL",
+                  "LDL", "STL")
+
+
+def _sass_mix(name: str) -> dict[str, dict[str, int]]:
+    """Static SASS instruction counts of each instantiation of a built
+    kernel, by mnemonic (``cuobjdump -sass``): which pipes the compiler put
+    the int32 work on (IMAD issues on the FMA pipe; IADD3, ISETP, SEL,
+    LOP3 and IMNMX on the INT32 pipe), the shuffles it kept and the local
+    memory spills."""
+    from ont_tcrconsensus_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", _build.library_path(name)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    mix: dict[str, collections.Counter] = {}
+    counter = None
+    for line in text.splitlines():
+        fn = re.search(r"Function : \S*?([a-z][a-z_]*_kernel)ILi(\d+)E", line)
+        if fn:
+            counter = mix.setdefault(f"{fn.group(1)}<{fn.group(2)}>", collections.Counter())
+            continue
+        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]+)", line)
+        if counter is not None and op:
+            counter[op.group(1)] += 1
+    return {fn: {m: c[m] for m in SASS_MNEMONICS} for fn, c in sorted(mix.items())}
+
+
+def _fail(msg: str) -> int:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    return 1
+
+
+def _nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def _bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _host_ms(fn, reps: int) -> float:
+    """Median host-clock time of ``fn()`` to a synchronized device, for
+    work driven from the host (a loop of launches)."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _device_ms(fn) -> dict:
+    """Run ``fn()`` once under ``torch.profiler`` (CUDA activity): the
+    milliseconds in which the card ran a kernel, copy or set (the device
+    events' intervals merged), and the number of those events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    return {"device_ms": busy_us / 1e3, "events": len(spans)}
+
+
+def _time_ms(fn, reps: int) -> float:
+    """Median CUDA-event time of ``fn()`` over ``reps`` calls (the caller
+    has warmed it up)."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+# ---------------------------------------------------------------------------
+# kernels against their plain versions
+
+
+def check_sw(dev, seed: int, B: int, L: int, W: int) -> dict:
+    import torch
+
+    from ont_tcrconsensus_tpu_torch.io import dp_cases
+    from ont_tcrconsensus_tpu_torch.ops import sw_align, sw_kernel
+
+    reads, rl, refs, tl, offs = (torch.from_numpy(x).to(dev)
+                                 for x in dp_cases.dp_batch(B, L, W, seed))
+    args = (reads, rl, refs, tl, offs)
+    got = sw_kernel.align_banded_cuda(*args, band_width=W)
+    want = sw_align.align_banded(*args, band_width=W)
+    torch.cuda.synchronize()
+    max_err = 0
+    for f in ("score", "read_start", "read_end", "ref_start", "ref_end", "n_match", "n_cols"):
+        a, b = getattr(got, f), getattr(want, f)
+        err = int((a.long() - b.long()).abs().max())
+        if err:
+            bad = int((a != b).nonzero()[0, 0])
+            raise AssertionError(f"B1 L={L}: {f} differs (first pair {bad}: "
+                                 f"kernel {int(a[bad])}, plain {int(b[bad])})")
+        max_err = max(max_err, err)
+    for _ in range(2):
+        sw_kernel.align_banded_cuda(*args, band_width=W)
+    ms = _time_ms(lambda: sw_kernel.align_banded_cuda(*args, band_width=W), 7)
+    plain_ms = _time_ms(lambda: sw_align.align_banded(*args, band_width=W), 3)
+    # rows past a read's length cannot move the result: the function needs
+    # only the rows of each read, and reads each read base once
+    rows = int(torch.clamp(rl, max=L).long().sum())
+    n_bytes = rows + B * refs.shape[1] + 3 * 4 * B + 7 * 4 * B
+    return {"L": L, "B": B, "W": W, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            **_costs(rows * W, n_bytes, W, SW_CELL_OPS, SW_STEP_OPS, SW_SHIFTED),
+            "aligned_pairs": int((got.score > 0).sum())}
+
+
+def check_pileup(dev, seed: int, N: int, L: int, W: int) -> dict:
+    import torch
+
+    from ont_tcrconsensus_tpu_torch.io import dp_cases
+    from ont_tcrconsensus_tpu_torch.ops import pileup, pileup_kernel
+
+    reads, rl, refs, tl, _ = (torch.from_numpy(x).to(dev)
+                              for x in dp_cases.dp_batch(N, L, W, seed, offsets=False))
+    args = (reads, rl, refs, tl)
+    best_k, planes_k = pileup_kernel.forward_planes_cuda(*args, band_width=W)
+    best_p, planes_p = pileup._forward_batch(*args, band_width=W)
+    torch.cuda.synchronize()
+    for name, a, b in (("best", best_k, best_p), ("planes", planes_k, planes_p)):
+        if not torch.equal(a, b):
+            bad = (a != b).reshape(N, -1).any(dim=1).nonzero()[0, 0]
+            raise AssertionError(f"B2 L={L}: {name} differs (first lane {int(bad)})")
+    max_err = max(int((best_k.long() - best_p.long()).abs().max()),
+                  int((planes_k.int() - planes_p.int()).abs().max()))
+    for _ in range(2):
+        pileup_kernel.forward_planes_cuda(*args, band_width=W)
+    ms = _time_ms(lambda: pileup_kernel.forward_planes_cuda(*args, band_width=W), 7)
+    plain_ms = _time_ms(lambda: pileup._forward_batch(*args, band_width=W), 3)
+    # every row's planes are output, so every cell of the padded width is
+    cells = N * L * W
+    n_bytes = N * L + N * refs.shape[1] + 2 * 4 * N + 3 * 4 * N + 2 * cells
+    return {"L": L, "N": N, "W": W, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            **_costs(cells, n_bytes, W, PILEUP_CELL_OPS, PILEUP_STEP_OPS, PILEUP_SHIFTED),
+            "aligned_lanes": int((best_k[:, 0] > 0).sum())}
+
+
+def polish_split(dev, seed: int, C: int = 64, S: int = 16, L: int = 2048, W: int = 64) -> dict:
+    """One polish round at a main-path tile (C clusters of S subreads, width
+    L, band W), split into the kernel B2 forward, the plain scan-log
+    traceback and the vote; then the whole round once more under
+    ``torch.profiler``, whose device time over the round's unprofiled wall
+    time is the card's busy share in polish."""
+    import torch
+
+    from ont_tcrconsensus_tpu_torch.io.dp_cases import noisy_copy
+    from ont_tcrconsensus_tpu_torch.ops import consensus, pileup
+
+    rng = np.random.default_rng(seed)
+    reads = np.full((C * S, L), 5, np.uint8)
+    drafts = np.full((C, L), 5, np.uint8)
+    rl = np.zeros(C * S, np.int32)
+    dl = np.zeros(C, np.int32)
+    for c in range(C):
+        tpl = rng.integers(0, 4, int(rng.integers(L - 600, L - 140))).astype(np.uint8)
+        draft = noisy_copy(rng, tpl, 0.03)[:L]
+        drafts[c, : len(draft)], dl[c] = draft, len(draft)
+        for s in range(S):
+            read = noisy_copy(rng, tpl, 0.08)[:L]
+            reads[c * S + s, : len(read)], rl[c * S + s] = read, len(read)
+    reads_t, rl_t, dl_t = (torch.from_numpy(x).to(dev) for x in (reads, rl, dl))
+    drafts_t = torch.from_numpy(drafts).to(dev)
+    refs_t = drafts_t.repeat_interleave(S, dim=0)
+    tl_t = dl_t.repeat_interleave(S)
+
+    def forward():
+        return pileup.forward_auto(reads_t, rl_t, refs_t, tl_t, W)
+
+    best, planes = forward()
+    fwd_ms = _host_ms(forward, 3)
+
+    def traceback():
+        return pileup._traceback_batch(best, planes, reads_t, W, L)
+
+    base_at, ins_cnt, ins_base = (x.reshape(C, S, L) for x in traceback()[:3])
+    tb_ms = _host_ms(traceback, 3)
+    vote_ms = _host_ms(
+        lambda: consensus.vote_columns_batch(base_at, ins_cnt, ins_base, drafts_t, dl_t), 3)
+
+    def one_round():
+        b, p = forward()
+        cols = (x.reshape(C, S, L) for x in pileup._traceback_batch(b, p, reads_t, W, L)[:3])
+        return consensus.vote_columns_batch(*cols, drafts_t, dl_t)
+
+    round_ms = _host_ms(one_round, 1)
+    traced = _device_ms(one_round)
+    busy = traced["device_ms"] / round_ms if traced["events"] else None
+    return {"C": C, "S": S, "L": L, "W": W, "forward_ms": fwd_ms, "traceback_ms": tb_ms,
+            "vote_ms": vote_ms, "round_ms": round_ms, "device_ms": traced["device_ms"],
+            "device_events": traced["events"], "busy_share": busy}
+
+
+# ---------------------------------------------------------------------------
+# end to end
+
+
+def _write_lane(root: str, lib) -> None:
+    from ont_tcrconsensus_tpu_torch.io import fastx
+
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "fastq_pass", "barcode01"))
+    fastx.write_fasta(os.path.join(root, "reference.fa"), lib.reference.items())
+    fastx.write_fastq(os.path.join(root, "fastq_pass", "barcode01", "barcode01.fastq.gz"),
+                      lib.reads)
+
+
+def _run_lane(root: str, knobs: dict, device: str, timings: dict | None = None):
+    from ont_tcrconsensus_tpu_torch.pipeline.config import RunConfig
+    from ont_tcrconsensus_tpu_torch.pipeline.run import run_with_config
+
+    shutil.rmtree(os.path.join(root, "fastq_pass", "nano_tcr"), ignore_errors=True)
+    cfg = RunConfig.from_dict({
+        "reference_file": os.path.join(root, "reference.fa"),
+        "fastq_pass_dir": os.path.join(root, "fastq_pass"),
+        "polish_method": "poa",
+        "delete_tmp_files": False,
+        **knobs,
+    })
+    return run_with_config(cfg, device=device, timings=timings)
+
+
+def _artifacts(root: str) -> dict[str, bytes]:
+    lib_dir = os.path.join(root, "fastq_pass", "nano_tcr", "barcode01")
+    out = {}
+    for rel in ("counts/umi_consensus_counts.csv", "fasta/merged_consensus.fasta"):
+        with open(os.path.join(lib_dir, rel), "rb") as fh:
+            out[rel] = fh.read()
+    return out
+
+
+def small_e2e() -> dict:
+    import torch
+
+    from ont_tcrconsensus_tpu_torch.io import simulator
+
+    lib = simulator.simulate_library(
+        seed=11, num_regions=4, molecules_per_region=(2, 3), reads_per_molecule=(5, 8),
+        sub_rate=0.006, ins_rate=0.003, del_rate=0.003, region_len=(700, 850),
+    )
+    root = os.path.join(WORK, "small")
+    _write_lane(root, lib)
+    knobs = {"minimal_length": 600, "min_reads_per_cluster": 4, "read_batch_size": 64}
+    t0 = time.perf_counter()
+    got_cuda = _run_lane(root, knobs, "cuda")
+    torch.cuda.synchronize()
+    cuda_s = time.perf_counter() - t0
+    art_cuda = _artifacts(root)
+    t0 = time.perf_counter()
+    got_cpu = _run_lane(root, knobs, "cpu")
+    cpu_s = time.perf_counter() - t0
+    art_cpu = _artifacts(root)
+    for rel in art_cuda:
+        if art_cuda[rel] != art_cpu[rel]:
+            raise AssertionError(f"small e2e: {rel} differs between cuda and cpu")
+    for dev, got in (("cuda", got_cuda), ("cpu", got_cpu)):
+        if got.get("barcode01") != lib.true_counts:
+            raise AssertionError(f"small e2e on {dev}: counts {got.get('barcode01')} "
+                                 f"!= truth {lib.true_counts}")
+    return {"n_reads": len(lib.reads), "cuda_s": cuda_s, "cpu_s": cpu_s,
+            "artifacts_identical": True, "counts_exact": True}
+
+
+def full_e2e(kernels, runs: int) -> dict:
+    import torch
+
+    from ont_tcrconsensus_tpu_torch.io import simulator
+
+    t0 = time.perf_counter()
+    lib = simulator.simulate_library(
+        seed=33, num_regions=56, molecules_per_region=(8, 14), reads_per_molecule=(12, 22),
+        error_model=simulator.OntErrorModel(), with_adapters=True, num_similar_pairs=6,
+        similar_divergence=0.01, num_negative_controls=2,
+    )
+    root = os.path.join(WORK, "full")
+    _write_lane(root, lib)
+    data_s = time.perf_counter() - t0
+    knobs = {"minimal_length": 1000, "min_reads_per_cluster": 4, "read_batch_size": 1024}
+    seconds, stages, launches, diffs = [], [], None, {}
+    for run in range(runs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if run == 0:  # the main path's run: its launches are the ones reported
+            for k in kernels:
+                k.launches = 0
+        stage_s: dict[str, float] = {}
+        t0 = time.perf_counter()
+        got = _run_lane(root, knobs, "cuda", timings=stage_s)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        stages.append(stage_s)
+        if run == 0:
+            launches = {k.__name__: k.launches for k in kernels}
+        counts = got.get("barcode01") or {}
+        diffs.update({f"run {run}: {k}": (counts.get(k, 0), lib.true_counts.get(k, 0))
+                      for k in set(counts) | set(lib.true_counts)
+                      if counts.get(k, 0) != lib.true_counts.get(k, 0)})
+    out = {"n_reads": len(lib.reads), "n_regions": len(lib.reference), "runs": runs,
+           "seconds": seconds, "reads_per_s": [len(lib.reads) / s for s in seconds],
+           "counts_exact": not diffs,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "data_s": data_s, "launches": launches, "stage_s": stages}
+    if diffs:
+        out["count_diffs"] = diffs
+    return out
+
+
+# ---------------------------------------------------------------------------
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--out", help="also write every number to this JSON file")
+    parser.add_argument("--lane-runs", type=int, default=2,
+                        help="full-size lane runs (the first is the main path's)")
+    args = parser.parse_args(argv)
+
+    try:
+        import torch
+    except ImportError:
+        return _fail("PyTorch is not installed")
+    if not torch.cuda.is_available():
+        return _fail("no CUDA device: this script needs one card")
+    sys.path.insert(0, ROOT)
+    try:
+        from ont_tcrconsensus_tpu_torch.ops import _build, pileup_kernel, sw_kernel
+        from ont_tcrconsensus_tpu_torch.pipeline import run as run_mod
+    except ImportError as exc:
+        return _fail(f"the port is not beside this script ({exc})")
+    if any(m in ("jax", "ont_tcrconsensus_tpu")
+           or m.startswith(("jax.", "ont_tcrconsensus_tpu."))
+           for m in sys.modules):
+        return _fail("the port imported JAX or the JAX package")
+
+    report: dict = {}
+    # 1. device
+    run_mod.resolve_device("cuda")
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    smi = _nvidia_smi()
+    print(f"device: {kind} (count {torch.cuda.device_count()}); nvidia-smi: {smi}", flush=True)
+    report["device"] = {"kind": kind, "nvidia_smi": smi, "torch": torch.__version__,
+                        "cuda": torch.version.cuda}
+
+    # 2. build
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    report["build_s"] = time.perf_counter() - t0
+    print(f"build: {report['build_s']:.1f} s", flush=True)
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+    report["sass"] = {}
+    for name in _build.KERNELS:
+        for fn, mix in _sass_mix(name).items():
+            report["sass"][fn] = mix
+            print(f"  sass {fn}: " + ", ".join(f"{m} {n}" for m, n in mix.items()), flush=True)
+
+    # 3. kernel parity at main-path shapes
+    # (batch, L, W): the read passes' buckets at band 128, the
+    # self-homology pass's band 512; polish at band 64, and at band 128 for
+    # the 3072-wide bucket (stages.polish_clusters_all)
+    report["sw"] = [check_sw(dev, seed, B, L, W) for seed, (B, L, W) in
+                    enumerate(((2048, 2048, 128), (2048, 3072, 128), (256, 2560, 512)))]
+    report["pileup"] = [check_pileup(dev, 10 + seed, N, L, W) for seed, (N, L, W) in
+                        enumerate(((1024, 2048, 64), (1024, 3072, 64), (1024, 3072, 128)))]
+    for key in ("sw", "pileup"):
+        for r in report[key]:
+            print(f"parity {key} L={r['L']} W={r['W']}: exact; kernel {r['ms']:.3f} ms, plain "
+                  f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}, "
+                  f"{r['fn_ops_per_cell']} ops a cell); design floor {r['design_bound_ms']:.3f} ms "
+                  f"({r['design_ops_per_cell']} ops, {r['design_shuffles_per_cell']:.2f} "
+                  f"shuffles a cell)", flush=True)
+    split = report["polish_split"] = polish_split(dev, 20)
+    print(f"polish round (C={split['C']} S={split['S']} L={split['L']} W={split['W']}): "
+          f"B2 forward {split['forward_ms']:.1f} ms, traceback {split['traceback_ms']:.1f} ms, "
+          f"vote {split['vote_ms']:.1f} ms; whole round {split['round_ms']:.1f} ms, device "
+          f"{split['device_ms']:.1f} ms over {split['device_events']} traced events, busy share "
+          f"{split['busy_share']}", flush=True)
+
+    # 4. small e2e, cuda vs cpu
+    report["small_e2e"] = small_e2e()
+    print(f"small e2e: artifacts identical on cuda and cpu, counts exact "
+          f"(cuda {report['small_e2e']['cuda_s']:.1f} s, cpu {report['small_e2e']['cpu_s']:.1f} s)",
+          flush=True)
+
+    # 5. full-size e2e (the main path)
+    kernels = (sw_kernel.align_banded_cuda, pileup_kernel.forward_planes_cuda)
+    full = report["full_e2e"] = full_e2e(kernels, max(args.lane_runs, 1))
+    print(f"full e2e: {full['n_reads']} reads in " + ", ".join(
+          f"{s:.2f} s ({r:.1f} reads/s)" for s, r in zip(full["seconds"], full["reads_per_s"]))
+          + f"; counts_exact={full['counts_exact']}, max memory "
+          f"{full['max_memory_allocated_gb']:.2f} GB, launches {full['launches']}", flush=True)
+    for run, stage_s in enumerate(full["stage_s"]):
+        print(f"full e2e run {run} stages (s): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in stage_s.items()), flush=True)
+    _dump(args.out, report)
+    if not full["counts_exact"]:
+        return _fail(f"full e2e counts differ from the truth: {full.get('count_diffs')}")
+    if not all(full["launches"].values()):
+        return _fail(f"a kernel of the main path never launched: {full['launches']}")
+
+    # 6. kernels line
+    entries = []
+    for k, key, name, src, replaces in (
+        (sw_kernel.align_banded_cuda, "sw", "sw_banded",
+         "ont_tcrconsensus_tpu_torch/csrc/sw_banded.cu", "ont_tcrconsensus_tpu/ops/sw_pallas.py:56"),
+        (pileup_kernel.forward_planes_cuda, "pileup", "pileup_forward",
+         "ont_tcrconsensus_tpu_torch/csrc/pileup_forward.cu",
+         "ont_tcrconsensus_tpu/ops/pileup_pallas.py:61"),
+    ):
+        r = report[key][1]  # L=3072: the read passes' band 128, the polish band 64
+        entries.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": full["launches"][k.__name__],
+            "max_abs_err": max(x["max_abs_err"] for x in report[key]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+        })
+    print(json.dumps({"kernels": entries}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    shutil.rmtree(WORK, ignore_errors=True)
+    return 0
+
+
+def _dump(path, report) -> None:
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as fh:
+            json.dump(report, fh, indent=1)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

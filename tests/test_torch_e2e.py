@@ -1,0 +1,114 @@
+"""The PyTorch port end to end against the JAX package: the counts CSV and
+the merged consensus FASTA must be byte-identical, and the counts equal the
+simulator's truth. Two lanes: the JAX package's e2e lane (seed 11, four
+pre-trimmed regions of 700-850 nt, iid errors) and an untrimmed one (seed
+23, adapters and primers, the systematic ONT error model, a near-duplicate
+pair and a negative control). Both run ``poa`` polish at read batch 64. The
+port runs through its CLI with ``--cpu``; without that flag it asks for the
+CUDA card."""
+
+import json
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from ont_tcrconsensus_tpu.io import fastx as jfastx  # noqa: E402
+from ont_tcrconsensus_tpu.io import simulator as jsim  # noqa: E402
+from ont_tcrconsensus_tpu.pipeline.config import RunConfig as JConfig  # noqa: E402
+from ont_tcrconsensus_tpu.pipeline.run import run_with_config as jax_run  # noqa: E402
+from ont_tcrconsensus_tpu_torch.pipeline import cli  # noqa: E402
+from ont_tcrconsensus_tpu_torch.pipeline import run as trun  # noqa: E402
+from ont_tcrconsensus_tpu_torch.pipeline.config import RunConfig  # noqa: E402
+
+ARTIFACTS = ("counts/umi_consensus_counts.csv", "fasta/merged_consensus.fasta")
+
+
+def _lane_dir(root, lib):
+    root.mkdir()
+    jfastx.write_fasta(root / "reference.fa", lib.reference.items())
+    (root / "fastq_pass" / "barcode01").mkdir(parents=True)
+    jfastx.write_fastq(root / "fastq_pass" / "barcode01" / "barcode01.fastq.gz", lib.reads)
+    return {
+        "reference_file": str(root / "reference.fa"),
+        "fastq_pass_dir": str(root / "fastq_pass"),
+        "minimal_length": 600,
+        "min_reads_per_cluster": 4,
+        "read_batch_size": 64,
+        "polish_method": "poa",
+        "delete_tmp_files": False,
+    }
+
+
+LANES = {
+    "clean": dict(seed=11, num_regions=4, molecules_per_region=(2, 3),
+                  reads_per_molecule=(5, 8), sub_rate=0.006, ins_rate=0.003,
+                  del_rate=0.003, region_len=(700, 850)),
+    "untrimmed": dict(seed=23, num_regions=3, molecules_per_region=(2, 3),
+                      reads_per_molecule=(5, 8), region_len=(700, 850),
+                      with_adapters=True, num_similar_pairs=1, similar_divergence=0.01,
+                      num_negative_controls=1),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(LANES))
+def runs(request, tmp_path_factory):
+    tmp = tmp_path_factory.mktemp(f"torch_e2e_{request.param}")
+    kw = dict(LANES[request.param])
+    if kw.get("with_adapters"):
+        kw["error_model"] = jsim.OntErrorModel()
+    lib = jsim.simulate_library(**kw)
+    port_cfg = _lane_dir(tmp / "port", lib)
+    cfg_path = tmp / "port_config.json"
+    cfg_path.write_text(json.dumps(port_cfg))
+    assert cli.main([str(cfg_path), "--cpu"]) == 0
+    jax_results = jax_run(JConfig.from_dict(_lane_dir(tmp / "jax", lib)))
+    out = {}
+    for side in ("port", "jax"):
+        lib_dir = tmp / side / "fastq_pass" / "nano_tcr" / "barcode01"
+        out[side] = {rel: (lib_dir / rel).read_bytes() for rel in ARTIFACTS}
+    return lib, out, jax_results
+
+
+def _config(tmp_path, **knobs):
+    """A run config whose checks fail before any file is read."""
+    return RunConfig.from_dict({
+        "reference_file": str(tmp_path / "reference.fa"),
+        "fastq_pass_dir": str(tmp_path), "polish_method": "poa", **knobs,
+    })
+
+
+@pytest.mark.parametrize("rel", ARTIFACTS)
+def test_artifacts_byte_identical_to_jax(runs, rel):
+    _, out, _ = runs
+    assert out["port"][rel] == out["jax"][rel]
+
+
+def test_counts_equal_the_truth(runs):
+    lib, out, jax_results = runs
+    rows = out["port"]["counts/umi_consensus_counts.csv"].decode().splitlines()
+    assert rows[0] == "TCR,Count"
+    got = {k: int(v) for k, v in (r.rsplit(",", 1) for r in rows[1:])}
+    assert got == lib.true_counts == jax_results["barcode01"]
+    fasta = out["port"]["fasta/merged_consensus.fasta"].decode()
+    assert fasta.count(">") == sum(lib.true_counts.values())
+
+
+def test_the_card_is_the_default_and_its_absence_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = _config(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trun.run_with_config(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trun.run_with_config(cfg, device="cuda")
+    assert not (tmp_path / "nano_tcr").exists()  # nothing ran
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("polish_method", "rnn"), ("mesh_shape", {"data": 2}), ("distributed", True),
+    ("resume", True), ("chaos", [{"site": "assign.dispatch", "kind": "transient"}]),
+])
+def test_knobs_of_later_slices_raise(tmp_path, knob, value):
+    cfg = _config(tmp_path, **{knob: value})
+    with pytest.raises(NotImplementedError):
+        trun.run_with_config(cfg, device="cpu")
