@@ -15,10 +15,11 @@ of which fails the script (non-zero exit, no result line):
    (the width buckets of 1.4-2.3 kb reads), plus B1 at the self-homology
    band 512 and B2 at the 3072 bucket's band 128, against the plain
    PyTorch version on the same card tensors: every output exactly equal.
-   Times are CUDA-event medians; the bound is the larger of bytes over the
-   HBM rate and the int32 operations the function needs over the int32
-   issue rate (``_bound_ms``); the design's own floor (its F doubling and
-   warp shuffles) is reported beside it. Then one polish round at a
+   Times are CUDA-event medians of 7 calls after 2 warm-ups; the bound is
+   the larger of bytes over the HBM rate and the int32 operations the
+   function needs over the int32 issue rate (``_bound_ms``); the design's
+   own floor (its second F pass, band-shift moves, carry scan and warp
+   shuffles) is reported beside it. Then one polish round at a
    main-path tile, split into the B2 forward, the traceback and the vote,
    and traced once with ``torch.profiler`` for the card's busy share;
 4. small e2e: the tests' 4-region lane on ``cuda`` and on ``cpu`` (plain
@@ -30,7 +31,13 @@ of which fails the script (non-zero exit, no result line):
    ``cuda`` with ``polish_method: "poa"``, unobserved, ``--lane-runs``
    times (2 by default, for the spread). Kernel launch counts are zeroed
    just before the first run and read just after it; each kernel must have
-   launched, and every run's counts must equal the truth.
+   launched, and every run's counts must equal the truth. The first run
+   also records each launch's (batch, L, Lr, W), with a host copy of each
+   shape's first inputs (off the card, so the run's peak memory is the
+   lane's own; the copies are in that run's wall time); after the runs each
+   shape's kernel is timed on those inputs, for the launches x (time -
+   bound) the run spent at its real shapes. Peak device memory is read per
+   run.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes every number
@@ -41,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import os
 import re
@@ -98,40 +106,79 @@ PILEUP_CELL_OPS = {
     "E: band mask": 1,
     "best: compare, score, row": 3,
 }
-# The kernels' design (csrc/*.cu): one F doubling step costs what one
-# sequential F step does (SW: shift-add, compare, value, four channels, gap
-# length; pileup: shift-add, compare, value, gap length), and the warp
-# shifts ``(E values, F values)`` along the band.
-SW_STEP_OPS, SW_SHIFTED = 9, (5, 6)
-PILEUP_STEP_OPS, PILEUP_SHIFTED = 5, (2, 2)
+# Cells past a read's end + 1 in B2: H and E are NEG there, so the plane is
+# the fresh-start direction of each cell (csrc/pileup_forward.cu).
+PILEUP_PAD_CELL_OPS = {
+    "match test, substitution": 4,
+    "direction: E fill vs diagonal vs fresh, E-opened bit": 5,
+}
+# The kernels' own work (csrc/dp_common.cuh): a lane owns NS = 4 contiguous
+# slots (2 for B2 at W=64), a warp 32 * NS, a band W / (32 * NS) warps. Per
+# cell: the recurrences as the design computes them (B1's four channels
+# packed in two words, so a choice moves three registers, not five; F as a
+# second pass over the lane's slots from the scanned carry); for NS - 1 of
+# NS slots, the lane's local F step and the register moves of the band
+# shift (E's words and the ref window); per lane and row, the carry scan's
+# keys and maxes, the winner's decoding, the row's constants, loads, codes
+# and loop; and per lane and row, the warp shuffles of E's edge, the scan
+# (6) and the winner's fields, more when a band spans warps.
+SW_DESIGN = {
+    "cell_ops": {
+        "E: open vs extend, value and two channel words": 6,
+        "tmp: validity, match test, diagonal score and channel words": 12,
+        "tmp: E vs diagonal and empty clamp (three words each), band mask": 10,
+        "E: one more column": 1,
+        "F pass: open, H vs F, gap columns, band masks, carry of three words": 17,
+        "best: compare, score, key, two channel words": 6,
+    },
+    "f_step_ops": 7, "shift_moves": 4, "row_ops": 30,
+    "row_shuffles": 12, "row_shuffles_multi_warp": 4,
+}
+PILEUP_DESIGN = {
+    "cell_ops": {
+        "E: open vs extend, opened bit": 5,
+        "tmp: validity with the row, match test, diagonal, direction": 9,
+        "tmp: E vs diagonal, empty clamp, band mask": 6,
+        "E-opened bit into the plane": 1,
+        "F pass: open, H vs F, band masks, fjump, carry": 14,
+        "best: compare, score, key": 4,
+        "plane word": 1,
+    },
+    "f_step_ops": 4, "shift_moves": 3, "row_ops": 28,
+    "row_shuffles": 9, "row_shuffles_multi_warp": 0,
+}
 
 
-def _design_per_cell(W: int, fn_ops: int, step_ops: int, shifted: tuple[int, int]):
-    """The kernel design's int32 operations and warp shuffles a cell: the F
-    doubling's log2(W) steps in place of one sequential step, and the band
-    shifts (E's values once; F's per doubling step below 32 slots, steps of
-    32 or more being register moves, and once more at the end), each
-    2 - 1/NS shuffles a slot for NS = W/32 slots a lane."""
-    steps = (W - 1).bit_length()
-    e_values, f_values = shifted
-    shifts = e_values + f_values * (min(steps, 5) + 1)
-    return fn_ops + step_ops * (steps - 1), shifts * (2 - 32 / W)
+def _design_per_cell(W: int, design: dict):
+    """The kernel design's int32 operations (register moves included) and
+    warp shuffles a cell: NS slots a lane, so per-lane-row terms are shared
+    by NS cells."""
+    ns = min(W // 32, 4)
+    ops = (sum(design["cell_ops"].values())
+           + (design["f_step_ops"] + design["shift_moves"]) * (ns - 1) / ns
+           + design["row_ops"] / ns)
+    multi_warp = W > 32 * ns
+    shuffles = (design["row_shuffles"] + design["row_shuffles_multi_warp"] * multi_warp) / ns
+    return ops, shuffles
 
 
-def _costs(cells: int, n_bytes: int, W: int, cell_ops: dict, step_ops: int,
-           shifted: tuple[int, int]) -> dict:
+def _costs(cells: int, n_bytes: int, W: int, cell_ops: dict, design: dict,
+           pad_cells: int = 0) -> dict:
+    """Bound and design floor of ``cells`` DP cells (and ``pad_cells``
+    cells of B2 past a read's end, at PILEUP_PAD_CELL_OPS)."""
     fn_ops = sum(cell_ops.values())
-    bound, by = _bound_ms(n_bytes, cells * fn_ops)
-    design_ops, design_shuffles = _design_per_cell(W, fn_ops, step_ops, shifted)
-    design_ms = cells * max(design_ops / INT32_OPS_PER_S,
-                            design_shuffles / SHUFFLES_PER_S) * 1e3
-    return {"cells": cells, "bound_ms": bound, "bound_by": by, "fn_ops_per_cell": fn_ops,
-            "design_ops_per_cell": design_ops, "design_shuffles_per_cell": design_shuffles,
-            "design_bound_ms": design_ms}
+    pad_ops = sum(PILEUP_PAD_CELL_OPS.values())
+    bound, by = _bound_ms(n_bytes, cells * fn_ops + pad_cells * pad_ops)
+    design_ops, design_shuffles = _design_per_cell(W, design)
+    design_ms = (cells * max(design_ops / INT32_OPS_PER_S, design_shuffles / SHUFFLES_PER_S)
+                 + pad_cells * pad_ops / INT32_OPS_PER_S) * 1e3
+    return {"cells": cells, "pad_cells": pad_cells, "bound_ms": bound, "bound_by": by,
+            "fn_ops_per_cell": fn_ops, "design_ops_per_cell": design_ops,
+            "design_shuffles_per_cell": design_shuffles, "design_bound_ms": design_ms}
 
 
-SASS_MNEMONICS = ("IMAD", "IADD3", "ISETP", "SEL", "LOP3", "VIMNMX", "IMNMX", "SHFL",
-                  "LDL", "STL")
+SASS_MNEMONICS = ("IMAD", "IADD3", "ISETP", "SEL", "LOP3", "VIMNMX", "IMNMX", "MOV", "SHFL",
+                  "BAR", "LDL", "STL")
 
 
 def _sass_mix(name: str) -> dict[str, dict[str, int]]:
@@ -139,7 +186,7 @@ def _sass_mix(name: str) -> dict[str, dict[str, int]]:
     kernel, by mnemonic (``cuobjdump -sass``): which pipes the compiler put
     the int32 work on (IMAD issues on the FMA pipe; IADD3, ISETP, SEL,
     LOP3 and IMNMX on the INT32 pipe), the shuffles it kept and the local
-    memory spills."""
+    memory spills; ``all`` counts every instruction."""
     from ont_tcrconsensus_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
@@ -148,14 +195,16 @@ def _sass_mix(name: str) -> dict[str, dict[str, int]]:
     mix: dict[str, collections.Counter] = {}
     counter = None
     for line in text.splitlines():
-        fn = re.search(r"Function : \S*?([a-z][a-z_]*_kernel)ILi(\d+)E", line)
+        fn = re.search(r"Function : \S*?([a-z][a-z_]*_kernel)I((?:Li\d+E)+)E", line)
         if fn:
-            counter = mix.setdefault(f"{fn.group(1)}<{fn.group(2)}>", collections.Counter())
+            args = ",".join(re.findall(r"Li(\d+)E", fn.group(2)))
+            counter = mix.setdefault(f"{fn.group(1)}<{args}>", collections.Counter())
             continue
         op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]+)", line)
         if counter is not None and op:
             counter[op.group(1)] += 1
-    return {fn: {m: c[m] for m in SASS_MNEMONICS} for fn, c in sorted(mix.items())}
+    return {fn: {**{m: c[m] for m in SASS_MNEMONICS}, "all": sum(c.values())}
+            for fn, c in sorted(mix.items())}
 
 
 def _fail(msg: str) -> int:
@@ -259,13 +308,21 @@ def check_sw(dev, seed: int, B: int, L: int, W: int) -> dict:
         sw_kernel.align_banded_cuda(*args, band_width=W)
     ms = _time_ms(lambda: sw_kernel.align_banded_cuda(*args, band_width=W), 7)
     plain_ms = _time_ms(lambda: sw_align.align_banded(*args, band_width=W), 3)
-    # rows past a read's length cannot move the result: the function needs
-    # only the rows of each read, and reads each read base once
-    rows = int(torch.clamp(rl, max=L).long().sum())
-    n_bytes = rows + B * refs.shape[1] + 3 * 4 * B + 7 * 4 * B
     return {"L": L, "B": B, "W": W, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            **_costs(rows * W, n_bytes, W, SW_CELL_OPS, SW_STEP_OPS, SW_SHIFTED),
+            **_sw_costs(rl, refs.shape[1], L, W),
             "aligned_pairs": int((got.score > 0).sum())}
+
+
+def _sw_costs(rl, Lr: int, L: int, W: int) -> dict:
+    """B1's bound and design floor for read lengths ``rl``: rows past a
+    read's length cannot move the result, so the function needs only the
+    rows of each read, and reads each read base once."""
+    import torch
+
+    B = rl.shape[0]
+    rows = int(torch.clamp(rl, min=0, max=L).long().sum())
+    n_bytes = rows + B * Lr + 3 * 4 * B + 7 * 4 * B
+    return _costs(rows * W, n_bytes, W, SW_CELL_OPS, SW_DESIGN)
 
 
 def check_pileup(dev, seed: int, N: int, L: int, W: int) -> dict:
@@ -290,12 +347,78 @@ def check_pileup(dev, seed: int, N: int, L: int, W: int) -> dict:
         pileup_kernel.forward_planes_cuda(*args, band_width=W)
     ms = _time_ms(lambda: pileup_kernel.forward_planes_cuda(*args, band_width=W), 7)
     plain_ms = _time_ms(lambda: pileup._forward_batch(*args, band_width=W), 3)
-    # every row's planes are output, so every cell of the padded width is
-    cells = N * L * W
-    n_bytes = N * L + N * refs.shape[1] + 2 * 4 * N + 3 * 4 * N + 2 * cells
     return {"L": L, "N": N, "W": W, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            **_costs(cells, n_bytes, W, PILEUP_CELL_OPS, PILEUP_STEP_OPS, PILEUP_SHIFTED),
+            **_pileup_costs(rl, refs.shape[1], L, W),
             "aligned_lanes": int((best_k[:, 0] > 0).sum())}
+
+
+def _pileup_costs(rl, Lr: int, L: int, W: int) -> dict:
+    """B2's bound and design floor for read lengths ``rl``: every row's
+    planes are output, each cell written once; the rows of a read and the
+    one after its end need the DP, the rows after that only the bases."""
+    import torch
+
+    N = rl.shape[0]
+    dp_rows = int(torch.clamp(rl.long() + 1, min=0, max=L).sum())
+    n_bytes = N * L + N * Lr + 2 * 4 * N + 3 * 4 * N + 2 * N * L * W
+    return _costs(dp_rows * W, n_bytes, W, PILEUP_CELL_OPS, PILEUP_DESIGN,
+                  pad_cells=(N * L - dp_rows) * W)
+
+
+@contextlib.contextmanager
+def _launch_shapes(module, name: str, shape_of):
+    """Count the CUDA calls of the dispatcher ``module.name`` by input shape
+    while the block runs, keeping a host copy of the first call's inputs of
+    each shape: {shape: [calls, args, kwargs]}. The dispatcher is wrapped,
+    not the kernel's wrapper, which keeps counting its own launches."""
+    import torch
+
+    fn = getattr(module, name)
+    seen: dict = {}
+
+    def record(*args, **kwargs):
+        shape = shape_of(*args, **kwargs)
+        if shape[0] and args[0].device.type == "cuda":
+            if shape not in seen:
+                seen[shape] = [0, tuple(a.to("cpu", copy=True) if torch.is_tensor(a) else a
+                                        for a in args), dict(kwargs)]
+            seen[shape][0] += 1
+        return fn(*args, **kwargs)
+
+    setattr(module, name, record)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, fn)
+
+
+def _sw_shape(reads, read_lens, refs, *rest, band_width=256, **_):
+    return (reads.shape[0], reads.shape[1], refs.shape[1], band_width)
+
+
+def _pileup_shape(reads, read_lens, refs, ref_lens, band_width):
+    return (reads.shape[0], reads.shape[1], refs.shape[1], band_width)
+
+
+def launch_gaps(shapes: dict, launch, costs, dev) -> dict:
+    """Each recorded shape's kernel time on its first launch's own inputs,
+    moved back to the card (CUDA-event median of 5 after one warm-up), its
+    bound, and the launches x (time - bound) it costs the run."""
+    import torch
+
+    rows, total = [], 0.0
+    for shape, (calls, host_args, kwargs) in sorted(shapes.items()):
+        args = tuple(a.to(dev) if torch.is_tensor(a) else a for a in host_args)
+        launch(*args, **kwargs)
+        ms = _time_ms(lambda: launch(*args, **kwargs), 5)
+        c = costs(args[1], shape[2], shape[1], shape[3])
+        gap = calls * (ms - c["bound_ms"])
+        total += gap
+        rows.append({"shape": list(shape), "launches": calls, "ms": ms,
+                     "bound_ms": c["bound_ms"], "design_bound_ms": c["design_bound_ms"],
+                     "launches_x_gap_ms": gap})
+    return {"shapes": rows, "launches_x_gap_ms": total,
+            "kernel_ms": sum(r["launches"] * r["ms"] for r in rows)}
 
 
 def polish_split(dev, seed: int, C: int = 64, S: int = 16, L: int = 2048, W: int = 64) -> dict:
@@ -424,9 +547,17 @@ def small_e2e() -> dict:
 
 
 def full_e2e(kernels, runs: int) -> dict:
+    """The full lane ``runs`` times; the first run's launches are counted,
+    and recorded by shape for :func:`launch_gaps`."""
     import torch
 
     from ont_tcrconsensus_tpu_torch.io import simulator
+    from ont_tcrconsensus_tpu_torch.ops import pileup, pileup_kernel, sw_kernel
+
+    dev = torch.device("cuda")
+    recorded = {"sw": (sw_kernel, "align_banded_auto", _sw_shape),
+                "pileup": (pileup, "forward_auto", _pileup_shape)}
+    shapes: dict = {}
 
     t0 = time.perf_counter()
     lib = simulator.simulate_library(
@@ -438,7 +569,7 @@ def full_e2e(kernels, runs: int) -> dict:
     _write_lane(root, lib)
     data_s = time.perf_counter() - t0
     knobs = {"minimal_length": 1000, "min_reads_per_cluster": 4, "read_batch_size": 1024}
-    seconds, stages, launches, diffs = [], [], None, {}
+    seconds, stages, peaks, launches, diffs = [], [], [], None, {}
     for run in range(runs):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -446,10 +577,15 @@ def full_e2e(kernels, runs: int) -> dict:
             for k in kernels:
                 k.launches = 0
         stage_s: dict[str, float] = {}
-        t0 = time.perf_counter()
-        got = _run_lane(root, knobs, "cuda", timings=stage_s)
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
+        with contextlib.ExitStack() as stack:
+            if run == 0:
+                shapes = {key: stack.enter_context(_launch_shapes(module, name, shape_of))
+                          for key, (module, name, shape_of) in recorded.items()}
+            t0 = time.perf_counter()
+            got = _run_lane(root, knobs, "cuda", timings=stage_s)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() / 1e9)
         stages.append(stage_s)
         if run == 0:
             launches = {k.__name__: k.launches for k in kernels}
@@ -460,8 +596,12 @@ def full_e2e(kernels, runs: int) -> dict:
     out = {"n_reads": len(lib.reads), "n_regions": len(lib.reference), "runs": runs,
            "seconds": seconds, "reads_per_s": [len(lib.reads) / s for s in seconds],
            "counts_exact": not diffs,
-           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "data_s": data_s, "launches": launches, "stage_s": stages}
+           "max_memory_allocated_gb": peaks,
+           "data_s": data_s, "launches": launches, "stage_s": stages,
+           "launch_gaps": {
+               "sw": launch_gaps(shapes["sw"], sw_kernel.align_banded_cuda, _sw_costs, dev),
+               "pileup": launch_gaps(shapes["pileup"], pileup_kernel.forward_planes_cuda,
+                                     _pileup_costs, dev)}}
     if diffs:
         out["count_diffs"] = diffs
     return out
@@ -525,7 +665,8 @@ def main(argv=None) -> int:
     # the 3072-wide bucket (stages.polish_clusters_all)
     report["sw"] = [check_sw(dev, seed, B, L, W) for seed, (B, L, W) in
                     enumerate(((2048, 2048, 128), (2048, 3072, 128), (256, 2560, 512)))]
-    report["pileup"] = [check_pileup(dev, 10 + seed, N, L, W) for seed, (N, L, W) in
+    report["pileup"] = [check_pileup(dev, 10 + seed, N, L, W)
+                        for seed, (N, L, W) in
                         enumerate(((1024, 2048, 64), (1024, 3072, 64), (1024, 3072, 128)))]
     for key in ("sw", "pileup"):
         for r in report[key]:
@@ -553,10 +694,17 @@ def main(argv=None) -> int:
     print(f"full e2e: {full['n_reads']} reads in " + ", ".join(
           f"{s:.2f} s ({r:.1f} reads/s)" for s, r in zip(full["seconds"], full["reads_per_s"]))
           + f"; counts_exact={full['counts_exact']}, max memory "
-          f"{full['max_memory_allocated_gb']:.2f} GB, launches {full['launches']}", flush=True)
+          + ", ".join(f"{gb:.2f}" for gb in full["max_memory_allocated_gb"])
+          + f" GB, launches {full['launches']}", flush=True)
     for run, stage_s in enumerate(full["stage_s"]):
         print(f"full e2e run {run} stages (s): "
               + ", ".join(f"{k} {v:.2f}" for k, v in stage_s.items()), flush=True)
+    for key, gaps in full["launch_gaps"].items():
+        print(f"full e2e run 0 {key} launches by (batch, L, Lr, W): " + ", ".join(
+              f"{tuple(r['shape'])} x{r['launches']} {r['ms']:.3f} ms (bound {r['bound_ms']:.3f})"
+              for r in gaps["shapes"]), flush=True)
+        print(f"full e2e run 0 {key}: kernel {gaps['kernel_ms']:.1f} ms in all, launches x "
+              f"(time - bound) {gaps['launches_x_gap_ms']:.1f} ms", flush=True)
     _dump(args.out, report)
     if not full["counts_exact"]:
         return _fail(f"full e2e counts differ from the truth: {full.get('count_diffs')}")

@@ -4,229 +4,289 @@
 // ont_tcrconsensus_tpu/ops/sw_pallas.py:56 `_kernel` (driven by
 // `align_banded_pallas`, :190). Semantics are those of
 // ops/sw_align.py `align_banded` cell for cell: the same int32 DP, the same
-// shift-doubling ref-gap cascade (strictly-greater takes, so ties keep the
-// shorter gap), the same four channels (matches, columns, read start, ref
+// ref-gap F (the strictly-greater doubling's values, origins and gap
+// lengths), the same four channels (matches, columns, read start, ref
 // start), and the same best-cell tie-break (max score, then earliest row,
 // then smallest slot; all zero when nothing scores above 0).
 //
-// Design. One warp per pair; the band's W = 32 * NS slots spread over the
-// lanes (NS registers per lane, slot b = k * 32 + lane). The row recurrence
-// is sequential, so the warp loops over the read's rows with the whole DP
-// carry in registers: nothing but the inputs and one 7-int result per pair
-// ever touches device memory. The per-row ref-gap cascade is log2(W)
-// max-plus doubling steps done with warp shuffles (dp_common.cuh). The
-// E (read-gap) update selects open-vs-extend at the SOURCE slot, so each
-// value crosses lanes once per row instead of twice. Per slot the best
-// score is kept with its earliest row; one warp reduction at the end picks
-// the pair's best cell.
+// Design. The band is lane-contiguous (dp_common.cuh): W = 128 is one warp
+// of 4 slots a lane; W = 256, 384 and 512 are 2, 3 and 4 such warps in one
+// block, one pair per block, so no width keeps more than 4 slots' carry in
+// a thread's registers. The four channels ride in two 32-bit registers,
+// (columns, matches) and (read start, ref start), 16 bits each, so every
+// choice between two origins is three selects, not five; this holds while
+// L + Lr < 2^16. The warp loops over the read's rows with the whole DP
+// carry in registers. Per row: E's open-vs-extend at the source slot, then
+// one slot down the band (a register move, and one shuffle of 3 values a
+// lane); tmp; F as the lane's local carry, one Kogge-Stone scan of packed
+// keys across the warp, the winner's gap and channels by indexed shuffle,
+// and a second pass over the lane's slots; then H and a per-lane running
+// best (score, row * 512 + slot, and the two channel words). Across warps,
+// E's edge and the F carry go through shared memory, with two block
+// barriers a row. The row loop is unrolled by two. Nothing but the inputs
+// and one 7-int result per pair touches device memory.
 //
 // Bound on the H100: operations. The function needs 68 int32 operations a
 // cell (chip_smoke.py itemizes them), with F counted as the sequential
-// max-plus g[b] = max(tmp[b], g[b-1] - ext), which keeps the nearest origin
-// on ties just as the strictly-greater doubling does. This design spends
-// 9 operations per doubling step instead, 122 a cell at W = 128, and 41
-// band shifts a cell (E, six values per cascade step below 32 slots, the
-// final F shift), each 2 - 1/NS shuffles a slot: about 72 shuffles a cell,
-// whose rate (32 a clock per SM) sets the design's own floor. Bytes are
-// only the reads, the reference (cached) and the results. Rows past the
-// read's length cannot change the result and are not computed.
+// max-plus over four separate channels. This design adds the lane's local
+// F pass and, per lane and row, the scan's keys and decoding, and saves the
+// selects that packing the channels removes (chip_smoke.py `SW_DESIGN`);
+// its shuffles are 12 a lane-row (E 3, scan 6, winner 3; 4 more when the
+// band spans warps), 3 a cell. About half of the design's instructions are
+// compares, selects and min/max, which issue only on the 64-lane INT32
+// pipe. Rows past the read's length cannot change the result and are not
+// computed.
 #include "dp_common.cuh"
 
 namespace {
 
 using namespace dp;
 
-template <int NS, int S>
-__device__ __forceinline__ void cascade(int (&g)[NS], int (&gm)[NS], int (&gc)[NS],
-                                        int (&grs)[NS], int (&gfs)[NS], int (&gap)[NS],
-                                        int gap_ext, int lane) {
-  if constexpr (S < NS * 32) {
-    int cg[NS], t[NS];
-    bool take[NS];
-    shift_right<NS, S>(g, cg, kNeg, lane);
-#pragma unroll
-    for (int k = 0; k < NS; ++k) {
-      cg[k] -= gap_ext * S;
-      take[k] = cg[k] > g[k];
-    }
-    shift_right<NS, S>(gm, t, 0, lane);
-#pragma unroll
-    for (int k = 0; k < NS; ++k) gm[k] = take[k] ? t[k] : gm[k];
-    shift_right<NS, S>(gc, t, 0, lane);
-#pragma unroll
-    for (int k = 0; k < NS; ++k) gc[k] = take[k] ? t[k] : gc[k];
-    shift_right<NS, S>(grs, t, 0, lane);
-#pragma unroll
-    for (int k = 0; k < NS; ++k) grs[k] = take[k] ? t[k] : grs[k];
-    shift_right<NS, S>(gfs, t, 0, lane);
-#pragma unroll
-    for (int k = 0; k < NS; ++k) gfs[k] = take[k] ? t[k] : gfs[k];
-    shift_right<NS, S>(gap, t, 0, lane);
-#pragma unroll
-    for (int k = 0; k < NS; ++k) {
-      gap[k] = take[k] ? t[k] + S : gap[k];
-      g[k] = take[k] ? cg[k] : g[k];
-    }
-    cascade<NS, 2 * S>(g, gm, gc, grs, gfs, gap, gap_ext, lane);
-  }
-}
+constexpr unsigned kCol = 1u << 16;  // one column in the (columns, matches) word
 
-template <int NS>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+template <int NS, int NW>
+__global__ void __launch_bounds__(NW == 1 ? kWarpsPerBlock * 32 : NW * 32, 4)
 sw_banded_kernel(const uint8_t* __restrict__ reads, const int32_t* __restrict__ read_lens,
                  const uint8_t* __restrict__ refs, const int32_t* __restrict__ ref_lens,
                  const int32_t* __restrict__ offs, int32_t* __restrict__ out,
                  int B, int L, int Lr, int match, int mismatch, int gap_open, int gap_ext) {
-  constexpr int W = NS * 32;
+  constexpr int WS = NS * 32;  // slots a warp
+  constexpr int W = WS * NW;
   constexpr int c = W / 2;
+  constexpr int NWS = NW > 1 ? NW : 1;
+  static_assert(W <= (1 << kSlotBits), "the best cell's key holds 9 bits of slot");
+  // across warps: each warp's E source at its first slot (value, mc, pos),
+  // its F carry at its last slot (value, gap, mc, pos) and its best cell
+  // (score, key, mc, pos)
+  __shared__ int esrc[NWS][3];
+  __shared__ int wcarry[NWS][4];
+  __shared__ int wbest[NWS][4];
   const int lane = threadIdx.x & 31;
-  const int pair = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (pair >= B) return;  // the whole warp leaves together
+  const int warp = NW == 1 ? 0 : (int)(threadIdx.x >> 5);
+  const int pair = NW == 1 ? (int)(blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5))
+                           : (int)blockIdx.x;
+  if (pair >= B) return;  // the whole warp (one pair a warp) leaves together
   const uint8_t* read = reads + (size_t)pair * L;
   const uint8_t* ref = refs + (size_t)pair * Lr;
   const int rlen = read_lens[pair];
   const int tlen = ref_lens[pair];
   const int off = offs[pair];
+  const int b0 = warp * WS + lane * NS;  // this lane's first band slot
+  const int jb = off - c + b0;           // ref index of slot b0 in row 0
   const int go_ge = gap_open + gap_ext;
-  // E value at the band's last slot: shift_up fills H and E with NEG there
-  const int e_fill = (kNeg - go_ge >= kNeg - gap_ext) ? kNeg - go_ge : kNeg - gap_ext;
+  // E at the band's last slot: its source beyond the band has H = E = NEG
+  const int e_fill = max(kNeg - go_ge, kNeg - gap_ext);
 
-  int H[NS], Hm[NS], Hc[NS], Hrs[NS], Hfs[NS];
-  int E[NS], Em[NS], Ec[NS], Ers[NS], Efs[NS];
-  int bH[NS], bRow[NS], bm[NS], bc[NS], brs[NS], bfs[NS];
+  // per slot: score, (columns << 16 | matches) and (read start << 16 | ref
+  // start) of H and of E
+  int H[NS], E[NS], tb[NS];
+  unsigned Hmc[NS], Hpos[NS], Emc[NS], Epos[NS];
 #pragma unroll
   for (int k = 0; k < NS; ++k) {
     H[k] = E[k] = kNeg;
-    Hm[k] = Hc[k] = Hrs[k] = Hfs[k] = 0;
-    Em[k] = Ec[k] = Ers[k] = Efs[k] = 0;
-    bH[k] = 0;
-    bRow[k] = -1;
-    bm[k] = bc[k] = brs[k] = bfs[k] = 0;
+    Hmc[k] = Hpos[k] = Emc[k] = Epos[k] = 0;
+    tb[k] = ref_code(ref_base(ref, jb + k - 1, Lr));
   }
+  int bs = 0, bkey = 0x7fffffff;
+  unsigned bmc = 0, bpos = 0;
 
   const int n_rows = min(L, rlen);
+  int rnext = n_rows > 0 ? read[0] : 0;
+  int tnext = ref_base(ref, jb + NS - 1, Lr);
+#pragma unroll 2
   for (int i = 0; i < n_rows; ++i) {
-    const int rbase = read[i];
-    // E: read-consuming gap from (i-1, j), i.e. the previous row's slot
-    // b+1. Open-vs-extend is decided at the source slot, then shifted.
-    int sE[NS], sM[NS], sC[NS], sRs[NS], sFs[NS];
+    const int rbase = read_code(rnext);
+    slide<NS>(tb, ref_code(tnext));
+    if (i + 1 < n_rows) rnext = read[i + 1];
+    tnext = ref_base(ref, i + 1 + jb + NS - 1, Lr);
+
+    // E: read-consuming gap from (i-1, j), the previous row's slot b+1.
+    // Open-vs-extend is decided at the source slot, then shifted.
 #pragma unroll
     for (int k = 0; k < NS; ++k) {
       const int o = H[k] - go_ge;
       const int e = E[k] - gap_ext;
       const bool top = o >= e;
-      sE[k] = top ? o : e;
-      sM[k] = top ? Hm[k] : Em[k];
-      sC[k] = top ? Hc[k] : Ec[k];
-      sRs[k] = top ? Hrs[k] : Ers[k];
-      sFs[k] = top ? Hfs[k] : Efs[k];
+      E[k] = top ? o : e;
+      Emc[k] = top ? Hmc[k] : Emc[k];
+      Epos[k] = top ? Hpos[k] : Epos[k];
     }
-    int En[NS], Enm[NS], Enc[NS], Enrs[NS], Enfs[NS];
-    shift_up<NS>(sE, En, e_fill, lane);
-    shift_up<NS>(sM, Enm, 0, lane);
-    shift_up<NS>(sC, Enc, 0, lane);
-    shift_up<NS>(sRs, Enrs, 0, lane);
-    shift_up<NS>(sFs, Enfs, 0, lane);
+    int edge = e_fill;
+    unsigned edge_mc = 0, edge_pos = 0;
+    if constexpr (NW > 1) {
+      if (lane == 0) {
+        esrc[warp][0] = E[0]; esrc[warp][1] = (int)Emc[0]; esrc[warp][2] = (int)Epos[0];
+      }
+      __syncthreads();
+      if (warp + 1 < NW) {
+        edge = esrc[warp + 1][0];
+        edge_mc = (unsigned)esrc[warp + 1][1];
+        edge_pos = (unsigned)esrc[warp + 1][2];
+      }
+    }
+    shift_up<NS>(E, edge, lane);
+    shift_up<NS>(Emc, edge_mc, lane);
+    shift_up<NS>(Epos, edge_pos, lane);
 
-    int tmp[NS], tm[NS], tc[NS], trs[NS], tfs[NS], gap[NS];
-    bool valid[NS];
+    // tmp = max(diagonal, E, fresh) with priority D >= E >= fresh, into H.
+    // A fresh start at (i, j) has read start i and ref start j.
+    const int j0 = i + jb;
+    const unsigned fresh_pos = (unsigned)i * (kCol + 1u) + (unsigned)jb;
 #pragma unroll
     for (int k = 0; k < NS; ++k) {
-      Enc[k] += 1;  // one more (gap) column
-      const int j = i + off - c + k * 32 + lane;
-      valid[k] = j >= 0 && j < tlen;
-      const int tb = (j >= 0 && j < Lr) ? (int)ref[j] : kPad;
-      const bool is_match = tb == rbase && rbase < 4 && tb < 4;
+      Emc[k] += kCol;  // one more (gap) column
+      const bool valid = (unsigned)(j0 + k) < (unsigned)tlen;
+      const bool is_match = tb[k] == rbase;
       // diagonal from (i-1, j-1), with the fresh (empty) predecessor of
       // the local-SW 0-clamp starting at (i, j)
       const bool fresh = H[k] < 0;
-      int D = (fresh ? 0 : H[k]) + (is_match ? match : -mismatch);
-      int Dm = (fresh ? 0 : Hm[k]) + (is_match ? 1 : 0);
-      int Dc = (fresh ? 0 : Hc[k]) + 1;
-      int Drs = fresh ? i : Hrs[k];
-      int Dfs = fresh ? j : Hfs[k];
-      // tmp = max(D, E, fresh) with priority D >= E >= fresh
-      if (En[k] > D) {
-        D = En[k]; Dm = Enm[k]; Dc = Enc[k]; Drs = Enrs[k]; Dfs = Enfs[k];
+      int D = max(H[k], 0) + (is_match ? match : -mismatch);
+      unsigned Dmc = (fresh ? 0u : Hmc[k]) + (is_match ? kCol + 1u : kCol);
+      unsigned Dpos = fresh ? fresh_pos + k : Hpos[k];
+      if (E[k] > D) {
+        D = E[k]; Dmc = Emc[k]; Dpos = Epos[k];
       }
-      if (D < 0) {
-        D = 0; Dm = 0; Dc = 0; Drs = i + 1; Dfs = j + 1;
+      if (D < 0) {  // empty: starts at (i + 1, j + 1)
+        D = 0; Dmc = 0; Dpos = fresh_pos + k + kCol + 1u;
       }
-      tmp[k] = valid[k] ? D : kNeg;
-      tm[k] = Dm; tc[k] = Dc; trs[k] = Drs; tfs[k] = Dfs;
-      gap[k] = 0;
+      H[k] = valid ? D : kNeg;
+      Hmc[k] = Dmc; Hpos[k] = Dpos;
     }
-    // F: ref-consuming gap within the row, by shift-doubling
-    int g[NS], gm[NS], gc[NS], grs[NS], gfs[NS];
+
+    // F step 1: this lane's local carry at its last slot
+    int lv = H[0], lg = 0;
+    unsigned lmc = Hmc[0], lpos = Hpos[0];
+#pragma unroll
+    for (int k = 1; k < NS; ++k) {
+      const int cand = lv - gap_ext;
+      const bool take = cand > H[k];
+      lv = take ? cand : H[k];
+      lg = take ? lg + 1 : 0;
+      lmc = take ? lmc : Hmc[k];
+      lpos = take ? lpos : Hpos[k];
+    }
+    // F step 2: the carry of the lanes to the left, at this lane's first
+    // slot - 1, with its gap and channels from the lane it came from
+    const int z = scan_key<NS>(lv, gap_ext, lane);
+    const int zx = __shfl_up_sync(kFull, z, 1);
+    const int src = key_lane(zx);
+    int rv = key_value<NS>(zx, gap_ext, lane - 1);
+    int rg = from_lane(lg, src) + (lane - 1 - src) * NS;
+    unsigned rmc = from_lane(lmc, src);
+    unsigned rpos = from_lane(lpos, src);
+    // the carry into this warp's first slot: the band's edge (nothing to
+    // the left) or the warps to the left
+    int iv = kNeg, ig = 0;
+    unsigned imc = 0, ipos = 0;
+    if constexpr (NW > 1) {
+      const int zl = __shfl_sync(kFull, z, 31);
+      const int sl = key_lane(zl);
+      const int g = from_lane(lg, sl) + (31 - sl) * NS;
+      const unsigned mc = from_lane(lmc, sl);
+      const unsigned pos = from_lane(lpos, sl);
+      if (lane == 31) {
+        wcarry[warp][0] = key_value<NS>(zl, gap_ext, 31); wcarry[warp][1] = g;
+        wcarry[warp][2] = (int)mc; wcarry[warp][3] = (int)pos;
+      }
+      __syncthreads();
+      // nearer warps last: a tie goes to the nearer origin
+#pragma unroll
+      for (int u = 0; u + 1 < NW; ++u) {
+        if (u < warp) {
+          const int d = (warp - 1 - u) * WS;
+          const int v = wcarry[u][0] - gap_ext * d;
+          if (u == 0 || v >= iv) {
+            iv = v; ig = wcarry[u][1] + d;
+            imc = (unsigned)wcarry[u][2]; ipos = (unsigned)wcarry[u][3];
+          }
+        }
+      }
+      // lanes to the left inside this warp are nearer: the warp's carry
+      // wins only when strictly greater
+      const int d = lane * NS;
+      if (lane > 0 && iv - gap_ext * d > rv) {
+        rv = iv - gap_ext * d; rg = ig + d; rmc = imc; rpos = ipos;
+      }
+    }
+    if (lane == 0) {
+      rv = iv; rg = ig; rmc = imc; rpos = ipos;
+    }
+
+    // F step 3: F[b] = R[b-1] - open - ext over this lane's slots; H, the
+    // E band mask and the running best
+    const int row_key = (i << kSlotBits) + b0;
 #pragma unroll
     for (int k = 0; k < NS; ++k) {
-      g[k] = tmp[k]; gm[k] = tm[k]; gc[k] = tc[k]; grs[k] = trs[k]; gfs[k] = tfs[k];
-    }
-    cascade<NS, 1>(g, gm, gc, grs, gfs, gap, gap_ext, lane);
-    int F[NS], Fgap[NS], Fm[NS], Fc[NS], Frs[NS], Ffs[NS];
-    shift_right<NS, 1>(g, F, kNeg, lane);
-    shift_right<NS, 1>(gap, Fgap, 0, lane);
-    shift_right<NS, 1>(gm, Fm, 0, lane);
-    shift_right<NS, 1>(gc, Fc, 0, lane);
-    shift_right<NS, 1>(grs, Frs, 0, lane);
-    shift_right<NS, 1>(gfs, Ffs, 0, lane);
-#pragma unroll
-    for (int k = 0; k < NS; ++k) {
-      const int f = F[k] - go_ge;
-      const bool take_f = f > tmp[k];
-      H[k] = valid[k] ? (take_f ? f : tmp[k]) : kNeg;
-      Hm[k] = take_f ? Fm[k] : tm[k];
-      Hc[k] = take_f ? Fc[k] + Fgap[k] + 1 : tc[k];
-      Hrs[k] = take_f ? Frs[k] : trs[k];
-      Hfs[k] = take_f ? Ffs[k] : tfs[k];
-      E[k] = valid[k] ? En[k] : kNeg;
-      Em[k] = Enm[k]; Ec[k] = Enc[k]; Ers[k] = Enrs[k]; Efs[k] = Enfs[k];
-      // per-slot best; strict improvement keeps the earliest row
-      if (H[k] > bH[k]) {
-        bH[k] = H[k]; bRow[k] = i;
-        bm[k] = Hm[k]; bc[k] = Hc[k]; brs[k] = Hrs[k]; bfs[k] = Hfs[k];
+      const int t = H[k];
+      const unsigned tmc = Hmc[k], tpos = Hpos[k];
+      const bool valid = (unsigned)(j0 + k) < (unsigned)tlen;
+      const int f = rv - go_ge;
+      const bool take_f = f > t;
+      H[k] = valid ? (take_f ? f : t) : kNeg;
+      if (take_f) {  // the gap's rg + 1 columns
+        Hmc[k] = rmc + (unsigned)(rg + 1) * kCol; Hpos[k] = rpos;
+      }
+      E[k] = valid ? E[k] : kNeg;
+      const int cand = rv - gap_ext;
+      const bool take = cand > t;
+      rv = take ? cand : t;
+      rg = take ? rg + 1 : 0;
+      rmc = take ? rmc : tmc;
+      rpos = take ? rpos : tpos;
+      if (H[k] > bs) {
+        bs = H[k]; bkey = row_key + k; bmc = Hmc[k]; bpos = Hpos[k];
       }
     }
   }
 
-  // the pair's best cell: over this lane's slots, then across the warp
-  int s = bH[0], r = bRow[0], b = lane, m = bm[0], cc = bc[0], rs = brs[0], fs = bfs[0];
-#pragma unroll
-  for (int k = 1; k < NS; ++k) {
-    if (better(bH[k], bRow[k], k * 32 + lane, s, r, b)) {
-      s = bH[k]; r = bRow[k]; b = k * 32 + lane; m = bm[k]; cc = bc[k]; rs = brs[k]; fs = bfs[k];
-    }
-  }
+  // the pair's best cell: across the warp, then across the block's warps
+  int s = bs, key = bkey;
+  unsigned mc = bmc, pos = bpos;
 #pragma unroll
   for (int d = 16; d > 0; d >>= 1) {
-    const int s2 = __shfl_xor_sync(kFull, s, d), r2 = __shfl_xor_sync(kFull, r, d);
-    const int b2 = __shfl_xor_sync(kFull, b, d), m2 = __shfl_xor_sync(kFull, m, d);
-    const int c2 = __shfl_xor_sync(kFull, cc, d), rs2 = __shfl_xor_sync(kFull, rs, d);
-    const int fs2 = __shfl_xor_sync(kFull, fs, d);
-    if (better(s2, r2, b2, s, r, b)) {
-      s = s2; r = r2; b = b2; m = m2; cc = c2; rs = rs2; fs = fs2;
+    const int s2 = __shfl_xor_sync(kFull, s, d), key2 = __shfl_xor_sync(kFull, key, d);
+    const unsigned mc2 = __shfl_xor_sync(kFull, mc, d), pos2 = __shfl_xor_sync(kFull, pos, d);
+    if (better(s2, key2, s, key)) {
+      s = s2; key = key2; mc = mc2; pos = pos2;
+    }
+  }
+  if constexpr (NW > 1) {
+    if (lane == 0) {
+      wbest[warp][0] = s; wbest[warp][1] = key; wbest[warp][2] = (int)mc;
+      wbest[warp][3] = (int)pos;
+    }
+    __syncthreads();
+    if (warp > 0) return;
+#pragma unroll
+    for (int u = 1; u < NW; ++u) {
+      if (better(wbest[u][0], wbest[u][1], s, key)) {
+        s = wbest[u][0]; key = wbest[u][1];
+        mc = (unsigned)wbest[u][2]; pos = (unsigned)wbest[u][3];
+      }
     }
   }
   if (lane == 0) {
     int32_t* o = out + (size_t)pair * 7;
     const bool aligned = s > 0;
+    const int r = key >> kSlotBits, b = key & ((1 << kSlotBits) - 1);
     o[0] = s;
-    o[1] = aligned ? rs : 0;
+    o[1] = aligned ? (int)(pos >> 16) : 0;
     o[2] = aligned ? r + 1 : 0;
-    o[3] = aligned ? fs : 0;
+    o[3] = aligned ? (int)(pos & 0xffffu) : 0;
     o[4] = aligned ? r + off - c + b + 1 : 0;
-    o[5] = aligned ? m : 0;
-    o[6] = aligned ? cc : 0;
+    o[5] = aligned ? (int)(mc & 0xffffu) : 0;
+    o[6] = aligned ? (int)(mc >> 16) : 0;
   }
 }
 
-template <int NS>
+template <int NW>
 void launch(const void* reads, const void* read_lens, const void* refs, const void* ref_lens,
             const void* offs, void* out, int B, int L, int Lr, int match, int mismatch,
             int gap_open, int gap_ext, cudaStream_t stream) {
-  const dim3 block(kWarpsPerBlock * 32);
-  const dim3 grid((B + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  sw_banded_kernel<NS><<<grid, block, 0, stream>>>(
+  const int per_block = NW == 1 ? kWarpsPerBlock : 1;  // pairs a block
+  const dim3 block(NW == 1 ? kWarpsPerBlock * 32 : NW * 32);
+  const dim3 grid((B + per_block - 1) / per_block);
+  sw_banded_kernel<4, NW><<<grid, block, 0, stream>>>(
       static_cast<const uint8_t*>(reads), static_cast<const int32_t*>(read_lens),
       static_cast<const uint8_t*>(refs), static_cast<const int32_t*>(ref_lens),
       static_cast<const int32_t*>(offs), static_cast<int32_t*>(out),
@@ -237,18 +297,23 @@ void launch(const void* reads, const void* read_lens, const void* refs, const vo
 
 // reads (B, L) u8, refs (B, Lr) u8, lens/offsets (B,) i32, out (B, 7) i32:
 // score, read_start, read_end, ref_start, ref_end, n_match, n_cols.
-// Returns cudaGetLastError() after the launch.
+// Returns cudaErrorInvalidValue, launching nothing, for a band width it is
+// not built for or inputs its packed keys and channels cannot hold (the one
+// check of those limits); else cudaGetLastError() after the launch.
 extern "C" int sw_banded_launch(const void* reads, const void* read_lens, const void* refs,
                                 const void* ref_lens, const void* offs, void* out,
                                 int B, int L, int Lr, int W, int match, int mismatch,
                                 int gap_open, int gap_ext, void* stream) {
   if (B <= 0) return 0;
+  // the channels' 16-bit fields hold a column count of at most L + Lr
+  if (!scores_fit(L, W, match, mismatch, gap_open, gap_ext) || L + Lr >= (1 << 16))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (W) {
-    case 128: launch<4>(reads, read_lens, refs, ref_lens, offs, out, B, L, Lr, match, mismatch, gap_open, gap_ext, s); break;
-    case 256: launch<8>(reads, read_lens, refs, ref_lens, offs, out, B, L, Lr, match, mismatch, gap_open, gap_ext, s); break;
-    case 384: launch<12>(reads, read_lens, refs, ref_lens, offs, out, B, L, Lr, match, mismatch, gap_open, gap_ext, s); break;
-    case 512: launch<16>(reads, read_lens, refs, ref_lens, offs, out, B, L, Lr, match, mismatch, gap_open, gap_ext, s); break;
+    case 128: launch<1>(reads, read_lens, refs, ref_lens, offs, out, B, L, Lr, match, mismatch, gap_open, gap_ext, s); break;
+    case 256: launch<2>(reads, read_lens, refs, ref_lens, offs, out, B, L, Lr, match, mismatch, gap_open, gap_ext, s); break;
+    case 384: launch<3>(reads, read_lens, refs, ref_lens, offs, out, B, L, Lr, match, mismatch, gap_open, gap_ext, s); break;
+    case 512: launch<4>(reads, read_lens, refs, ref_lens, offs, out, B, L, Lr, match, mismatch, gap_open, gap_ext, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

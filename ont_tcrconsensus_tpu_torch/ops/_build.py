@@ -107,7 +107,17 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+CUDA_ERROR_INVALID_VALUE = 1  # cudaErrorInvalidValue
+
+
 def check(name: str, rc: int) -> None:
-    """Raise on a non-zero ``cudaGetLastError()`` from a launcher."""
+    """Raise on a non-zero return from a launcher: ValueError when it
+    refused its arguments before launching (the limits live in the
+    launcher alone), RuntimeError for any other CUDA error."""
+    if rc == CUDA_ERROR_INVALID_VALUE:
+        raise ValueError(
+            f"{name} refused its arguments: the band width must be one it is built for, and "
+            f"the scoring and lengths must fit its packed keys (see {name}_launch in "
+            f"csrc/{name}.cu and scores_fit in csrc/dp_common.cuh)")
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")

@@ -130,6 +130,34 @@ def test_kernel_matches_plain_on_card(cuda_device, kind, W):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("W", (64, 128))
+@pytest.mark.parametrize("n", (1, 3, 5))
+def test_kernel_matches_plain_in_part_empty_blocks(cuda_device, n, W):
+    """Batches that leave the 4-warp block part-empty."""
+    case = dp_case("noisy", n=n, L=256, W=W, seed=70 + n)
+    args = _t(*case[:4], device=cuda_device)
+    best_k, planes_k = pileup_kernel.forward_planes_cuda(*args, band_width=W)
+    best_p, planes_p = pileup._forward_batch(*args, band_width=W)
+    assert torch.equal(best_k, best_p)
+    assert torch.equal(planes_k, planes_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", (64, 128))
+@pytest.mark.parametrize("L", (97, 333))
+@pytest.mark.parametrize("kind", ("band_edge", "zero"))
+def test_kernel_matches_plain_at_ragged_lengths(cuda_device, kind, L, W):
+    """Reads that end well inside the padded width (the rows after a read's
+    end are written without the DP) at an L that is not a multiple of 32."""
+    case = dp_case(kind, n=9, L=L, W=W, seed=80 + L)
+    args = _t(*case[:4], device=cuda_device)
+    best_k, planes_k = pileup_kernel.forward_planes_cuda(*args, band_width=W)
+    best_p, planes_p = pileup._forward_batch(*args, band_width=W)
+    assert torch.equal(best_k, best_p)
+    assert torch.equal(planes_k, planes_p)
+
+
+@pytest.mark.gpu
 def test_columns_on_card_match_cpu(cuda_device):
     sub, sl, drafts, dl = _clusters(3)
     got = pileup.pileup_columns_batch_auto(*_t(sub, sl, drafts, dl, device=cuda_device))

@@ -139,11 +139,35 @@ def test_kernels_build_for_sm90a_and_raise_without_nvcc(monkeypatch):
         _build.build_all()
 
 
+@pytest.mark.parametrize("name", _build.KERNELS)
+def test_launcher_refusal_raises_value_error_naming_the_limits(name):
+    """A launcher that refuses its arguments (it alone holds the band widths
+    and the packed keys' limits) returns cudaErrorInvalidValue; the
+    wrappers raise ValueError pointing at it, and RuntimeError otherwise."""
+    _build.check(name, 0)
+    with pytest.raises(ValueError, match=f"{name}_launch in csrc/{name}.cu"):
+        _build.check(name, _build.CUDA_ERROR_INVALID_VALUE)
+    with pytest.raises(RuntimeError, match="cudaError 700"):
+        _build.check(name, 700)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", DP_KINDS)
-def test_kernel_matches_plain_on_card(cuda_device, kind):
-    case = dp_case(kind, n=40, L=384, seed=20 + DP_KINDS.index(kind))
-    args = _torch_args(case, cuda_device)
+def test_kernel_refuses_what_its_packed_keys_cannot_hold(cuda_device):
+    """Scoring the 32-bit scan keys cannot hold, and L + Lr past the
+    channels' 16-bit fields: refused without a launch."""
+    reads, rl, refs, tl, offs = dp_case("noisy", n=2, L=128, seed=2)
+    long_refs = np.full((2, 65536 - 128), 5, np.uint8)
+    before = sw_kernel.align_banded_cuda.launches
+    for case, scoring in (((reads, rl, refs, tl, offs), {"gap_ext": -1}),
+                          ((reads, rl, refs, tl, offs), {"match": 1 << 20}),
+                          ((reads, rl, long_refs, tl, offs), {})):
+        with pytest.raises(ValueError, match="refused its arguments"):
+            sw_kernel.align_banded_cuda(*_torch_args(case, cuda_device), band_width=W, **scoring)
+    assert sw_kernel.align_banded_cuda.launches == before
+
+
+def _assert_kernel_matches_plain(case, device, label):
+    args = _torch_args(case, device)
     for band in sw_kernel.BAND_WIDTHS:
         before = sw_kernel.align_banded_cuda.launches
         got = sw_kernel.align_banded_auto(*args, band_width=band)
@@ -152,5 +176,38 @@ def test_kernel_matches_plain_on_card(cuda_device, kind):
         _assert_same(
             type(got)(*[x.cpu() for x in vars(got).values()]),
             type(want)(*[x.cpu() for x in vars(want).values()]),
-            f"{kind} W={band}",
+            f"{label} W={band}",
+        )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", DP_KINDS)
+def test_kernel_matches_plain_on_card(cuda_device, kind):
+    case = dp_case(kind, n=40, L=384, seed=20 + DP_KINDS.index(kind))
+    _assert_kernel_matches_plain(case, cuda_device, kind)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", (1, 3, 5))
+def test_kernel_matches_plain_in_part_empty_blocks(cuda_device, n):
+    """Batches that leave a block part-empty (4 pairs a block at W=128; one
+    pair a block of 2-4 warps above it), at every band width."""
+    _assert_kernel_matches_plain(dp_case("noisy", n=n, L=320, seed=40 + n), cuda_device, f"n={n}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", (97, 333))
+@pytest.mark.parametrize("kind", ("band_edge", "zero"))
+def test_kernel_matches_plain_at_ragged_lengths(cuda_device, kind, L):
+    """Offsets at and past the band's edges, and nothing scoring, at an L
+    that is not a multiple of 32."""
+    for band in sw_kernel.BAND_WIDTHS:  # band_edge's offsets follow the band
+        case = dp_case(kind, n=9, L=L, W=band, seed=50 + L)
+        args = _torch_args(case, cuda_device)
+        got = sw_kernel.align_banded_cuda(*args, band_width=band)
+        want = sw_align.align_banded(*args, band_width=band)
+        _assert_same(
+            type(got)(*[x.cpu() for x in vars(got).values()]),
+            type(want)(*[x.cpu() for x in vars(want).values()]),
+            f"{kind} L={L} W={band}",
         )
