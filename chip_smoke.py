@@ -19,25 +19,36 @@ of which fails the script (non-zero exit, no result line):
    the larger of bytes over the HBM rate and the int32 operations the
    function needs over the int32 issue rate (``_bound_ms``); the design's
    own floor (its second F pass, band-shift moves, carry scan and warp
-   shuffles) is reported beside it. Then one polish round at a
-   main-path tile, split into the B2 forward, the traceback and the vote,
-   and traced once with ``torch.profiler`` for the card's busy share;
-4. small e2e: the tests' 4-region lane on ``cuda`` and on ``cpu`` (plain
-   versions): counts CSV and merged FASTA byte-identical, counts equal to
-   the simulator's truth;
-5. full-size e2e: the representative lane (about 10k untrimmed reads of
+   shuffles) is reported beside it. The plain versions' times are one
+   call each. Then one polish round at a main-path tile, split into the
+   B2 forward, the traceback and the vote, and traced once with
+   ``torch.profiler`` for the card's busy share;
+4. polisher parity: at the same tile, the vote rounds' kept final pileup
+   (recomputed against the final drafts if the rounds ran out), then the
+   features and the served (v3) bi-GRU on ``cuda`` and on ``cpu``: the
+   largest logit difference, and the positions whose gated decisions
+   (0.9 confidence, depth gate) differ, which must be none; the card's
+   times (CUDA-event medians of 7) of the features and the network;
+5. small e2e: the tests' 4-region lane under ``rnn`` (the default) and
+   under ``poa``, each on ``cuda`` and on ``cpu`` (plain versions): counts
+   CSV and merged FASTA byte-identical, counts equal to the simulator's
+   truth;
+6. full-size e2e: the representative lane (about 11k untrimmed reads of
    1.4-2.3 kb, 56 regions + 6 near-duplicate pairs + 2 negative controls,
    the systematic ONT error model, read batch 1024, band 128, seed 33) on
-   ``cuda`` with ``polish_method: "poa"``, unobserved, ``--lane-runs``
-   times (2 by default, for the spread). Kernel launch counts are zeroed
-   just before the first run and read just after it; each kernel must have
-   launched, and every run's counts must equal the truth. The first run
-   also records each launch's (batch, L, Lr, W), with a host copy of each
-   shape's first inputs (off the card, so the run's peak memory is the
-   lane's own; the copies are in that run's wall time); after the runs each
-   shape's kernel is timed on those inputs, for the launches x (time -
-   bound) the run spent at its real shapes. Peak device memory is read per
-   run.
+   ``cuda``, unobserved: the default config (``rnn`` polish) ``--lane-runs``
+   times (2 by default, for the spread), then once under ``poa``. Kernel
+   launch counts are zeroed just before the first ``rnn`` run and read
+   just after it, and again around the ``poa`` run; each kernel must have
+   launched in both, and every run's counts must equal the truth. The
+   first run also records each launch's (batch, L, Lr, W), with a host
+   copy of each shape's first inputs (off the card, so the run's peak
+   memory is the lane's own; the copies are in that run's wall time);
+   after the runs each shape's kernel is timed on those inputs, for the
+   launches x (time - bound) the run spent at its real shapes. Peak device
+   memory and the polisher's seconds (host clock to a synchronized card)
+   are read per run, and the peak reached inside a polisher call when
+   that call raised it.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes every number
@@ -75,6 +86,7 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 128 * 1.98e9
 SHUFFLES_PER_S = 132 * 32 * 1.98e9
+FP32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores (the same table)
 
 # int32 operations a band cell needs, one per two-input add, compare,
 # select or logical op, counted from the plain versions' recurrences
@@ -307,7 +319,7 @@ def check_sw(dev, seed: int, B: int, L: int, W: int) -> dict:
     for _ in range(2):
         sw_kernel.align_banded_cuda(*args, band_width=W)
     ms = _time_ms(lambda: sw_kernel.align_banded_cuda(*args, band_width=W), 7)
-    plain_ms = _time_ms(lambda: sw_align.align_banded(*args, band_width=W), 3)
+    plain_ms = _time_ms(lambda: sw_align.align_banded(*args, band_width=W), 1)
     return {"L": L, "B": B, "W": W, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             **_sw_costs(rl, refs.shape[1], L, W),
             "aligned_pairs": int((got.score > 0).sum())}
@@ -346,7 +358,7 @@ def check_pileup(dev, seed: int, N: int, L: int, W: int) -> dict:
     for _ in range(2):
         pileup_kernel.forward_planes_cuda(*args, band_width=W)
     ms = _time_ms(lambda: pileup_kernel.forward_planes_cuda(*args, band_width=W), 7)
-    plain_ms = _time_ms(lambda: pileup._forward_batch(*args, band_width=W), 3)
+    plain_ms = _time_ms(lambda: pileup._forward_batch(*args, band_width=W), 1)
     return {"L": L, "N": N, "W": W, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             **_pileup_costs(rl, refs.shape[1], L, W),
             "aligned_lanes": int((best_k[:, 0] > 0).sum())}
@@ -421,6 +433,27 @@ def launch_gaps(shapes: dict, launch, costs, dev) -> dict:
             "kernel_ms": sum(r["launches"] * r["ms"] for r in rows)}
 
 
+def _polish_tile(seed: int, C: int, S: int, L: int):
+    """C clusters of S noisy copies (8% errors) of one template each, width
+    L, and a draft per cluster (a 3%-error copy): (reads (C, S, L), read
+    lengths (C, S), drafts (C, L), draft lengths (C,)), numpy."""
+    from ont_tcrconsensus_tpu_torch.io.dp_cases import noisy_copy
+
+    rng = np.random.default_rng(seed)
+    reads = np.full((C, S, L), 5, np.uint8)
+    drafts = np.full((C, L), 5, np.uint8)
+    rl = np.zeros((C, S), np.int32)
+    dl = np.zeros(C, np.int32)
+    for c in range(C):
+        tpl = rng.integers(0, 4, int(rng.integers(L - 600, L - 140))).astype(np.uint8)
+        draft = noisy_copy(rng, tpl, 0.03)[:L]
+        drafts[c, : len(draft)], dl[c] = draft, len(draft)
+        for s in range(S):
+            read = noisy_copy(rng, tpl, 0.08)[:L]
+            reads[c, s, : len(read)], rl[c, s] = read, len(read)
+    return reads, rl, drafts, dl
+
+
 def polish_split(dev, seed: int, C: int = 64, S: int = 16, L: int = 2048, W: int = 64) -> dict:
     """One polish round at a main-path tile (C clusters of S subreads, width
     L, band W), split into the kernel B2 forward, the plain scan-log
@@ -429,22 +462,11 @@ def polish_split(dev, seed: int, C: int = 64, S: int = 16, L: int = 2048, W: int
     time is the card's busy share in polish."""
     import torch
 
-    from ont_tcrconsensus_tpu_torch.io.dp_cases import noisy_copy
     from ont_tcrconsensus_tpu_torch.ops import consensus, pileup
 
-    rng = np.random.default_rng(seed)
-    reads = np.full((C * S, L), 5, np.uint8)
-    drafts = np.full((C, L), 5, np.uint8)
-    rl = np.zeros(C * S, np.int32)
-    dl = np.zeros(C, np.int32)
-    for c in range(C):
-        tpl = rng.integers(0, 4, int(rng.integers(L - 600, L - 140))).astype(np.uint8)
-        draft = noisy_copy(rng, tpl, 0.03)[:L]
-        drafts[c, : len(draft)], dl[c] = draft, len(draft)
-        for s in range(S):
-            read = noisy_copy(rng, tpl, 0.08)[:L]
-            reads[c * S + s, : len(read)], rl[c * S + s] = read, len(read)
-    reads_t, rl_t, dl_t = (torch.from_numpy(x).to(dev) for x in (reads, rl, dl))
+    reads, rl, drafts, dl = _polish_tile(seed, C, S, L)
+    reads_t, rl_t, dl_t = (torch.from_numpy(x).to(dev) for x in
+                           (reads.reshape(C * S, L), rl.reshape(C * S), dl))
     drafts_t = torch.from_numpy(drafts).to(dev)
     refs_t = drafts_t.repeat_interleave(S, dim=0)
     tl_t = dl_t.repeat_interleave(S)
@@ -476,6 +498,83 @@ def polish_split(dev, seed: int, C: int = 64, S: int = 16, L: int = 2048, W: int
             "device_events": traced["events"], "busy_share": busy}
 
 
+# float32 operations of the polisher network a position (a multiply-add
+# counted as two): Dense(F, 96); per GRU layer and direction three gates,
+# each an input and a hidden product; Dense(192, 10). Gate nonlinearities
+# and the GELU are not counted.
+def _polisher_flops_per_position(F: int, hidden: int = 96) -> int:
+    gru = sum(2 * 3 * hidden * (fan_in + hidden) * 2 for fan_in in (hidden, 2 * hidden))
+    return 2 * F * hidden + gru + 2 * 2 * hidden * 10
+
+
+def polisher_parity(seed: int, C: int = 64, S: int = 16, L: int = 2048, W: int = 64) -> dict:
+    """The served polisher at a main-path tile on the card and on the CPU:
+    the consensus rounds' kept final pileup (recomputed against the final
+    drafts if the rounds ran out), its features and the network's logits
+    on both devices. Every gated decision must agree: the class call where
+    the class softmax clears 0.9, the insertion where the insertion softmax
+    does, at covered positions of clusters at or above the depth gate."""
+    import torch
+
+    from ont_tcrconsensus_tpu_torch import convert
+    from ont_tcrconsensus_tpu_torch.models import polisher
+    from ont_tcrconsensus_tpu_torch.ops import consensus, pileup
+
+    reads, rl, _, _ = _polish_tile(seed, C, S, L)
+    t0 = time.perf_counter()
+    drafts, dlens, kept = consensus.consensus_clusters_batch(
+        reads, rl, band_width=W, keep_final_pileup=True, keep_pos=False, device="cuda")
+    torch.cuda.synchronize()
+    consensus_s = time.perf_counter() - t0
+    source = "kept"
+    if kept is None:
+        source = "recomputed"
+        kept = pileup.pileup_columns_batch_auto(
+            torch.from_numpy(reads).cuda(), torch.from_numpy(rl).cuda(),
+            torch.from_numpy(drafts).cuda(), torch.from_numpy(dlens).cuda(),
+            band_width=W, out_len=L)[:3]
+    params = polisher.load_default_params()
+    live = (rl > 0).sum(axis=1)
+    in_draft = np.arange(L)[None, :] < dlens[:, None]
+    res: dict = {"C": C, "S": S, "L": L, "W": W, "pileup": source, "consensus_s": consensus_s,
+                 "weights": os.path.basename(polisher.serving_weights_path())}
+    got = {}
+    with torch.inference_mode():
+        for dev in ("cuda", "cpu"):
+            planes = [x.to(dev) for x in kept[:3]]
+            drafts_t = torch.from_numpy(drafts).to(dev)
+            model = convert.polisher_from_numpy(params, device=dev)
+            feats = consensus.pileup_features(*planes, drafts_t)
+            logits = model(feats)
+            pred, conf, depth, ins_pred, ins_conf = polisher._predictions(model, feats, planes[0])
+            covered = in_draft & (depth > 0) & (live >= 4)[:, None]
+            cls_call = np.where(covered & (conf >= 0.9), pred, 255)
+            ins_call = np.where(covered & (ins_conf >= 0.9) & (ins_pred > 0), ins_pred, 0)
+            got[dev] = {"feats": feats.cpu(), "logits": logits.cpu(), "cls": cls_call,
+                        "ins": ins_call, "conf": conf, "ins_conf": ins_conf}
+            if dev == "cuda":
+                for _ in range(2):
+                    model(consensus.pileup_features(*planes, drafts_t))
+                res["features_ms"] = _time_ms(
+                    lambda: consensus.pileup_features(*planes, drafts_t), 7)
+                res["network_ms"] = _time_ms(lambda: model(feats), 7)
+    a, b = got["cuda"], got["cpu"]
+    res["max_abs_feature_diff"] = float((a["feats"] - b["feats"]).abs().max())
+    res["max_abs_logit_diff"] = float((a["logits"] - b["logits"]).abs().max())
+    flips = np.argwhere((a["cls"] != b["cls"]) | (a["ins"] != b["ins"]))
+    res["decision_flips"] = len(flips)
+    res["flips"] = [{"cluster": int(c), "position": int(j),
+                     "conf": [float(a["conf"][c, j]), float(b["conf"][c, j])],
+                     "ins_conf": [float(a["ins_conf"][c, j]), float(b["ins_conf"][c, j])]}
+                    for c, j in flips[:20]]
+    res["class_calls_changing_the_draft"] = int(
+        ((a["cls"] != 255) & (a["cls"] != np.where(in_draft, drafts, 255))).sum())
+    res["insertion_calls"] = int((a["ins"] > 0).sum())
+    flops = C * L * _polisher_flops_per_position(a["feats"].shape[-1])
+    res["network_bound_ms"] = flops / FP32_FLOPS_PER_S * 1e3
+    return res
+
+
 # ---------------------------------------------------------------------------
 # end to end
 
@@ -498,7 +597,6 @@ def _run_lane(root: str, knobs: dict, device: str, timings: dict | None = None):
     cfg = RunConfig.from_dict({
         "reference_file": os.path.join(root, "reference.fa"),
         "fastq_pass_dir": os.path.join(root, "fastq_pass"),
-        "polish_method": "poa",
         "delete_tmp_files": False,
         **knobs,
     })
@@ -514,7 +612,12 @@ def _artifacts(root: str) -> dict[str, bytes]:
     return out
 
 
-def small_e2e() -> dict:
+# the lanes' polish: the default config (no polish_method key: the bi-GRU
+# polisher) and the vote consensus alone
+POLISH = {"rnn": {}, "poa": {"polish_method": "poa"}}
+
+
+def small_e2e(method: str) -> dict:
     import torch
 
     from ont_tcrconsensus_tpu_torch.io import simulator
@@ -525,7 +628,8 @@ def small_e2e() -> dict:
     )
     root = os.path.join(WORK, "small")
     _write_lane(root, lib)
-    knobs = {"minimal_length": 600, "min_reads_per_cluster": 4, "read_batch_size": 64}
+    knobs = {"minimal_length": 600, "min_reads_per_cluster": 4, "read_batch_size": 64,
+             **POLISH[method]}
     t0 = time.perf_counter()
     got_cuda = _run_lane(root, knobs, "cuda")
     torch.cuda.synchronize()
@@ -537,18 +641,58 @@ def small_e2e() -> dict:
     art_cpu = _artifacts(root)
     for rel in art_cuda:
         if art_cuda[rel] != art_cpu[rel]:
-            raise AssertionError(f"small e2e: {rel} differs between cuda and cpu")
+            raise AssertionError(f"small e2e ({method}): {rel} differs between cuda and cpu")
     for dev, got in (("cuda", got_cuda), ("cpu", got_cpu)):
         if got.get("barcode01") != lib.true_counts:
-            raise AssertionError(f"small e2e on {dev}: counts {got.get('barcode01')} "
-                                 f"!= truth {lib.true_counts}")
-    return {"n_reads": len(lib.reads), "cuda_s": cuda_s, "cpu_s": cpu_s,
+            raise AssertionError(f"small e2e ({method}) on {dev}: counts "
+                                 f"{got.get('barcode01')} != truth {lib.true_counts}")
+    return {"polish": method, "n_reads": len(lib.reads), "cuda_s": cuda_s, "cpu_s": cpu_s,
             "artifacts_identical": True, "counts_exact": True}
 
 
+@contextlib.contextmanager
+def _polisher_clock(stats: dict):
+    """While the block runs, add the host-clock seconds of every polisher
+    call, the card synchronized before and after, to ``stats["s"]``, and
+    set ``stats["peak_gb"]`` to the highest device-memory peak reached
+    inside a call that raised the process's peak (the factory the run calls
+    is wrapped; the polisher's arithmetic is untouched)."""
+    import torch
+
+    from ont_tcrconsensus_tpu_torch.models import polisher
+
+    make = polisher.make_pipeline_polisher
+
+    def timed_make(*args, **kwargs):
+        polish = make(*args, **kwargs)
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            t0 = time.perf_counter()
+            try:
+                return polish(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                stats["s"] += time.perf_counter() - t0
+                if torch.cuda.max_memory_allocated() > peak:
+                    stats["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+        timed.wants_v4 = polish.wants_v4
+        return timed
+
+    polisher.make_pipeline_polisher = timed_make
+    try:
+        yield
+    finally:
+        polisher.make_pipeline_polisher = make
+
+
 def full_e2e(kernels, runs: int) -> dict:
-    """The full lane ``runs`` times; the first run's launches are counted,
-    and recorded by shape for :func:`launch_gaps`."""
+    """The full lane: ``runs`` times under the default config (``rnn``
+    polish), then once under ``poa``. Kernel launches are counted over the
+    first ``rnn`` run (recorded by shape for :func:`launch_gaps`) and over
+    the ``poa`` run, each from zero."""
     import torch
 
     from ont_tcrconsensus_tpu_torch.io import simulator
@@ -569,34 +713,39 @@ def full_e2e(kernels, runs: int) -> dict:
     _write_lane(root, lib)
     data_s = time.perf_counter() - t0
     knobs = {"minimal_length": 1000, "min_reads_per_cluster": 4, "read_batch_size": 1024}
-    seconds, stages, peaks, launches, diffs = [], [], [], None, {}
-    for run in range(runs):
+    methods = ["rnn"] * runs + ["poa"]
+    seconds, stages, peaks, polisher_runs, launches, diffs = [], [], [], [], {}, {}
+    for run, method in enumerate(methods):
+        counted = run == 0 or method == "poa"  # each path's launches, from zero
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        if run == 0:  # the main path's run: its launches are the ones reported
+        if counted:
             for k in kernels:
                 k.launches = 0
         stage_s: dict[str, float] = {}
+        pol = {"s": 0.0, "peak_gb": None}
         with contextlib.ExitStack() as stack:
             if run == 0:
                 shapes = {key: stack.enter_context(_launch_shapes(module, name, shape_of))
                           for key, (module, name, shape_of) in recorded.items()}
+            stack.enter_context(_polisher_clock(pol))
             t0 = time.perf_counter()
-            got = _run_lane(root, knobs, "cuda", timings=stage_s)
+            got = _run_lane(root, {**knobs, **POLISH[method]}, "cuda", timings=stage_s)
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
         peaks.append(torch.cuda.max_memory_allocated() / 1e9)
         stages.append(stage_s)
-        if run == 0:
-            launches = {k.__name__: k.launches for k in kernels}
+        polisher_runs.append(pol)
+        if counted:
+            launches[method] = {k.__name__: k.launches for k in kernels}
         counts = got.get("barcode01") or {}
-        diffs.update({f"run {run}: {k}": (counts.get(k, 0), lib.true_counts.get(k, 0))
+        diffs.update({f"run {run} ({method}): {k}": (counts.get(k, 0), lib.true_counts.get(k, 0))
                       for k in set(counts) | set(lib.true_counts)
                       if counts.get(k, 0) != lib.true_counts.get(k, 0)})
-    out = {"n_reads": len(lib.reads), "n_regions": len(lib.reference), "runs": runs,
+    out = {"n_reads": len(lib.reads), "n_regions": len(lib.reference), "polish": methods,
            "seconds": seconds, "reads_per_s": [len(lib.reads) / s for s in seconds],
            "counts_exact": not diffs,
-           "max_memory_allocated_gb": peaks,
+           "max_memory_allocated_gb": peaks, "polisher": polisher_runs,
            "data_s": data_s, "launches": launches, "stage_s": stages,
            "launch_gaps": {
                "sw": launch_gaps(shapes["sw"], sw_kernel.align_banded_cuda, _sw_costs, dev),
@@ -614,7 +763,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every number to this JSON file")
     parser.add_argument("--lane-runs", type=int, default=2,
-                        help="full-size lane runs (the first is the main path's)")
+                        help="full-size lane runs under the default config (the first is "
+                             "the main path's); one poa run follows them")
     args = parser.parse_args(argv)
 
     try:
@@ -625,19 +775,18 @@ def main(argv=None) -> int:
         return _fail("no CUDA device: this script needs one card")
     sys.path.insert(0, ROOT)
     try:
+        from ont_tcrconsensus_tpu_torch.device import resolve_device
         from ont_tcrconsensus_tpu_torch.ops import _build, pileup_kernel, sw_kernel
-        from ont_tcrconsensus_tpu_torch.pipeline import run as run_mod
     except ImportError as exc:
         return _fail(f"the port is not beside this script ({exc})")
-    if any(m in ("jax", "ont_tcrconsensus_tpu")
-           or m.startswith(("jax.", "ont_tcrconsensus_tpu."))
+    if any(m in ("jax", "flax", "ont_tcrconsensus_tpu")
+           or m.startswith(("jax.", "flax.", "ont_tcrconsensus_tpu."))
            for m in sys.modules):
         return _fail("the port imported JAX or the JAX package")
 
     report: dict = {}
     # 1. device
-    run_mod.resolve_device("cuda")
-    dev = torch.device("cuda")
+    dev = resolve_device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = _nvidia_smi()
     print(f"device: {kind} (count {torch.cuda.device_count()}); nvidia-smi: {smi}", flush=True)
@@ -682,23 +831,39 @@ def main(argv=None) -> int:
           f"{split['device_ms']:.1f} ms over {split['device_events']} traced events, busy share "
           f"{split['busy_share']}", flush=True)
 
-    # 4. small e2e, cuda vs cpu
-    report["small_e2e"] = small_e2e()
-    print(f"small e2e: artifacts identical on cuda and cpu, counts exact "
-          f"(cuda {report['small_e2e']['cuda_s']:.1f} s, cpu {report['small_e2e']['cpu_s']:.1f} s)",
-          flush=True)
+    # 4. the polisher, cuda vs cpu
+    pol = report["polisher"] = polisher_parity(20)
+    print(f"polisher (C={pol['C']} S={pol['S']} L={pol['L']} W={pol['W']}, {pol['weights']}, "
+          f"{pol['pileup']} pileup): max |logit cuda - cpu| {pol['max_abs_logit_diff']:.3g}, "
+          f"features {pol['max_abs_feature_diff']:.3g}; {pol['decision_flips']} gated decisions "
+          f"differ ({pol['class_calls_changing_the_draft']} class calls change the draft, "
+          f"{pol['insertion_calls']} insertions); on the card features {pol['features_ms']:.3f} "
+          f"ms, network {pol['network_ms']:.3f} ms (float32 bound {pol['network_bound_ms']:.3f} "
+          f"ms)", flush=True)
+    if pol["decision_flips"]:
+        _dump(args.out, report)
+        return _fail(f"polisher decisions differ between cuda and cpu: {pol['flips']}")
 
-    # 5. full-size e2e (the main path)
+    # 5. small e2e, cuda vs cpu, under both polish methods
+    report["small_e2e"] = [small_e2e(method) for method in POLISH]
+    for small in report["small_e2e"]:
+        print(f"small e2e ({small['polish']}): artifacts identical on cuda and cpu, counts exact "
+              f"(cuda {small['cuda_s']:.1f} s, cpu {small['cpu_s']:.1f} s)", flush=True)
+
+    # 6. full-size e2e (the main path under rnn, then the poa path)
     kernels = (sw_kernel.align_banded_cuda, pileup_kernel.forward_planes_cuda)
     full = report["full_e2e"] = full_e2e(kernels, max(args.lane_runs, 1))
     print(f"full e2e: {full['n_reads']} reads in " + ", ".join(
-          f"{s:.2f} s ({r:.1f} reads/s)" for s, r in zip(full["seconds"], full["reads_per_s"]))
+          f"{s:.2f} s ({r:.1f} reads/s, {m})"
+          for s, r, m in zip(full["seconds"], full["reads_per_s"], full["polish"]))
           + f"; counts_exact={full['counts_exact']}, max memory "
           + ", ".join(f"{gb:.2f}" for gb in full["max_memory_allocated_gb"])
           + f" GB, launches {full['launches']}", flush=True)
     for run, stage_s in enumerate(full["stage_s"]):
-        print(f"full e2e run {run} stages (s): "
-              + ", ".join(f"{k} {v:.2f}" for k, v in stage_s.items()), flush=True)
+        print(f"full e2e run {run} ({full['polish'][run]}) stages (s): "
+              + ", ".join(f"{k} {v:.2f}" for k, v in stage_s.items())
+              + f"; polisher {full['polisher'][run]['s']:.2f} (peak inside it: "
+              f"{full['polisher'][run]['peak_gb']} GB)", flush=True)
     for key, gaps in full["launch_gaps"].items():
         print(f"full e2e run 0 {key} launches by (batch, L, Lr, W): " + ", ".join(
               f"{tuple(r['shape'])} x{r['launches']} {r['ms']:.3f} ms (bound {r['bound_ms']:.3f})"
@@ -708,10 +873,10 @@ def main(argv=None) -> int:
     _dump(args.out, report)
     if not full["counts_exact"]:
         return _fail(f"full e2e counts differ from the truth: {full.get('count_diffs')}")
-    if not all(full["launches"].values()):
-        return _fail(f"a kernel of the main path never launched: {full['launches']}")
+    if not all(n for path in full["launches"].values() for n in path.values()):
+        return _fail(f"a kernel of a path never launched: {full['launches']}")
 
-    # 6. kernels line
+    # 7. kernels line
     entries = []
     for k, key, name, src, replaces in (
         (sw_kernel.align_banded_cuda, "sw", "sw_banded",
@@ -723,7 +888,7 @@ def main(argv=None) -> int:
         r = report[key][1]  # L=3072: the read passes' band 128, the polish band 64
         entries.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": full["launches"][k.__name__],
+            "launches": full["launches"]["rnn"][k.__name__],
             "max_abs_err": max(x["max_abs_err"] for x in report[key]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,

@@ -19,6 +19,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ont_tcrconsensus_tpu_torch.device import resolve_device
 from ont_tcrconsensus_tpu_torch.ops import encode, sketch, sw_kernel
 
 @dataclasses.dataclass
@@ -57,14 +58,16 @@ def greedy_most_similar_clustering(
 def self_homology_map(
     reference: dict[str, str],
     cluster_threshold: float,
-    device: str | torch.device = "cpu",
+    device: str | torch.device | None = None,
     prefilter_cosine: float = 0.12,
     band_width: int = 512,
     sketch_k: int = 8,
     sketch_dim: int = 4096,
     pair_batch: int = 256,
 ) -> HomologyResult:
-    """All-vs-all reference homology -> region clusters + precision bar."""
+    """All-vs-all reference homology -> region clusters + precision bar, on
+    ``device`` (the card when None)."""
+    device = resolve_device(device)
     names = list(reference)
     seqs = [reference[n] for n in names]
     if not names:

@@ -22,6 +22,7 @@ import numpy as np
 
 import torch
 
+from ont_tcrconsensus_tpu_torch.device import resolve_device
 from ont_tcrconsensus_tpu_torch.io.bucketing import pow2_ceil
 from ont_tcrconsensus_tpu_torch.ops import edit_distance, encode, sketch
 
@@ -74,13 +75,15 @@ def cluster_umis(
     kmer_k: int = 4,
     pair_batch: int = 65536,
     pad_width: int = 128,
-    device="cpu",
+    device: str | torch.device | None = None,
 ) -> UmiClusters:
     """Cluster combined-UMI strings; returns per-input labels.
 
     Deterministic for a fixed input list. Centroid ids are dense, ordered by
-    creation (vsearch writes clusters in the same creation order).
+    creation (vsearch writes clusters in the same creation order). The
+    identity passes run on ``device`` (the card when None).
     """
+    device = resolve_device(device)
     N = len(umis)
     if N == 0:
         return UmiClusters(np.zeros(0, np.int32), 0, np.zeros(0, np.int32))
@@ -123,7 +126,7 @@ def cluster_umis_grouped(
     kmer_k: int = 4,
     pair_batch: int = 65536,
     pad_width: int = 128,
-    device="cpu",
+    device: str | torch.device | None = None,
 ) -> list[UmiClusters]:
     """Cluster MANY independent UMI sets with a handful of device dispatches.
 
@@ -142,6 +145,7 @@ def cluster_umis_grouped(
     :func:`cluster_umis` per group whenever the per-group shortlist would
     have found the same >=threshold neighbors (asserted by tests).
     """
+    device = resolve_device(device)
     n_groups = len(umi_groups)
     results: list[UmiClusters | None] = [None] * n_groups
 
@@ -249,7 +253,7 @@ _PAIR_CHUNK = 8192  # fixed device-dispatch shape for the exact-distance pass
 _FULL_MATRIX_MAX = 256
 
 
-def _full_identities(codes, lens, device="cpu"):
+def _full_identities(codes, lens, device):
     """All-vs-all identities in one device pass (U <= _FULL_MATRIX_MAX).
 
     Returns (neigh (U, U-1), ident (U, U-1)): every other unique as a
@@ -279,7 +283,7 @@ def _pow2_ceil(n: int, lo: int = 16) -> int:
     return pow2_ceil(n, lo)
 
 
-def _neighbor_identities(codes, lens, shortlist_k, kmer_k, pair_batch, device="cpu"):
+def _neighbor_identities(codes, lens, shortlist_k, kmer_k, pair_batch, device):
     """(U, K) nearest-unique shortlist + exact identities, device-computed.
 
     U is padded with zero-length rows and the pair list to ``_PAIR_CHUNK``
@@ -339,7 +343,7 @@ def _neighbor_identities(codes, lens, shortlist_k, kmer_k, pair_batch, device="c
 
 
 def _merge_close_centroids(labels, centroids, codes, lens, threshold,
-                           shortlist_k, kmer_k, pair_batch, device="cpu"):
+                           shortlist_k, kmer_k, pair_batch, device):
     """Repair shortlist misses: no centroid may sit within the identity
     threshold of an earlier-created one.
 

@@ -23,6 +23,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from ont_tcrconsensus_tpu_torch.device import resolve_device
 from ont_tcrconsensus_tpu_torch.io import bucketing, fastx
 from ont_tcrconsensus_tpu_torch.ops import ee_filter, encode, fuzzy_match, sketch, sw_kernel
 from ont_tcrconsensus_tpu_torch.ops.sw_align import PAD_SENTINEL
@@ -65,7 +66,11 @@ class ReferencePanel:
 
     @classmethod
     def build(cls, reference: dict[str, str], region_cluster: dict[str, int],
-              device: str | torch.device = "cpu", pad_multiple: int = 128) -> "ReferencePanel":
+              device: str | torch.device | None = None,
+              pad_multiple: int = 128) -> "ReferencePanel":
+        """The panel of ``reference``, its device copies on ``device`` (the
+        card when None)."""
+        device = resolve_device(device)
         names = list(reference)
         max_len = max(len(s) for s in reference.values())
         codes, lens = encode.encode_batch([reference[n] for n in names], pad_to=max_len,
@@ -419,7 +424,8 @@ class AlignStats:
 
 
 class AssignEngine:
-    """Device constants for the read passes of one run."""
+    """Device constants for the read passes of one run, on ``device`` (the
+    card when None)."""
 
     def __init__(
         self,
@@ -434,7 +440,7 @@ class AssignEngine:
         a3: int = 76,
         trim_window: int = 150,
         fast_denom: int = 4,
-        device: str | torch.device = "cpu",
+        device: str | torch.device | None = None,
     ):
         self.panel = panel
         self.top_k = top_k
@@ -443,7 +449,7 @@ class AssignEngine:
         self.a3 = a3
         self.trim_window = trim_window
         self.fast_denom = fast_denom
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
 
         def stack_masks(masks: list[np.ndarray]):
             stacked, lens_ = encode.pad_batch(masks, pad_value=0, multiple=1)

@@ -8,6 +8,7 @@ its graph executor, so ``executor`` "graph" and "imperative" both run it):
   PHASE B (per library): fused read pass (primer trim -> EE filter ->
                    align -> UMI locate) -> split by region cluster
   round 1:         UMI cluster @0.93 -> subread select -> batched consensus
+                   -> bi-GRU polish (``polish_method: "rnn"``, the default)
   round 2:         consensus align + blast-id filter -> split by region ->
                    UMI cluster @0.97 -> select(min=1) -> counts CSV
 
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from ont_tcrconsensus_tpu_torch.cluster import regions as regions_mod
+from ont_tcrconsensus_tpu_torch.device import resolve_device
 from ont_tcrconsensus_tpu_torch.io import bucketing, fastx, layout
 from ont_tcrconsensus_tpu_torch.parallel import budget as budget_mod
 from ont_tcrconsensus_tpu_torch.pipeline import stages
@@ -41,9 +43,6 @@ DEFAULT_BLAST_ID_BAR = 0.99
 
 # knobs that change results and that later slices of the port implement
 _NOT_YET = (
-    ("polish_method", lambda v: v == "rnn",
-     "polish_method 'rnn' needs the bi-GRU polisher (models/polisher.py), a later "
-     "slice of the port; use 'poa'"),
     ("mesh_shape", bool, "mesh_shape needs the multi-GPU mesh slice of the port"),
     ("distributed", bool, "distributed needs the multi-GPU mesh slice of the port"),
     ("resume", bool, "resume needs the robustness slice of the port"),
@@ -62,20 +61,6 @@ _OBSERVATION_ONLY = (
 
 def _log(*parts):
     print(*parts, file=sys.stderr)
-
-
-def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """CUDA unless ``device`` names the CPU; a CUDA device without a card
-    raises. Float32 matmuls stay full float32 (no TF32)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the port runs on the card unless the CPU is asked "
-            "for (--cpu, or device='cpu')"
-        )
-    return dev
 
 
 class StageClock:
@@ -126,6 +111,7 @@ def run_with_config(cfg: RunConfig, device: str | torch.device | None = None,
     check_supported(cfg)
     dev = resolve_device(device)
     clock = StageClock(timings, dev)
+    polisher = _rnn_polisher(cfg, dev) if cfg.polish_method == "rnn" else None
     observed = [k for k, off in _OBSERVATION_ONLY if getattr(cfg, k) != off]
     if observed:
         _log(f"note: {observed} accepted; the port does not write their artifacts yet")
@@ -188,14 +174,37 @@ def run_with_config(cfg: RunConfig, device: str | torch.device | None = None,
         lay = layout.init_library_dir(fastq, nano_dir)
         results[lay.library] = _run_library(
             fastq, lay, cfg, panel, engine, engine_notrim, blast_id_threshold,
-            overlap_consensus, read_batch, budget, clock,
+            overlap_consensus, read_batch, budget, clock, polisher,
         )
     _log("Done running all barcodes!")
     return results
 
 
+def _rnn_polisher(cfg: RunConfig, dev: torch.device):
+    """The bi-GRU polisher of ``polish_method: "rnn"``, or None (vote
+    consensus only) when no weights are bundled."""
+    from ont_tcrconsensus_tpu_torch.models import polisher as polisher_mod
+
+    params = polisher_mod.load_default_params()
+    if params is None:
+        _log("polish_method=rnn but no bundled weights; using vote consensus only")
+        return None
+    # the depth-2 pass only where selection can emit 2-member clusters
+    low_params = (
+        polisher_mod.load_low_depth_params()
+        if cfg.low_depth_polish and cfg.min_reads_per_cluster <= 2 else None
+    )
+    if cfg.polish_bf16:
+        _log("polisher: serving float32 (bf16 serving needs an exactness A/B "
+             "certificate for this card, which the port does not have yet)")
+    return polisher_mod.make_pipeline_polisher(
+        params, min_polish_depth=cfg.min_polish_depth,
+        low_depth_params=low_params, device=dev,
+    )
+
+
 def _run_library(fastq, lay, cfg, panel, engine, engine_notrim, blast_id_threshold,
-                 overlap_consensus, read_batch, budget, clock) -> dict[str, int]:
+                 overlap_consensus, read_batch, budget, clock, polisher) -> dict[str, int]:
     library = lay.library
     dev = clock.device
     merged_path = os.path.join(lay.fasta, "merged_consensus.fasta")
@@ -261,7 +270,8 @@ def _run_library(fastq, lay, cfg, panel, engine, engine_notrim, blast_id_thresho
     with clock("polish"):
         by_group = stages.polish_clusters_all(
             selected_by_group, store, max_read_length=cfg.max_read_length,
-            budget=budget, cluster_batch=cfg.cluster_batch_size, device=dev,
+            polisher=polisher, budget=budget, cluster_batch=cfg.cluster_batch_size,
+            device=dev,
         )
     merged_consensus: list[tuple[str, str]] = []
     for group_name, _ in selected_by_group:

@@ -1,10 +1,11 @@
 """Pipeline stages over the columnar read store.
 
 The counterpart of the JAX package's ``pipeline/stages.py`` (host logic
-copied; device passes in PyTorch on the run's device): grouping, UMI record
-assembly, clustering + subread selection with the sub-threshold rescue,
-batched consensus polish with the out-of-memory shrink ladder, and
-counting. Strings materialize only at artifact boundaries.
+copied; device passes in PyTorch on the run's device, the card unless the
+caller names the CPU): grouping, UMI record assembly, clustering + subread
+selection with the sub-threshold rescue, batched consensus polish (vote
+rounds, then the optional bi-GRU polisher) with the out-of-memory shrink
+ladder, and counting. Strings materialize only at artifact boundaries.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from ont_tcrconsensus_tpu_torch.cluster import umi as umi_mod
+from ont_tcrconsensus_tpu_torch.device import resolve_device
 from ont_tcrconsensus_tpu_torch.io import bucketing, fastx
 from ont_tcrconsensus_tpu_torch.ops import consensus as consensus_mod
 from ont_tcrconsensus_tpu_torch.ops import edit_distance, encode, sketch
@@ -146,12 +148,13 @@ def cluster_and_select_grouped(
     min_reads_per_cluster: int,
     max_reads_per_cluster: int,
     balance_strands: bool,
-    device: str | torch.device = "cpu",
+    device: str | torch.device | None = None,
 ) -> dict[str, tuple[list[SelectedCluster], list[dict]]]:
     """Cluster every group's combined UMIs in one batched pass (cross-group
     identities masked), select subreads per group, then heal sub-threshold
-    fragments with one batched rescue pass. Returns {group: (selected,
-    stat_rows)}."""
+    fragments with one batched rescue pass, on ``device`` (the card when
+    None). Returns {group: (selected, stat_rows)}."""
+    device = resolve_device(device)
     eligibles = [
         (name, [r for r in records if min_umi_length <= len(r.combined) <= max_umi_length])
         for name, records in named_records
@@ -172,7 +175,7 @@ def cluster_and_select_grouped(
         first_pass[name] = (recs, clusters, selected, stat_rows)
         if min_reads_per_cluster > 1:
             rescue_work.append((name, recs, clusters, members, taken))
-    roots_by = _rescue_grouped(rescue_work, identity, device=device) if rescue_work else {}
+    roots_by = _rescue_grouped(rescue_work, identity, device) if rescue_work else {}
     for name, (recs, clusters, selected, stat_rows) in first_pass.items():
         roots = roots_by.get(name)
         if roots is not None:
@@ -188,7 +191,7 @@ def cluster_and_select_grouped(
 RESCUE_K_END = 16
 
 
-def _rescue_identities(codes, lens, sub_global, gid, rescue_k_end, device="cpu"):
+def _rescue_identities(codes, lens, sub_global, gid, rescue_k_end, device):
     """(n_sub, K+1) candidate centroid indices + relaxed-end identities:
     k-mer shortlist over ALL centroid rows, then exact dovetail distances
     with ``rescue_k_end`` free ends. Self, padded and (with ``gid``)
@@ -275,8 +278,8 @@ def _rescue_subs(members: dict, taken: set) -> list[int]:
     return [cid for cid in sorted(members) if cid not in taken and members[cid]]
 
 
-def _rescue_grouped(work: list[tuple], identity: float, rescue_k_end: int = RESCUE_K_END,
-                    device="cpu") -> dict:
+def _rescue_grouped(work: list[tuple], identity: float, device,
+                    rescue_k_end: int = RESCUE_K_END) -> dict:
     """Second-chance pass for clusters that failed min_reads_per_cluster,
     batched over groups: each sub-threshold cluster's centroid UMI merges
     into its single best match at >= the same identity (ties: smaller
@@ -399,34 +402,48 @@ def polish_clusters_all(
     max_read_length: int = 4096,
     rounds: int = 4,
     band_width: int = consensus_mod.POLISH_BAND_WIDTH,
+    polisher=None,
     cluster_batch: int | None = None,
     budget=None,
-    device: str | torch.device = "cpu",
+    device: str | torch.device | None = None,
 ) -> dict[str, list[tuple[str, str]]]:
-    """Consensus for every selected cluster of every group, batched together.
+    """Consensus for every selected cluster of every group, batched together,
+    on ``device`` (the card when None).
 
     Subreads are gathered from the store and flipped to canonical (+)
-    orientation; clusters are grouped by (subread-count bucket, width
-    bucket) and polished ``cluster_batch`` at a time (from the memory
-    budget unless given). A CUDA out-of-memory error re-derives a smaller
-    batch from a halved budget and requeues the chunk and the rest of its
-    bucket; results do not depend on the batch. Headers follow the
-    reference's ``<group>_cluster<id>_<n_subreads>``. Returns per-group
-    (header, seq) lists in cluster-id order.
+    orientation, their qualities reversed (not complemented) beside them;
+    clusters are grouped by (subread-count bucket, width bucket) and
+    polished ``cluster_batch`` at a time (from the memory budget unless
+    given). ``polisher`` (``models.polisher.make_pipeline_polisher``), when
+    given, runs on each chunk after the vote rounds, on their kept final
+    pileup. A CUDA out-of-memory error re-derives a smaller batch from a
+    halved budget and requeues the chunk and the rest of its bucket;
+    results do not depend on the batch. Headers follow the reference's
+    ``<group>_cluster<id>_<n_subreads>``. Returns per-group (header, seq)
+    lists in cluster-id order.
     """
+    device = resolve_device(device)
     prepared: dict[tuple[int, int], list] = defaultdict(list)
     by_group: dict[str, list[tuple[str, str]]] = {g: [] for g, _ in selected_by_group}
     for group_name, selected in selected_by_group:
         for cl in selected:
-            rows_codes = []
+            rows_codes, rows_rev = [], []
+            rows_quals: list | None = []
             max_len = 0
             for m in cl.members:
                 blk = store.blocks[m.block]
                 ln = int(blk.lens[m.row])
                 c = blk.codes[m.row, :ln]
+                q = blk.quals[m.row, :ln] if blk.quals is not None else None
                 if m.strand == "-":
                     c = encode.revcomp_codes(c)
+                    q = q[::-1] if q is not None else None  # q[i] stays the phred of base i
                 rows_codes.append(c)
+                if q is None:
+                    rows_quals = None
+                elif rows_quals is not None:
+                    rows_quals.append(q)
+                rows_rev.append(m.strand == "-")
                 max_len = max(max_len, ln)
             # one lane-width of growth slack above the longest subread
             need = max_len + 128
@@ -436,21 +453,33 @@ def polish_clusters_all(
             )
             codes, lens = encode.pad_batch(rows_codes, pad_to=width, multiple=128)
             s_bucket = bucketing.pow2_ceil(len(rows_codes))
+            quals = None
+            if rows_quals is not None:
+                quals = np.zeros((s_bucket, codes.shape[1]), np.uint8)
+                for i, q in enumerate(rows_quals):
+                    quals[i, : len(q)] = q
+            strands = np.zeros(s_bucket, bool)
+            strands[: len(rows_rev)] = rows_rev
             if s_bucket > len(rows_codes):
                 pad_rows = s_bucket - len(rows_codes)
                 codes = np.concatenate(
                     [codes, np.full((pad_rows, codes.shape[1]), encode.PAD_CODE, np.uint8)]
                 )
                 lens = np.concatenate([lens, np.zeros(pad_rows, lens.dtype)])
-            prepared[(s_bucket, codes.shape[1])].append((group_name, cl, codes, lens))
+            prepared[(s_bucket, codes.shape[1])].append(
+                (group_name, cl, codes, lens, quals, strands)
+            )
 
+    keep_pos = bool(getattr(polisher, "wants_v4", False))
     for (s_bucket, width), items in sorted(prepared.items()):
         # long-amplicon buckets double the band: indel drift grows with length
         eff_band = band_width if width <= 2048 else max(band_width, 128)
         if cluster_batch is not None:
             cb = cluster_batch
         elif budget is not None:
-            cb = budget.cluster_batch(s_bucket, width, eff_band, keep_final_pileup=False)
+            cb = budget.cluster_batch(s_bucket, width, eff_band,
+                                      keep_final_pileup=polisher is not None,
+                                      keep_pos=keep_pos)
         else:
             cb = 16
         cb = min(cb, bucketing.pow2_ceil(len(items)))
@@ -462,11 +491,14 @@ def polish_clusters_all(
                 try:
                     seqs = _dispatch_polish_packed(
                         _pack_polish_chunk(chunk, cb_run, s_bucket, width), len(chunk),
-                        rounds=rounds, eff_band=eff_band, device=device,
+                        rounds=rounds, eff_band=eff_band, keep_pos=keep_pos,
+                        polisher=polisher, device=device,
                     )
                 except torch.cuda.OutOfMemoryError:
-                    new_cb = _shrunken_cluster_batch(budget, shrink, s_bucket, width,
-                                                     eff_band, cb_run=cb_run)
+                    new_cb = _shrunken_cluster_batch(
+                        budget, shrink, s_bucket, width, eff_band,
+                        keep_final=polisher is not None, keep_pos=keep_pos, cb_run=cb_run,
+                    )
                     if new_cb >= cb_run:
                         raise
                     torch.cuda.empty_cache()
@@ -485,34 +517,48 @@ def polish_clusters_all(
 
 def _pack_polish_chunk(chunk, cb, s_bucket, width):
     """Stack one chunk into its padded (cb, S, W) tile (cluster axis padded
-    with empty clusters)."""
+    with empty clusters): (subreads, lens, quals or None when any cluster
+    lacks them, strands)."""
     C = len(chunk)
-    sub = np.stack([codes for _, _, codes, _ in chunk])
-    lens = np.stack([ln for _, _, _, ln in chunk])
+    sub = np.stack([codes for _, _, codes, _, _, _ in chunk])
+    lens = np.stack([ln for _, _, _, ln, _, _ in chunk])
+    have_quals = all(q is not None for _, _, _, _, q, _ in chunk)
+    quals = np.stack([q for _, _, _, _, q, _ in chunk]) if have_quals else None
+    strands = np.stack([s for _, _, _, _, _, s in chunk])
     if C < cb:
         pad = cb - C
         sub = np.concatenate([sub, np.full((pad, s_bucket, width), encode.PAD_CODE, np.uint8)])
         lens = np.concatenate([lens, np.zeros((pad, s_bucket), lens.dtype)])
-    return sub, lens
+        if quals is not None:
+            quals = np.concatenate([quals, np.zeros((pad, s_bucket, width), np.uint8)])
+        strands = np.concatenate([strands, np.zeros((pad, s_bucket), bool)])
+    return sub, lens, quals, strands
 
 
-def _dispatch_polish_packed(packed, C, *, rounds, eff_band, device) -> list[str]:
-    """Consensus of one packed (cb, S, W) tile; the C real clusters'
-    sequences in chunk order."""
-    sub, lens = packed
-    drafts, dlens = consensus_mod.consensus_clusters_batch(
-        sub, lens, rounds=rounds, band_width=eff_band, device=device,
+def _dispatch_polish_packed(packed, C, *, rounds, eff_band, keep_pos, polisher,
+                            device) -> list[str]:
+    """Consensus (and polish) of one packed (cb, S, W) tile; the C real
+    clusters' sequences in chunk order."""
+    sub, lens, quals, strands = packed
+    drafts, dlens, *rest = consensus_mod.consensus_clusters_batch(
+        sub, lens, rounds=rounds, band_width=eff_band,
+        keep_final_pileup=polisher is not None, keep_pos=keep_pos, device=device,
     )
+    if polisher is not None:
+        drafts, dlens = polisher(sub, lens, drafts, dlens, pileup=rest[0],
+                                 band_width=eff_band, quals=quals, strands=strands)
     return encode.decode_batch(drafts[:C], dlens[:C])
 
 
-def _shrunken_cluster_batch(budget, shrink, s_bucket, width, eff_band, *, cb_run) -> int:
+def _shrunken_cluster_batch(budget, shrink, s_bucket, width, eff_band, *, keep_final,
+                            keep_pos, cb_run) -> int:
     """Next cluster batch after the ``shrink``-th out-of-memory error at
     ``cb_run``: the budget model with a halved allowance, strictly below
     ``cb_run``, floor 1 (the ladder always terminates)."""
     if budget is not None:
         shrunk = dataclasses.replace(budget, hbm_gb=budget.hbm_gb / (2.0 ** (shrink + 1)))
-        new_cb = shrunk.cluster_batch(s_bucket, width, eff_band, keep_final_pileup=False)
+        new_cb = shrunk.cluster_batch(s_bucket, width, eff_band,
+                                      keep_final_pileup=keep_final, keep_pos=keep_pos)
     else:
         new_cb = cb_run // 2
     return max(1, min(new_cb, cb_run // 2))

@@ -142,6 +142,37 @@ def test_consensus_clusters_batch_matches_jax(band, W):
     assert (tl[:-1] > 0).all() and tl[-1] == 0
 
 
+@pytest.mark.parametrize("W,rounds,keep_pos", [
+    (512, 4, True), (512, 4, False), (1024, 4, True), (512, 1, True),
+])
+def test_kept_final_pileup_matches_jax(W, rounds, keep_pos):
+    """Each cluster's pileup from the round its draft stopped changing,
+    scattered into full planes (empty clusters uncovered); None on both
+    sides when the rounds run out first (one round here). At W=1024 the
+    JAX package keeps the pileup of its fused round pairs."""
+    sub, lens = _cluster_tile(20 + rounds, C=5, S=6, W=W, err=0.08)
+    jd, jl, jp = jconsensus.consensus_clusters_batch(
+        sub, lens, rounds=rounds, band_width=64, keep_final_pileup=True, keep_pos=keep_pos)
+    td, tl, tp = consensus.consensus_clusters_batch(
+        sub, lens, rounds=rounds, band_width=64, keep_final_pileup=True, keep_pos=keep_pos,
+        device="cpu")
+    np.testing.assert_array_equal(td, np.asarray(jd))
+    np.testing.assert_array_equal(tl, np.asarray(jl))
+    if rounds == 1:
+        assert jp is None and tp is None
+        return
+    assert jp is not None and tp is not None
+    for name, t, j in zip(("base_at", "ins_cnt", "ins_base"), tp, jp):
+        assert t.dtype == {"base_at": torch.uint8, "ins_cnt": torch.int32,
+                           "ins_base": torch.uint8}[name]
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j), err_msg=name)
+    if keep_pos:
+        np.testing.assert_array_equal(tp[3].numpy(), np.asarray(jp[3]))
+    else:
+        assert tp[3] is None and jp[3] is None
+    assert (tp[0][-1] == 5).all()  # the empty cluster reads uncovered
+
+
 def test_vote_columns_batch_matches_jax():
     rng = np.random.default_rng(6)
     C, S, Ld = 4, 7, 96
@@ -203,7 +234,7 @@ def test_polish_out_of_memory_ladder_gives_the_same_consensus(monkeypatch):
     from ont_tcrconsensus_tpu_torch.parallel.budget import BudgetModel
 
     store, selected = _polish_inputs()
-    want = stages.polish_clusters_all(selected, store, cluster_batch=8)
+    want = stages.polish_clusters_all(selected, store, cluster_batch=8, device="cpu")
     real = stages._dispatch_polish_packed
     seen = []
 
@@ -215,7 +246,47 @@ def test_polish_out_of_memory_ladder_gives_the_same_consensus(monkeypatch):
 
     monkeypatch.setattr(stages, "_dispatch_polish_packed", flaky)
     # a budget that first packs each (depth, width) bucket's 3 clusters into 4
-    got = stages.polish_clusters_all(selected, store, budget=BudgetModel(hbm_gb=0.04))
+    got = stages.polish_clusters_all(selected, store, budget=BudgetModel(hbm_gb=0.04),
+                                     device="cpu")
     assert got == want
     assert seen[0] == 4 and seen[-1] == 2  # the ladder shrank, then ran
     assert all(len(seq) > 0 for _, seq in got["region_cluster0"])
+
+
+def test_polisher_path_through_the_out_of_memory_ladder(monkeypatch):
+    """With the polisher (depth-2 pass on, so the v4 features need the
+    read positions), the budget and the shrink ladder size the kept
+    pileup with its pos_at plane, and the polished consensus does not
+    depend on the batch."""
+    from ont_tcrconsensus_tpu_torch.models import polisher
+    from ont_tcrconsensus_tpu_torch.parallel.budget import BudgetModel
+
+    store, selected = _polish_inputs(seed=10)
+    pol = polisher.make_pipeline_polisher(
+        polisher.load_default_params(), low_depth_params=polisher.load_low_depth_params(),
+        device="cpu")
+    assert pol.wants_v4
+    want = stages.polish_clusters_all(selected, store, polisher=pol, cluster_batch=8,
+                                      device="cpu")
+    asked = []
+    real_batch = BudgetModel.cluster_batch
+
+    def recording(self, *args, **kwargs):
+        asked.append((kwargs["keep_final_pileup"], kwargs["keep_pos"]))
+        return real_batch(self, *args, **kwargs)
+
+    monkeypatch.setattr(BudgetModel, "cluster_batch", recording)
+    real = stages._dispatch_polish_packed
+
+    def flaky(packed, C, **kw):
+        if packed[0].shape[0] > 2:
+            raise torch.cuda.OutOfMemoryError("fake out of memory")
+        return real(packed, C, **kw)
+
+    monkeypatch.setattr(stages, "_dispatch_polish_packed", flaky)
+    got = stages.polish_clusters_all(selected, store, polisher=pol,
+                                     budget=BudgetModel(hbm_gb=0.04), device="cpu")
+    assert got == want
+    assert len(asked) >= 2 and set(asked) == {(True, True)}  # budget, then the ladder
+    vote = stages.polish_clusters_all(selected, store, cluster_batch=8, device="cpu")
+    assert got != vote  # the polisher changed a consensus

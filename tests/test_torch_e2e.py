@@ -3,9 +3,14 @@ the merged consensus FASTA must be byte-identical, and the counts equal the
 simulator's truth. Two lanes: the JAX package's e2e lane (seed 11, four
 pre-trimmed regions of 700-850 nt, iid errors) and an untrimmed one (seed
 23, adapters and primers, the systematic ONT error model, a near-duplicate
-pair and a negative control). Both run ``poa`` polish at read batch 64. The
-port runs through its CLI with ``--cpu``; without that flag it asks for the
-CUDA card."""
+pair and a negative control). Each lane runs under ``rnn`` polish (the
+default: no ``polish_method`` key, so the bi-GRU polisher with the bundled
+weights) and under ``poa``, at read batch 64. A third lane (seed 29, 2-4
+reads a molecule, clusters of 2 subreads kept) runs ``rnn`` only: there the
+polisher, its depth-2 pass on qualities and strands included, changes the
+consensus, so its counts are the JAX package's, not the truth. The port
+runs through its CLI with ``--cpu``; without that flag it asks for the CUDA
+card."""
 
 import json
 
@@ -24,7 +29,7 @@ from ont_tcrconsensus_tpu_torch.pipeline.config import RunConfig  # noqa: E402
 ARTIFACTS = ("counts/umi_consensus_counts.csv", "fasta/merged_consensus.fasta")
 
 
-def _lane_dir(root, lib):
+def _lane_dir(root, lib, method, lane):
     root.mkdir()
     jfastx.write_fasta(root / "reference.fa", lib.reference.items())
     (root / "fastq_pass" / "barcode01").mkdir(parents=True)
@@ -33,10 +38,10 @@ def _lane_dir(root, lib):
         "reference_file": str(root / "reference.fa"),
         "fastq_pass_dir": str(root / "fastq_pass"),
         "minimal_length": 600,
-        "min_reads_per_cluster": 4,
+        "min_reads_per_cluster": 2 if lane == "lowdepth" else 4,
         "read_batch_size": 64,
-        "polish_method": "poa",
         "delete_tmp_files": False,
+        **({} if method == "rnn" else {"polish_method": method}),
     }
 
 
@@ -48,26 +53,37 @@ LANES = {
                       reads_per_molecule=(5, 8), region_len=(700, 850),
                       with_adapters=True, num_similar_pairs=1, similar_divergence=0.01,
                       num_negative_controls=1),
+    "lowdepth": dict(seed=29, num_regions=3, molecules_per_region=(2, 3),
+                     reads_per_molecule=(2, 5), region_len=(700, 850), with_adapters=True,
+                     num_similar_pairs=1, similar_divergence=0.01, num_negative_controls=1),
 }
+RUNS = [("clean", "poa"), ("clean", "rnn"), ("untrimmed", "poa"), ("untrimmed", "rnn"),
+        ("lowdepth", "rnn")]
 
 
-@pytest.fixture(scope="module", params=sorted(LANES))
+@pytest.fixture(scope="module", params=RUNS, ids="-".join)
 def runs(request, tmp_path_factory):
-    tmp = tmp_path_factory.mktemp(f"torch_e2e_{request.param}")
-    kw = dict(LANES[request.param])
+    lane, method = request.param
+    tmp = tmp_path_factory.mktemp(f"torch_e2e_{lane}_{method}")
+    kw = dict(LANES[lane])
     if kw.get("with_adapters"):
         kw["error_model"] = jsim.OntErrorModel()
     lib = jsim.simulate_library(**kw)
-    port_cfg = _lane_dir(tmp / "port", lib)
+    port_cfg = _lane_dir(tmp / "port", lib, method, lane)
     cfg_path = tmp / "port_config.json"
     cfg_path.write_text(json.dumps(port_cfg))
     assert cli.main([str(cfg_path), "--cpu"]) == 0
-    jax_results = jax_run(JConfig.from_dict(_lane_dir(tmp / "jax", lib)))
+    jax_results = jax_run(JConfig.from_dict(_lane_dir(tmp / "jax", lib, method, lane)))
+    sides = ["port", "jax"]
+    if lane == "lowdepth":  # the vote consensus alone, for what the polisher changed
+        trun.run_with_config(RunConfig.from_dict(_lane_dir(tmp / "vote", lib, "poa", lane)),
+                             device="cpu")
+        sides.append("vote")
     out = {}
-    for side in ("port", "jax"):
+    for side in sides:
         lib_dir = tmp / side / "fastq_pass" / "nano_tcr" / "barcode01"
         out[side] = {rel: (lib_dir / rel).read_bytes() for rel in ARTIFACTS}
-    return lib, out, jax_results
+    return lib, out, jax_results, lane
 
 
 def _config(tmp_path, **knobs):
@@ -80,18 +96,31 @@ def _config(tmp_path, **knobs):
 
 @pytest.mark.parametrize("rel", ARTIFACTS)
 def test_artifacts_byte_identical_to_jax(runs, rel):
-    _, out, _ = runs
+    _, out, _, _ = runs
     assert out["port"][rel] == out["jax"][rel]
 
 
 def test_counts_equal_the_truth(runs):
-    lib, out, jax_results = runs
+    lib, out, jax_results, lane = runs
     rows = out["port"]["counts/umi_consensus_counts.csv"].decode().splitlines()
     assert rows[0] == "TCR,Count"
     got = {k: int(v) for k, v in (r.rsplit(",", 1) for r in rows[1:])}
-    assert got == lib.true_counts == jax_results["barcode01"]
-    fasta = out["port"]["fasta/merged_consensus.fasta"].decode()
-    assert fasta.count(">") == sum(lib.true_counts.values())
+    assert got == jax_results["barcode01"]
+    if lane != "lowdepth":
+        assert got == lib.true_counts
+        fasta = out["port"]["fasta/merged_consensus.fasta"].decode()
+        assert fasta.count(">") == sum(lib.true_counts.values())
+    else:  # the polisher changed the consensus, and the counts moved towards the truth
+        vote_rows = out["vote"]["counts/umi_consensus_counts.csv"].decode().splitlines()[1:]
+        vote = {k: int(v) for k, v in (r.rsplit(",", 1) for r in vote_rows)}
+        assert out["port"]["fasta/merged_consensus.fasta"] != out["vote"][
+            "fasta/merged_consensus.fasta"]
+
+        def missed(counts):
+            return sum(abs(counts.get(k, 0) - lib.true_counts.get(k, 0))
+                       for k in set(counts) | set(lib.true_counts))
+
+        assert missed(got) < missed(vote)
 
 
 def test_the_card_is_the_default_and_its_absence_raises(monkeypatch, tmp_path):
@@ -105,7 +134,7 @@ def test_the_card_is_the_default_and_its_absence_raises(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("polish_method", "rnn"), ("mesh_shape", {"data": 2}), ("distributed", True),
+    ("mesh_shape", {"data": 2}), ("distributed", True),
     ("resume", True), ("chaos", [{"site": "assign.dispatch", "kind": "transient"}]),
 ])
 def test_knobs_of_later_slices_raise(tmp_path, knob, value):

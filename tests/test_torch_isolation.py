@@ -45,7 +45,7 @@ def test_importing_every_port_module_loads_no_jax():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report["bad"] == []
     for must in ("ops.sw_kernel", "ops.pileup_kernel", "pipeline.run", "convert",
-                 "pipeline.cli", "__main__"):
+                 "pipeline.cli", "__main__", "models.polisher", "device"):
         assert f"ont_tcrconsensus_tpu_torch.{must}" in report["modules"]
 
 
@@ -102,3 +102,14 @@ def test_the_kernels_ship_as_package_data():
         data = tomllib.load(fh)["tool"]["setuptools"]["package-data"]
     globs = data["ont_tcrconsensus_tpu_torch"]
     assert "csrc/*.cu" in globs and "csrc/*.cuh" in globs and "primers/*.fasta" in globs
+
+
+def test_the_polisher_weights_ship_as_package_data():
+    import tomllib
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as fh:
+        data = tomllib.load(fh)["tool"]["setuptools"]["package-data"]
+    assert data["ont_tcrconsensus_tpu_torch.models"] == ["weights/*.msgpack", "weights/*.json"]
+    weights = os.listdir(os.path.join(PKG_DIR, "models", "weights"))
+    assert {"polisher_v3.msgpack", "polisher_v3_eval.json", "polisher_v4.msgpack",
+            "polisher_depth_gate_blastid.json"} <= set(weights)
