@@ -29,26 +29,41 @@ of which fails the script (non-zero exit, no result line):
    largest logit difference, and the positions whose gated decisions
    (0.9 confidence, depth gate) differ, which must be none; the card's
    times (CUDA-event medians of 7) of the features and the network;
-5. small e2e: the tests' 4-region lane under ``rnn`` (the default) and
-   under ``poa``, each on ``cuda`` and on ``cpu`` (plain versions): counts
-   CSV and merged FASTA byte-identical, counts equal to the simulator's
-   truth;
-6. full-size e2e: the representative lane (about 11k untrimmed reads of
+5. error profile: 512 simulated reads of 1.4-2.3 kb (the systematic ONT
+   error model, seed 5) against their reference spans, through the QC
+   error profile's device path on ``cuda`` (plain PyTorch: the JAX
+   package's XLA scans, no Pallas kernel) and its numpy fill: every cs
+   string equal. The device path's seconds (host clock to a synchronized
+   card, two calls) and, from one call traced by ``torch.profiler``, its
+   device events (kernel launches and copies) and busy time;
+6. small e2e: the tests' 4-region lane under ``rnn`` (the default) and
+   under ``poa``, each on ``cuda`` and on ``cpu`` (plain versions): every
+   file under ``nano_tcr/`` byte-identical (the QC logs and CSVs, both
+   error profiles, the reports), but the stage manifest's timestamps and
+   the stage table's seconds (its stage names must agree), counts equal to
+   the simulator's truth;
+7. full-size e2e: the representative lane (about 11k untrimmed reads of
    1.4-2.3 kb, 56 regions + 6 near-duplicate pairs + 2 negative controls,
    the systematic ONT error model, read batch 1024, band 128, seed 33) on
-   ``cuda``, unobserved: the default config (``rnn`` polish) ``--lane-runs``
-   times (2 by default, for the spread), then once under ``poa``. Kernel
-   launch counts are zeroed just before the first ``rnn`` run and read
-   just after it, and again around the ``poa`` run; each kernel must have
-   launched in both, and every run's counts must equal the truth. The
-   first run also records each launch's (batch, L, Lr, W), with a host
-   copy of each shape's first inputs (off the card, so the run's peak
-   memory is the lane's own; the copies are in that run's wall time);
-   after the runs each shape's kernel is timed on those inputs, for the
-   launches x (time - bound) the run spent at its real shapes. Peak device
-   memory and the polisher's seconds (host clock to a synchronized card)
-   are read per run, and the peak reached inside a polisher call when
-   that call raised it.
+   ``cuda``, unobserved: the default config (``rnn`` polish, the error
+   profiles of 512 reads a round on the overlapped QC worker) first, then
+   in turns the default config with ``error_profile_sample: 0`` (no QC
+   profile), with ``overlap_qc: false`` (the profiles on the main thread)
+   and the default config again, ``--lane-runs`` rounds (1 by default),
+   then once under ``poa``. Kernel launch counts are zeroed
+   just before the first run and read just after it, and again around the
+   ``poa`` run; each kernel must have launched in both, and every run's
+   counts must equal the truth. Each run's stage seconds are printed under
+   the stage table's names, the error profiles' worker seconds
+   (``*_bg``) beside the main thread's wait at their commit. The first
+   run also records each launch's (batch, L, Lr, W), with a host copy of
+   each shape's first inputs (off the card, so the run's peak memory is
+   the lane's own; the copies are in that run's wall time); after the
+   runs each shape's kernel is timed on those inputs, for the launches x
+   (time - bound) the run spent at its real shapes. Peak device memory
+   and the polisher's seconds (host clock to its stream synchronized) are
+   read per run, and the peak reached inside a polisher call when that
+   call raised it.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes every number
@@ -576,6 +591,57 @@ def polisher_parity(seed: int, C: int = 64, S: int = 16, L: int = 2048, W: int =
 
 
 # ---------------------------------------------------------------------------
+# the QC error profile
+
+
+def error_profile_phase(seed: int = 5, n: int = 512) -> dict:
+    """The error profile's cs strings of ``n`` simulated reads (1.4-2.3 kb
+    regions, the systematic ONT error model) against their reference
+    spans: the device path on the card against the numpy fill, every
+    string equal. Times: the device path twice (host clock to a
+    synchronized card) and the numpy fill once; then one device call traced
+    for its device events and busy time."""
+    import torch
+
+    from ont_tcrconsensus_tpu_torch.io import simulator
+    from ont_tcrconsensus_tpu_torch.ops import encode
+    from ont_tcrconsensus_tpu_torch.qc import error_profile
+
+    rng = np.random.default_rng(seed)
+    ref = simulator.make_reference(rng, num_regions=32, region_len=(1400, 2300))
+    names = list(ref)
+    model = simulator.OntErrorModel()
+    queries, spans = [], []
+    for _ in range(n):
+        seq = ref[names[int(rng.integers(len(names)))]]
+        span = seq[int(rng.integers(0, 30)): len(seq) - int(rng.integers(0, 30))]
+        read, _ = simulator.mutate_ont(rng, span, model)
+        queries.append(encode.encode_seq(read))
+        spans.append(encode.encode_seq(span))
+    t0 = time.perf_counter()
+    want = error_profile.banded_cs_batch(queries, spans)
+    numpy_s = time.perf_counter() - t0
+    device_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = error_profile.banded_cs_batch_device(queries, spans, device="cuda")
+        torch.cuda.synchronize()
+        device_s.append(time.perf_counter() - t0)
+        if got != want:
+            bad = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+            raise AssertionError(f"error profile: read {bad}'s cs string differs between "
+                                 f"the device path and numpy: {got[bad][:80]!r} vs "
+                                 f"{want[bad][:80]!r}")
+    traced = _device_ms(lambda: error_profile.banded_cs_batch_device(queries, spans,
+                                                                     device="cuda"))
+    lens = [len(q) for q in queries]
+    return {"n_reads": n, "read_len": [min(lens), max(lens)], "device_s": device_s,
+            "numpy_s": numpy_s, "device_events": traced["events"],
+            "device_busy_ms": traced["device_ms"], "strings_equal": True}
+
+
+# ---------------------------------------------------------------------------
 # end to end
 
 
@@ -603,13 +669,25 @@ def _run_lane(root: str, knobs: dict, device: str, timings: dict | None = None):
     return run_with_config(cfg, device=device, timings=timings)
 
 
+# files of a run that hold times, not results
+TIMED_FILES = ("barcode01/stage_manifest.json", "barcode01/logs/stage_timing.tsv")
+
+
 def _artifacts(root: str) -> dict[str, bytes]:
-    lib_dir = os.path.join(root, "fastq_pass", "nano_tcr", "barcode01")
+    """Every file under ``nano_tcr/``, by path under it."""
+    nano = os.path.join(root, "fastq_pass", "nano_tcr")
     out = {}
-    for rel in ("counts/umi_consensus_counts.csv", "fasta/merged_consensus.fasta"):
-        with open(os.path.join(lib_dir, rel), "rb") as fh:
-            out[rel] = fh.read()
+    for dirpath, _, files in os.walk(nano):
+        for f in files:
+            path = os.path.join(dirpath, f)
+            with open(path, "rb") as fh:
+                out[os.path.relpath(path, nano)] = fh.read()
     return out
+
+
+def _stage_names(tree: dict[str, bytes]) -> list[str]:
+    rows = tree[TIMED_FILES[1]].decode().splitlines()[1:]
+    return sorted(r.split("\t")[0] for r in rows)
 
 
 # the lanes' polish: the default config (no polish_method key: the bi-GRU
@@ -639,21 +717,27 @@ def small_e2e(method: str) -> dict:
     got_cpu = _run_lane(root, knobs, "cpu")
     cpu_s = time.perf_counter() - t0
     art_cpu = _artifacts(root)
-    for rel in art_cuda:
+    if sorted(art_cuda) != sorted(art_cpu):
+        raise AssertionError(f"small e2e ({method}): the file sets differ between cuda and "
+                             f"cpu: {sorted(set(art_cuda) ^ set(art_cpu))}")
+    for rel in sorted(set(art_cuda) - set(TIMED_FILES)):
         if art_cuda[rel] != art_cpu[rel]:
             raise AssertionError(f"small e2e ({method}): {rel} differs between cuda and cpu")
+    if _stage_names(art_cuda) != _stage_names(art_cpu):
+        raise AssertionError(f"small e2e ({method}): stage names differ between cuda and cpu")
     for dev, got in (("cuda", got_cuda), ("cpu", got_cpu)):
         if got.get("barcode01") != lib.true_counts:
             raise AssertionError(f"small e2e ({method}) on {dev}: counts "
                                  f"{got.get('barcode01')} != truth {lib.true_counts}")
     return {"polish": method, "n_reads": len(lib.reads), "cuda_s": cuda_s, "cpu_s": cpu_s,
-            "artifacts_identical": True, "counts_exact": True}
+            "files_compared": len(art_cuda) - len(TIMED_FILES), "artifacts_identical": True,
+            "counts_exact": True}
 
 
 @contextlib.contextmanager
 def _polisher_clock(stats: dict):
     """While the block runs, add the host-clock seconds of every polisher
-    call, the card synchronized before and after, to ``stats["s"]``, and
+    call, its stream synchronized before and after, to ``stats["s"]``, and
     set ``stats["peak_gb"]`` to the highest device-memory peak reached
     inside a call that raised the process's peak (the factory the run calls
     is wrapped; the polisher's arithmetic is untouched)."""
@@ -667,13 +751,14 @@ def _polisher_clock(stats: dict):
         polish = make(*args, **kwargs)
 
         def timed(*a, **kw):
-            torch.cuda.synchronize()
+            # the calling thread's stream only: the QC worker has its own
+            torch.cuda.current_stream().synchronize()
             peak = torch.cuda.max_memory_allocated()
             t0 = time.perf_counter()
             try:
                 return polish(*a, **kw)
             finally:
-                torch.cuda.synchronize()
+                torch.cuda.current_stream().synchronize()
                 stats["s"] += time.perf_counter() - t0
                 if torch.cuda.max_memory_allocated() > peak:
                     stats["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -688,11 +773,19 @@ def _polisher_clock(stats: dict):
         polisher.make_pipeline_polisher = make
 
 
-def full_e2e(kernels, runs: int) -> dict:
-    """The full lane: ``runs`` times under the default config (``rnn``
-    polish), then once under ``poa``. Kernel launches are counted over the
-    first ``rnn`` run (recorded by shape for :func:`launch_gaps`) and over
-    the ``poa`` run, each from zero."""
+# the full lane's runs: the default config (rnn polish, QC profiles on
+# the overlapped worker), the same without the error profiles and with
+# them on the main thread, and the vote consensus alone
+LANE_RUNS = {**POLISH, "rnn, error_profile_sample 0": {"error_profile_sample": 0},
+             "rnn, overlap_qc false": {"overlap_qc": False}}
+
+
+def full_e2e(kernels, rounds: int) -> dict:
+    """The full lane: the default config, then ``rounds`` times in turns the
+    default config without the error profiles, with them on the main
+    thread, and as it is, then once under ``poa``. Kernel launches are
+    counted over the first run (recorded by shape for :func:`launch_gaps`)
+    and over the ``poa`` run, each from zero."""
     import torch
 
     from ont_tcrconsensus_tpu_torch.io import simulator
@@ -713,7 +806,8 @@ def full_e2e(kernels, runs: int) -> dict:
     _write_lane(root, lib)
     data_s = time.perf_counter() - t0
     knobs = {"minimal_length": 1000, "min_reads_per_cluster": 4, "read_batch_size": 1024}
-    methods = ["rnn"] * runs + ["poa"]
+    methods = (["rnn"] + ["rnn, error_profile_sample 0", "rnn, overlap_qc false", "rnn"] * rounds
+               + ["poa"])
     seconds, stages, peaks, polisher_runs, launches, diffs = [], [], [], [], {}, {}
     for run, method in enumerate(methods):
         counted = run == 0 or method == "poa"  # each path's launches, from zero
@@ -730,7 +824,7 @@ def full_e2e(kernels, runs: int) -> dict:
                           for key, (module, name, shape_of) in recorded.items()}
             stack.enter_context(_polisher_clock(pol))
             t0 = time.perf_counter()
-            got = _run_lane(root, {**knobs, **POLISH[method]}, "cuda", timings=stage_s)
+            got = _run_lane(root, {**knobs, **LANE_RUNS[method]}, "cuda", timings=stage_s)
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
         peaks.append(torch.cuda.max_memory_allocated() / 1e9)
@@ -762,9 +856,10 @@ def full_e2e(kernels, runs: int) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every number to this JSON file")
-    parser.add_argument("--lane-runs", type=int, default=2,
-                        help="full-size lane runs under the default config (the first is "
-                             "the main path's); one poa run follows them")
+    parser.add_argument("--lane-runs", type=int, default=1,
+                        help="full-size lane: rounds of runs without the QC error profiles, "
+                             "with them on the main thread and with them overlapped, after "
+                             "the first (the main path's) run; one poa run follows them")
     args = parser.parse_args(argv)
 
     try:
@@ -844,13 +939,24 @@ def main(argv=None) -> int:
         _dump(args.out, report)
         return _fail(f"polisher decisions differ between cuda and cpu: {pol['flips']}")
 
-    # 5. small e2e, cuda vs cpu, under both polish methods
+    # 5. the QC error profile's device path against numpy
+    ep = report["error_profile"] = error_profile_phase()
+    print(f"error profile ({ep['n_reads']} reads of {ep['read_len'][0]}-{ep['read_len'][1]} nt): "
+          f"every cs string equal on the card and in numpy; device path "
+          + ", ".join(f"{t:.2f}" for t in ep["device_s"])
+          + f" s ({ep['device_events']} device events, busy {ep['device_busy_ms']:.1f} ms), "
+          f"numpy {ep['numpy_s']:.2f} s", flush=True)
+
+    # 6. small e2e, cuda vs cpu, under both polish methods
     report["small_e2e"] = [small_e2e(method) for method in POLISH]
     for small in report["small_e2e"]:
-        print(f"small e2e ({small['polish']}): artifacts identical on cuda and cpu, counts exact "
-              f"(cuda {small['cuda_s']:.1f} s, cpu {small['cpu_s']:.1f} s)", flush=True)
+        print(f"small e2e ({small['polish']}): {small['files_compared']} files identical on "
+              f"cuda and cpu, stage names equal, counts exact (cuda {small['cuda_s']:.1f} s, "
+              f"cpu {small['cpu_s']:.1f} s)", flush=True)
 
-    # 6. full-size e2e (the main path under rnn, then the poa path)
+    # 7. full-size e2e (the main path under the default config, then in
+    # turns without the QC profiles, with them serial and overlapped, then
+    # the poa path)
     kernels = (sw_kernel.align_banded_cuda, pileup_kernel.forward_planes_cuda)
     full = report["full_e2e"] = full_e2e(kernels, max(args.lane_runs, 1))
     print(f"full e2e: {full['n_reads']} reads in " + ", ".join(
@@ -860,10 +966,15 @@ def main(argv=None) -> int:
           + ", ".join(f"{gb:.2f}" for gb in full["max_memory_allocated_gb"])
           + f" GB, launches {full['launches']}", flush=True)
     for run, stage_s in enumerate(full["stage_s"]):
-        print(f"full e2e run {run} ({full['polish'][run]}) stages (s): "
+        qc = "; ".join(
+            f"{r} error profile: worker {stage_s[f'{r}_error_profile_bg']:.2f} s, commit wait "
+            f"{stage_s[f'{r}_error_profile']:.3f} s" for r in ("round1", "round2")
+            if f"{r}_error_profile_bg" in stage_s)
+        print(f"full e2e run {run} ({full['polish'][run]}): {full['reads_per_s'][run]:.1f} "
+              f"reads/s; stages (s): "
               + ", ".join(f"{k} {v:.2f}" for k, v in stage_s.items())
               + f"; polisher {full['polisher'][run]['s']:.2f} (peak inside it: "
-              f"{full['polisher'][run]['peak_gb']} GB)", flush=True)
+              f"{full['polisher'][run]['peak_gb']} GB)" + (f"; {qc}" if qc else ""), flush=True)
     for key, gaps in full["launch_gaps"].items():
         print(f"full e2e run 0 {key} launches by (batch, L, Lr, W): " + ", ".join(
               f"{tuple(r['shape'])} x{r['launches']} {r['ms']:.3f} ms (bound {r['bound_ms']:.3f})"
@@ -876,7 +987,7 @@ def main(argv=None) -> int:
     if not all(n for path in full["launches"].values() for n in path.values()):
         return _fail(f"a kernel of a path never launched: {full['launches']}")
 
-    # 7. kernels line
+    # 8. kernels line
     entries = []
     for k, key, name, src, replaces in (
         (sw_kernel.align_banded_cuda, "sw", "sw_banded",

@@ -22,6 +22,10 @@ import torch
 from ont_tcrconsensus_tpu_torch.device import resolve_device
 from ont_tcrconsensus_tpu_torch.ops import encode, sketch, sw_kernel
 
+# reference names of negative controls, left out of the detected-region
+# fraction (the reference's region split)
+NEGATIVE_CONTROL_SUFFIXES = ("_v_n", "cdr3j_n", "full_n")
+
 @dataclasses.dataclass
 class HomologyResult:
     region_cluster: dict[str, int]              # region name -> cluster index

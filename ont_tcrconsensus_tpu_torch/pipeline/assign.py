@@ -27,6 +27,7 @@ from ont_tcrconsensus_tpu_torch.device import resolve_device
 from ont_tcrconsensus_tpu_torch.io import bucketing, fastx
 from ont_tcrconsensus_tpu_torch.ops import ee_filter, encode, fuzzy_match, sketch, sw_kernel
 from ont_tcrconsensus_tpu_torch.ops.sw_align import PAD_SENTINEL
+from ont_tcrconsensus_tpu_torch.robustness import contracts
 
 MIN_SCORE = 100  # SW score gate for a "primary alignment" equivalent
 BIG_DIST = 1 << 20  # sentinel distance for "no qualifying primer hit"
@@ -404,6 +405,36 @@ class ReadStore:
 
 
 @dataclasses.dataclass
+class LengthStats:
+    """seqkit-stat-style aggregates (the reference's read-stats artifact)."""
+
+    n: int = 0
+    sum_len: int = 0
+    min_len: int = 0
+    max_len: int = 0
+    sum_qual: float = 0.0   # mean-Phred sum over reads (0 when no quals)
+
+    def update(self, lens: np.ndarray, mean_quals: np.ndarray | None = None):
+        if lens.size == 0:
+            return
+        self.n += int(lens.size)
+        self.sum_len += int(lens.sum())
+        mn = int(lens.min())
+        self.min_len = mn if self.min_len == 0 else min(self.min_len, mn)
+        self.max_len = max(self.max_len, int(lens.max()))
+        if mean_quals is not None and mean_quals.size:
+            self.sum_qual += float(mean_quals.sum())
+
+    @property
+    def avg_len(self) -> float:
+        return self.sum_len / self.n if self.n else 0.0
+
+    @property
+    def avg_qual(self) -> float:
+        return self.sum_qual / self.n if self.n else 0.0
+
+
+@dataclasses.dataclass
 class AlignStats:
     n_total: int = 0
     n_ee_fail: int = 0
@@ -417,6 +448,8 @@ class AlignStats:
     n_ingested: int = 0        # records drawn from the parser
     n_bucket_short: int = 0    # dropped below the batcher min_len gate
     n_bucket_long: int = 0     # dropped above the largest width bucket
+    pre_filter: LengthStats = dataclasses.field(default_factory=LengthStats)
+    post_filter: LengthStats = dataclasses.field(default_factory=LengthStats)
 
 
 # ---------------------------------------------------------------------------
@@ -524,6 +557,7 @@ def run_assign(
     batch_size: int = 1024,
     max_read_length: int = 4096,
     blast_id_threshold: float | None = None,
+    collect_qc: list | None = None,
     subsample: int | None = None,
     dispatch=None,
 ) -> tuple[ReadStore, AlignStats]:
@@ -531,10 +565,14 @@ def run_assign(
 
     Filters mirror the reference's region split (ref-overlap + read-length
     window) plus — when ``blast_id_threshold`` is set (round 2) — the
-    consensus blast-id gate. ``dispatch(batch, max_ee_rate, min_len)``
-    overrides the per-batch device call (round 2's targeted pass); every
-    filter step is shared. Batches run one after another on this thread,
-    in the JAX package's batch order, so the store's row order is the same.
+    consensus blast-id gate. ``collect_qc``, when given, receives one row
+    per aligned read (name, region, spans, blast id, filter status) for
+    the consensus-filter QC artifacts. ``dispatch(batch, max_ee_rate,
+    min_len)`` overrides the per-batch device call (round 2's targeted
+    pass); every filter step is shared. Batches run one after another on
+    this thread, in the JAX package's batch order, so the store's row order
+    is the same. The ingest, partition and store conservation contracts are
+    checked at the end.
     """
     panel = engine.panel
     stats = AlignStats()
@@ -551,6 +589,17 @@ def run_assign(
         ee_ok = out["ee_ok"] & valid
         stats.n_ee_fail += int(nv - (ee_ok & valid).sum())
         stats.n_trimmed += int(((out["t_start"] > 0) & valid).sum())
+        mean_quals = None
+        if batch.quals is not None:
+            pos = np.arange(batch.quals.shape[1])[None, :]
+            in_span = (pos >= out["t_start"][:, None]) & (
+                pos < (out["t_start"] + lens)[:, None]
+            )
+            qsum = np.where(in_span, batch.quals, 0).sum(axis=1)
+            mean_quals = qsum / np.maximum(lens, 1)
+        stats.pre_filter.update(
+            lens[valid], mean_quals[valid] if mean_quals is not None else None
+        )
         aligned = ee_ok & (out["score"] >= MIN_SCORE)
         stats.n_aligned += int(aligned.sum())
         stats.n_unaligned += int((ee_ok & ~aligned).sum())
@@ -571,6 +620,32 @@ def run_assign(
             stats.n_low_blast += int(low.sum())
             ok = ok & ~low
         stats.n_pass += int(ok.sum())
+        stats.post_filter.update(
+            lens[ok], mean_quals[ok] if mean_quals is not None else None
+        )
+
+        if collect_qc is not None:
+            status = np.full(len(valid), "", dtype=object)
+            status[short] = "short"
+            status[long_] = "long"
+            if blast_id_threshold is not None:
+                status[low] = "low_blast_id"
+            status[ok] = "pass"
+            for i in np.where(aligned)[0]:
+                qc = {
+                    "name": batch.ids[i].partition(" ")[0],
+                    "region": panel.names[int(out["ridx"][i])],
+                    "ref_span": int(ref_span[i]),
+                    "read_len": int(lens[i]),
+                    "region_len": int(rlens[i]),
+                    "blast_id": float(out["blast_id"][i]),
+                    "status": str(status[i]),
+                }
+                if status[i] == "short":
+                    qc["nt_short"] = float(min_span[i] - ref_span[i])
+                elif status[i] == "long":
+                    qc["nt_long"] = float(lens[i] - max_len[i])
+                collect_qc.append(qc)
 
         rows = np.where(ok)[0]
         if len(rows) == 0:
@@ -599,7 +674,9 @@ def run_assign(
         })
         acc_names[batch.width].append([batch.ids[i].partition(" ")[0] for i in rows])
 
+    source_desc = "<records>"
     if isinstance(source, (str, bytes)) or hasattr(source, "__fspath__"):
+        source_desc = source
         source = fastx.read_fastx(source)
     records = iter(source)
 
@@ -645,4 +722,27 @@ def run_assign(
     stats.n_ingested = counters.n_records
     stats.n_bucket_short = counters.n_dropped_short
     stats.n_bucket_long = counters.n_dropped_long
-    return ReadStore(blocks=blocks), stats
+    store = ReadStore(blocks=blocks)
+    # conservation: the parsed records minus the bucket drops are what the
+    # device pass counted, the filter categories partition that total, and
+    # the store holds exactly the passing reads
+    src_desc = str(source_desc)[:200]
+    contracts.check_equal(
+        "ingest", "records parsed minus bucket drops",
+        counters.n_records - counters.n_dropped_short - counters.n_dropped_long,
+        "reads entering the device pass", stats.n_total,
+        detail={"source": src_desc, "ingested": counters.n_records,
+                "bucket_short": counters.n_dropped_short,
+                "bucket_long": counters.n_dropped_long},
+    )
+    contracts.check_equal(
+        "assign_partition", "filter category sum",
+        stats.n_ee_fail + stats.n_unaligned + stats.n_short + stats.n_long
+        + stats.n_low_blast + stats.n_pass,
+        "batch total", stats.n_total, detail={"source": src_desc},
+    )
+    contracts.check_equal(
+        "assign_store", "columnar store rows", store.num_reads,
+        "passing reads", stats.n_pass, detail={"source": src_desc},
+    )
+    return store, stats

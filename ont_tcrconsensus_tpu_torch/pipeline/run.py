@@ -12,20 +12,31 @@ its graph executor, so ``executor`` "graph" and "imperative" both run it):
   round 2:         consensus align + blast-id filter -> split by region ->
                    UMI cluster @0.97 -> select(min=1) -> counts CSV
 
+Beside the counts it writes the JAX package's QC and report artifacts: the
+read-stats, flagstat, split and consensus-filter logs and CSVs, both
+error profiles (``error_profile_sample`` reads a round; under
+``overlap_qc`` on a worker thread, committed on the main thread before
+each round's checkpoint), ``logs/stage_timing.tsv`` (under the JAX graph
+executor's stage names, the default executor's), the self-homology logs,
+``robustness_report.json`` (retry policy and outcomes, contract counters)
+and ``stack_dumps_p0.log`` (SIGQUIT dumps every thread's stack there).
+
 Every device pass runs on ``device``: CUDA unless the caller asks for the
-CPU, and a CUDA request without a card raises.
+CPU, and a CUDA request without a card raises. Nothing falls back to the
+CPU: a retry runs again on the same device.
 """
 
 from __future__ import annotations
 
-import contextlib
+import dataclasses
+import faulthandler
 import glob
 import json
 import os
 import re
 import shutil
+import signal
 import sys
-import time
 
 import numpy as np
 import torch
@@ -34,9 +45,12 @@ from ont_tcrconsensus_tpu_torch.cluster import regions as regions_mod
 from ont_tcrconsensus_tpu_torch.device import resolve_device
 from ont_tcrconsensus_tpu_torch.io import bucketing, fastx, layout
 from ont_tcrconsensus_tpu_torch.parallel import budget as budget_mod
-from ont_tcrconsensus_tpu_torch.pipeline import stages
+from ont_tcrconsensus_tpu_torch.pipeline import overlap, stages
 from ont_tcrconsensus_tpu_torch.pipeline.assign import AssignEngine, ReferencePanel, run_assign
 from ont_tcrconsensus_tpu_torch.pipeline.config import RunConfig
+from ont_tcrconsensus_tpu_torch.qc import artifacts, error_profile, umi_overlap
+from ont_tcrconsensus_tpu_torch.qc.timing import StageTimer
+from ont_tcrconsensus_tpu_torch.robustness import contracts, retry
 
 # fallback precision bar when no reference pair survives the homology filter
 DEFAULT_BLAST_ID_BAR = 0.99
@@ -54,8 +68,7 @@ _NOT_YET = (
 # accepted, not written yet
 _OBSERVATION_ONLY = (
     ("telemetry", "off"), ("live_port", None), ("profile_trace_dir", None),
-    ("history_ledger", None), ("error_profile_sample", 0),
-    ("compare_umi_overlap_between_regions", False),
+    ("history_ledger", None),
 )
 
 
@@ -63,36 +76,75 @@ def _log(*parts):
     print(*parts, file=sys.stderr)
 
 
-class StageClock:
-    """Adds each stage's wall seconds to ``timings`` when one is given.
-
-    The device is synchronized at a stage's end, so work it queued counts
-    to that stage; with ``timings`` None the clock does nothing.
-    """
-
-    def __init__(self, timings: dict[str, float] | None, device: torch.device):
-        self.timings = timings
-        self.device = device
-
-    @contextlib.contextmanager
-    def __call__(self, stage: str):
-        if self.timings is None:
-            yield
-            return
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self.timings[stage] = self.timings.get(stage, 0.0) + time.perf_counter() - t0
-
-
 def check_supported(cfg: RunConfig) -> None:
     """Raise NotImplementedError for knobs this slice does not implement."""
     for name, active, why in _NOT_YET:
         if active(getattr(cfg, name)):
             raise NotImplementedError(why)
+
+
+@dataclasses.dataclass
+class _RunContext:
+    """What every library of a run shares."""
+
+    cfg: RunConfig
+    device: torch.device
+    panel: ReferencePanel
+    engine: AssignEngine
+    engine_notrim: AssignEngine
+    blast_id_threshold: float
+    overlap_consensus: float
+    read_batch: int
+    budget: budget_mod.BudgetModel
+    polisher: object
+
+
+class _SigquitRunLog:
+    """SIGQUIT -> every thread's stack into the run's
+    ``stack_dumps_p<proc>.log``, without killing the run.
+
+    ``restore()`` reinstates the pre-run state: a stderr dump if one was
+    registered, otherwise the original SIGQUIT disposition, so a library
+    caller never inherits a handler from one run.
+    """
+
+    def __init__(self):
+        self.fh = None
+        self.had_stderr_dump = False
+
+    def register(self, nano_dir: str, proc_id: int) -> None:
+        if not hasattr(signal, "SIGQUIT"):
+            return
+        try:
+            self.fh = open(os.path.join(nano_dir, f"stack_dumps_p{proc_id}.log"), "a")
+            # unregister first so this registration saves the true
+            # pre-faulthandler handler; remember a stderr dump to restore
+            self.had_stderr_dump = faulthandler.unregister(signal.SIGQUIT)
+            # chain=False: chaining would fall through to SIG_DFL, which
+            # terminates the process; a dump must never kill the run
+            faulthandler.register(signal.SIGQUIT, file=self.fh, all_threads=True)
+        except (OSError, ValueError, AttributeError) as exc:
+            _log(f"stack-dump registration unavailable: {exc!r}")
+            if self.fh is not None:
+                self.fh.close()
+            self.fh = None
+            if self.had_stderr_dump:
+                try:
+                    faulthandler.register(signal.SIGQUIT, all_threads=True)
+                except (OSError, ValueError, AttributeError):
+                    pass
+
+    def restore(self) -> None:
+        if self.fh is None:
+            return
+        try:
+            faulthandler.unregister(signal.SIGQUIT)
+            if self.had_stderr_dump:
+                faulthandler.register(signal.SIGQUIT, all_threads=True)
+        except (OSError, ValueError, AttributeError):
+            pass
+        self.fh.close()
+        self.fh = None
 
 
 def run_pipeline(config_path: str, device: str | torch.device | None = None):
@@ -105,12 +157,31 @@ def run_with_config(cfg: RunConfig, device: str | torch.device | None = None,
                     ) -> dict[str, dict[str, int]]:
     """Run the full pipeline; returns {library: {region: count}}.
 
-    ``timings``, when given, receives each stage's wall seconds
-    (:class:`StageClock`).
+    ``timings``, when given, receives each stage's wall seconds summed over
+    the libraries, under the names of ``logs/stage_timing.tsv``, plus
+    ``self_homology``: the same spans as that table.
     """
     check_supported(cfg)
     dev = resolve_device(device)
-    clock = StageClock(timings, dev)
+    run_timer = StageTimer(dev)
+    sigquit_log = _SigquitRunLog()
+    try:
+        return _run_with_config_body(cfg, dev, run_timer, sigquit_log)
+    finally:
+        sigquit_log.restore()
+        if timings is not None:
+            timings.update(run_timer.seconds)
+
+
+def _run_with_config_body(cfg: RunConfig, dev: torch.device, run_timer: StageTimer,
+                          sigquit_log: _SigquitRunLog) -> dict[str, dict[str, int]]:
+    policy = retry.set_policy(retry.RetryPolicy(
+        max_attempts=cfg.retry_max_attempts, base_delay_s=cfg.retry_base_delay_s,
+    ))
+    recorder = retry.recorder()
+    recorder.reset()
+    contracts.set_mode(cfg.contracts)
+    contracts.reset()
     polisher = _rnn_polisher(cfg, dev) if cfg.polish_method == "rnn" else None
     observed = [k for k, off in _OBSERVATION_ONLY if getattr(cfg, k) != off]
     if observed:
@@ -120,15 +191,13 @@ def run_with_config(cfg: RunConfig, device: str | torch.device | None = None,
     if os.path.exists(nano_dir):
         raise FileExistsError(f"{nano_dir} exists; remove it to rerun")
     os.makedirs(nano_dir)
+    sigquit_log.register(nano_dir, 0)
 
     # PHASE A: reference self-homology
     _log("Mapping reference self homology")
-    with clock("self_homology"):
+    with run_timer.stage("self_homology"):
         homology = regions_mod.self_homology_map(reference, cfg.cluster_identity, device=dev)
-    with open(os.path.join(nano_dir, "region_cluster_dict.json"), "w") as fh:
-        json.dump(homology.region_cluster, fh, indent=4)
-    with open(os.path.join(nano_dir, "self_homology_stats.json"), "w") as fh:
-        json.dump(homology.stats, fh, indent=4)
+    _write_homology_artifacts(homology, nano_dir)
     blast_id_threshold = cfg.blast_id_threshold
     overlap_consensus = cfg.minimal_region_overlap_consensus
     if blast_id_threshold is None:
@@ -150,18 +219,23 @@ def run_with_config(cfg: RunConfig, device: str | torch.device | None = None,
         band_width=cfg.sw_band_width,
     )
     _log(f"Device batching: read_batch={read_batch}, budget={budget.hbm_gb:.1f} GB on {dev}")
-    engine = AssignEngine(
-        panel, cfg.umi_fwd, cfg.umi_rev, primers=cfg.primer_sequences(),
-        primer_max_dist_frac=cfg.primer_max_dist_frac,
-        a5=cfg.max_softclip_5_end, a3=cfg.max_softclip_3_end,
-        trim_window=cfg.trim_window, band_width=cfg.sw_band_width,
-        fast_denom=4 if cfg.round1_fast_assign else 0, device=dev,
-    )
-    # round 2 aligns already-trimmed consensus sequences: no primer search
-    engine_notrim = AssignEngine(
-        panel, cfg.umi_fwd, cfg.umi_rev, primers=[],
-        a5=cfg.max_softclip_5_end, a3=cfg.max_softclip_3_end,
-        band_width=cfg.sw_band_width, device=dev,
+    ctx = _RunContext(
+        cfg=cfg, device=dev, panel=panel,
+        engine=AssignEngine(
+            panel, cfg.umi_fwd, cfg.umi_rev, primers=cfg.primer_sequences(),
+            primer_max_dist_frac=cfg.primer_max_dist_frac,
+            a5=cfg.max_softclip_5_end, a3=cfg.max_softclip_3_end,
+            trim_window=cfg.trim_window, band_width=cfg.sw_band_width,
+            fast_denom=4 if cfg.round1_fast_assign else 0, device=dev,
+        ),
+        # round 2 aligns already-trimmed consensus sequences: no primer search
+        engine_notrim=AssignEngine(
+            panel, cfg.umi_fwd, cfg.umi_rev, primers=[],
+            a5=cfg.max_softclip_5_end, a3=cfg.max_softclip_3_end,
+            band_width=cfg.sw_band_width, device=dev,
+        ),
+        blast_id_threshold=blast_id_threshold, overlap_consensus=overlap_consensus,
+        read_batch=read_batch, budget=budget, polisher=polisher,
     )
 
     fastq_list = sorted(glob.glob(os.path.join(cfg.fastq_pass_dir, "barcode*", "*fastq*")))
@@ -170,14 +244,42 @@ def run_with_config(cfg: RunConfig, device: str | torch.device | None = None,
     if not fastq_list:
         raise FileNotFoundError(f"no fastq files under {cfg.fastq_pass_dir}")
     results: dict[str, dict[str, int]] = {}
-    for fastq in fastq_list:
-        lay = layout.init_library_dir(fastq, nano_dir)
-        results[lay.library] = _run_library(
-            fastq, lay, cfg, panel, engine, engine_notrim, blast_id_threshold,
-            overlap_consensus, read_batch, budget, clock, polisher,
-        )
+    try:
+        for fastq in fastq_list:
+            lay = layout.init_library_dir(fastq, nano_dir)
+            timer = StageTimer(dev)
+            try:
+                results[lay.library] = _run_library(fastq, lay, ctx, timer)
+            finally:
+                run_timer.merge(timer)
+    finally:
+        try:
+            recorder.write(os.path.join(nano_dir, "robustness_report.json"),
+                           policy=policy, contracts=contracts.summary())
+        except OSError as exc:  # report trouble must never mask the run's fate
+            _log(f"WARNING: could not write robustness report: {exc!r}")
     _log("Done running all barcodes!")
     return results
+
+
+def _write_homology_artifacts(homology, nano_dir: str) -> None:
+    with open(os.path.join(nano_dir, "region_cluster_dict.json"), "w") as fh:
+        json.dump(homology.region_cluster, fh, indent=4)
+    with open(os.path.join(nano_dir, "self_homology_stats.json"), "w") as fh:
+        json.dump(homology.stats, fh, indent=4)
+    # region -> blast ids of its most-similar partners (the analysis
+    # layer's most-similar overlay input)
+    most_similar: dict[str, list[float]] = {}
+    for qname, tname, bid in homology.most_similar:
+        most_similar.setdefault(qname, []).append(bid)
+        most_similar.setdefault(tname, []).append(bid)
+    with open(os.path.join(nano_dir, "ref_homology_out_most_similar_region_dict.json"),
+              "w") as fh:
+        json.dump(most_similar, fh, indent=4)
+    artifacts.write_self_homology_log(
+        homology.stats,
+        os.path.join(nano_dir, "ref_homology_out_generate_region_split_dict.log"),
+    )
 
 
 def _rnn_polisher(cfg: RunConfig, dev: torch.device):
@@ -203,49 +305,137 @@ def _rnn_polisher(cfg: RunConfig, dev: torch.device):
     )
 
 
-def _run_library(fastq, lay, cfg, panel, engine, engine_notrim, blast_id_threshold,
-                 overlap_consensus, read_batch, budget, clock, polisher) -> dict[str, int]:
+def _run_library(fastq, lay, ctx: _RunContext, timer: StageTimer) -> dict[str, int]:
+    """One library; under ``overlap_qc`` its side stages run on worker
+    threads, drained on a critical-path failure so none outlives it."""
+    qc_exec = overlap.StageExecutor(device=ctx.device) if ctx.cfg.overlap_qc else None
+    try:
+        return _run_library_impl(fastq, lay, ctx, timer, qc_exec)
+    except BaseException:
+        if qc_exec is not None:
+            for name, exc in qc_exec.wait_all():
+                _log(f"WARNING: overlapped stage {name} also failed: {exc!r}")
+        raise
+
+
+def _side_stage(pending: list, qc_exec, timer: StageTimer, name: str, fn, *args,
+                commit=None, **kwargs) -> None:
+    """A stage nothing on the critical path consumes: on a QC worker when
+    there is one (``commit(result)`` then runs at the next commit point),
+    else here, timed under ``name``."""
+    if qc_exec is not None:
+        pending.append((qc_exec.submit(name, fn, *args, **kwargs), commit))
+        return
+    with timer.stage(name):
+        result = fn(*args, **kwargs)
+        if commit is not None:
+            commit(result)
+
+
+def _profile_stage(pending, qc_exec, timer, name, store, ctx, log_path) -> None:
+    _side_stage(
+        pending, qc_exec, timer, name, error_profile.profile_store, store, ctx.panel,
+        sample_size=ctx.cfg.error_profile_sample, device=ctx.device,
+        commit=lambda counters: error_profile.write_error_profile_log(*counters, log_path),
+    )
+
+
+def _commit_pending_qc(qc_exec, pending: list, timer: StageTimer) -> None:
+    """Commit overlapped stages (write their logs, surface their failures)
+    in submission order on the main thread; clears the list. Every commit
+    point sits before the checkpoint of the round that produced the stage.
+
+    A worker that died of a non-fatal fault (transient, out of memory, a
+    lost device) is recomputed here on the main thread, on the same device:
+    the inputs are immutable, so the artifact is identical and only the
+    overlap is lost. A fatal failure is recorded and raised."""
+    for stage, commit in pending:
+        try:
+            result = qc_exec.commit(stage, timer)
+        except Exception as exc:
+            cls = retry.classify(exc)
+            rec = retry.recorder()
+            if cls == "fatal":
+                rec.record("overlap.worker", classification=cls,
+                           outcome="fatal", error=repr(exc))
+                raise
+            rec.record("overlap.worker", classification=cls,
+                       outcome="retried", error=repr(exc))
+            _log(f"WARNING: overlapped stage {stage.name} hit a {cls} "
+                 f"fault ({exc!r}); recomputing on the main thread")
+            with timer.stage(stage.name):
+                result = stage.rerun_sync()
+            rec.record("overlap.worker", classification=cls,
+                       outcome="recovered", attempt=2)
+        if commit is not None:
+            commit(result)
+        _log(f"qc: {stage.name} computed off the critical path "
+             f"({stage.worker_seconds:.1f}s overlapped)")
+    pending.clear()
+
+
+def _run_library_impl(fastq, lay, ctx: _RunContext, timer: StageTimer,
+                      qc_exec) -> dict[str, int]:
+    cfg, panel, dev = ctx.cfg, ctx.panel, ctx.device
     library = lay.library
-    dev = clock.device
     merged_path = os.path.join(lay.fasta, "merged_consensus.fasta")
 
     # PHASE B + round-1 assignment: one fused pass per batch
     _log("Preprocessing, aligning and UMI-tagging nanopore reads:", library)
-    with clock("assign_round1"):
-        store, astats = run_assign(
-            fastq, engine,
+    with timer.stage("round1_fused_assign"):
+        # the pass is idempotent (it streams the fastq into a fresh store),
+        # so a transient fault re-runs it whole
+        store, astats = retry.call_with_retry("assign.round1", lambda: run_assign(
+            fastq, ctx.engine,
             max_ee_rate=cfg.max_ee_rate_base,
             min_len=cfg.minimal_length,
             minimal_region_overlap=cfg.minimal_region_overlap,
             max_softclip_5_end=cfg.max_softclip_5_end,
             max_softclip_3_end=cfg.max_softclip_3_end,
-            batch_size=read_batch,
+            batch_size=ctx.read_batch,
             max_read_length=cfg.max_read_length,
             subsample=cfg.dorado_trim_subsample_fastq,
-        )
-    with open(os.path.join(lay.logs, "ee_filter.log"), "w") as fh:
-        fh.write(f"reads passing EE/length filter: {astats.n_total - astats.n_ee_fail}\n")
-        fh.write(f"reads with primer trim: {astats.n_trimmed}\n")
-    _write_align_log(astats, os.path.join(lay.logs, f"{library}_region_cluster_split.log"))
+        ))
+        with open(os.path.join(lay.logs, "ee_filter.log"), "w") as fh:
+            fh.write(f"reads passing EE/length filter: {astats.n_total - astats.n_ee_fail}\n")
+            fh.write(f"reads with primer trim: {astats.n_trimmed}\n")
+        _write_align_log(astats, os.path.join(lay.logs, f"{library}_region_cluster_split.log"))
+        artifacts.write_fastq_stats_log(
+            astats, os.path.join(lay.logs, f"{library}_fastq_stats.log"))
+        artifacts.write_flagstat_log(astats, os.path.join(lay.logs, f"{library}_flagstat.log"))
 
-    groups = stages.group_by_region_cluster(store, panel)
+    pending: list = []
+    if cfg.error_profile_sample:
+        _profile_stage(pending, qc_exec, timer, "round1_error_profile", store, ctx,
+                       os.path.join(lay.logs, f"{library}_align_error_profile.log"))
+    with timer.stage("round1_region_split"):
+        groups = stages.group_by_region_cluster(store, panel)
+        artifacts.write_region_split_log(
+            astats, groups, store, panel.names,
+            {n: len(s) for n, s in panel.seqs.items()},
+            regions_mod.NEGATIVE_CONTROL_SUFFIXES,
+            os.path.join(lay.logs, f"{library}_filter_and_split_reads_by_region_cluster.err"),
+        )
     if cfg.write_intermediate_fastas:
-        stages.write_region_fastas(groups, store, lay.region_cluster_fasta, "region_cluster")
+        _side_stage(pending, qc_exec, timer, "write_region_fastas", stages.write_region_fastas,
+                    groups, store, lay.region_cluster_fasta, "region_cluster")
 
     # round 1: UMI records per region cluster, ONE batched clustering pass,
     # then ONE library-wide batched consensus polish
-    records_by_group: list[tuple[str, list]] = []
-    for cluster_key in sorted(groups):
-        group_name = f"region_cluster{cluster_key}"
-        umis = stages.build_umi_records(store, groups[cluster_key], cfg.max_pattern_dist)
-        if not umis:
-            continue
-        if cfg.write_intermediate_fastas:
-            stages.write_umi_fasta(
-                umis, store, os.path.join(lay.umi_fasta, f"{group_name}_detected_umis.fasta")
-            )
-        records_by_group.append((group_name, umis))
-    with clock("umi_cluster_round1"):
+    with timer.stage("round1_umi_records"):
+        records_by_group: list[tuple[str, list]] = []
+        for cluster_key in sorted(groups):
+            group_name = f"region_cluster{cluster_key}"
+            umis = stages.build_umi_records(store, groups[cluster_key], cfg.max_pattern_dist)
+            if not umis:
+                continue
+            if cfg.write_intermediate_fastas:
+                stages.write_umi_fasta(
+                    umis, store,
+                    os.path.join(lay.umi_fasta, f"{group_name}_detected_umis.fasta"),
+                )
+            records_by_group.append((group_name, umis))
+    with timer.stage("round1_umi_cluster"):
         grouped = stages.cluster_and_select_grouped(
             records_by_group,
             identity=cfg.vsearch_identity,
@@ -256,30 +446,45 @@ def _run_library(fastq, lay, cfg, panel, engine, engine_notrim, blast_id_thresho
             balance_strands=cfg.balance_strands,
             device=dev,
         )
-    selected_by_group: list[tuple[str, list[stages.SelectedCluster]]] = []
-    for group_name, _ in records_by_group:
-        selected, stat_rows = grouped[group_name]
-        cdir = os.path.join(lay.clustering, group_name)
-        os.makedirs(cdir, exist_ok=True)
-        stages.write_cluster_stats_tsv(stat_rows, os.path.join(cdir, "vsearch_cluster_stats.tsv"))
-        if selected:
-            selected_by_group.append((group_name, selected))
+        selected_by_group: list[tuple[str, list[stages.SelectedCluster]]] = []
+        for group_name, _ in records_by_group:
+            selected, stat_rows = grouped[group_name]
+            cdir = os.path.join(lay.clustering, group_name)
+            os.makedirs(cdir, exist_ok=True)
+            stages.write_cluster_stats_tsv(
+                stat_rows, os.path.join(cdir, "vsearch_cluster_stats.tsv"))
+            if selected:
+                selected_by_group.append((group_name, selected))
     n_clusters = sum(len(s) for _, s in selected_by_group)
     _log(f"Polishing clusters: {library} "
          f"({n_clusters} clusters over {len(selected_by_group)} region clusters)")
-    with clock("polish"):
+    with timer.stage("round1_polish"):
         by_group = stages.polish_clusters_all(
             selected_by_group, store, max_read_length=cfg.max_read_length,
-            polisher=polisher, budget=budget, cluster_batch=cfg.cluster_batch_size,
+            polisher=ctx.polisher, budget=ctx.budget, cluster_batch=cfg.cluster_batch_size,
             device=dev,
         )
-    merged_consensus: list[tuple[str, str]] = []
-    for group_name, _ in selected_by_group:
-        merged_consensus.extend(by_group[group_name])
-    fastx.write_fasta(merged_path, merged_consensus)
-    lay.mark_stage_done("round1_consensus", artifacts=[merged_path])
-    return _run_round2(lay, cfg, panel, engine_notrim, blast_id_threshold,
-                       overlap_consensus, merged_consensus, read_batch, clock)
+    # round-1 QC commits before the round-1 checkpoint: once it is marked,
+    # a later resume skips round 1, so its log must exist by then
+    _commit_pending_qc(qc_exec, pending, timer)
+    with timer.stage("round1_consensus"):
+        merged_consensus: list[tuple[str, str]] = []
+        for group_name, selected in selected_by_group:
+            # every selected cluster produced exactly one consensus record
+            contracts.check_equal(
+                "consensus", f"{group_name} consensus records",
+                len(by_group[group_name]), "selected clusters", len(selected),
+                detail={"library": library, "group": group_name},
+            )
+            merged_consensus.extend(by_group[group_name])
+        n_written = fastx.write_fasta(merged_path, merged_consensus)
+        contracts.check_equal(
+            "consensus", "merged_consensus.fasta records written", n_written,
+            "in-memory consensus entries", len(merged_consensus),
+            detail={"library": library},
+        )
+        lay.mark_stage_done("round1_consensus", artifacts=[merged_path])
+    return _run_round2(lay, ctx, merged_consensus, timer, qc_exec)
 
 
 _R2_HEADER = re.compile(r"^region_cluster(\d+)_cluster\d+_\d+$")
@@ -324,49 +529,68 @@ def _targeted_round2_dispatch(panel, engine, headers):
     return dispatch, None
 
 
-def _run_round2(lay, cfg, panel, engine_notrim, blast_id_threshold, overlap_consensus,
-                merged_consensus, read_batch, clock) -> dict[str, int]:
+def _run_round2(lay, ctx: _RunContext, merged_consensus, timer: StageTimer,
+                qc_exec) -> dict[str, int]:
+    cfg, panel = ctx.cfg, ctx.panel
     library = lay.library
     _log("Aligning unique molecule consensus TCR sequences:", library)
     cons_records = [fastx.FastxRecord(h, "", s) for h, s in merged_consensus]
     dispatch = None
     if cfg.round2_targeted_assign:
         dispatch, why_not = _targeted_round2_dispatch(
-            panel, engine_notrim, (h for h, _ in merged_consensus)
+            panel, ctx.engine_notrim, (h for h, _ in merged_consensus)
         )
         if dispatch is None:
             _log(f"round 2: targeted assign unavailable ({why_not}); "
                  "falling back to the full fused assign")
-    with clock("assign_round2"):
-        cons_store, _ = run_assign(
-            cons_records, engine_notrim,
+    qc_rows: list[dict] = []
+    with timer.stage("round2_fused_assign"):
+        # transient-retried like round 1; qc_rows is cleared before each
+        # retry so a half-consumed attempt cannot duplicate QC rows
+        cons_store, cstats = retry.call_with_retry("assign.round2", lambda: run_assign(
+            cons_records, ctx.engine_notrim,
             max_ee_rate=1.0,  # no quality data on consensus sequences
             min_len=1,
-            minimal_region_overlap=overlap_consensus,
+            minimal_region_overlap=ctx.overlap_consensus,
             max_softclip_5_end=cfg.max_softclip_5_end,
             max_softclip_3_end=cfg.max_softclip_3_end,
-            batch_size=read_batch,
+            batch_size=ctx.read_batch,
             max_read_length=cfg.max_read_length,
-            blast_id_threshold=blast_id_threshold,
+            blast_id_threshold=ctx.blast_id_threshold,
+            collect_qc=qc_rows,
             dispatch=dispatch,
+        ), reset=qc_rows.clear)
+        artifacts.write_consensus_filter_artifacts(
+            qc_rows, {n: len(s) for n, s in panel.seqs.items()}, lay.logs,
+            "merged_consensus", blast_id_threshold=ctx.blast_id_threshold,
+            minimal_region_overlap=ctx.overlap_consensus,
         )
-    region_groups = stages.group_by_region(cons_store, panel)
-    if cfg.write_intermediate_fastas:
-        stages.write_region_fastas(region_groups, cons_store, lay.region_fasta, "region_")
+        artifacts.write_flagstat_log(
+            cstats, os.path.join(lay.logs, "merged_consensus_flagstat.log"))
+    pending: list = []
+    if cfg.error_profile_sample:
+        # overlapped with round-2 clustering; committed before the counts
+        # checkpoint
+        _profile_stage(pending, qc_exec, timer, "round2_error_profile", cons_store, ctx,
+                       os.path.join(lay.logs, "merged_consensus_align_error_profile.log"))
 
     # round 2: UMI dedup at consensus identity, one batched pass
-    region_records: list[tuple[str, list]] = []
-    for region, parts in sorted(region_groups.items()):
-        umis = stages.build_umi_records(cons_store, parts, cfg.max_pattern_dist)
-        if not umis:
-            continue
+    with timer.stage("round2_umi_records"):
+        region_groups = stages.group_by_region(cons_store, panel)
         if cfg.write_intermediate_fastas:
-            stages.write_umi_fasta(
-                umis, cons_store,
-                os.path.join(lay.consensus_umi_fasta, f"region_{region}_detected_umis.fasta"),
-            )
-        region_records.append((region, umis))
-    with clock("umi_cluster_round2"):
+            stages.write_region_fastas(region_groups, cons_store, lay.region_fasta, "region_")
+        region_records: list[tuple[str, list]] = []
+        for region, parts in sorted(region_groups.items()):
+            umis = stages.build_umi_records(cons_store, parts, cfg.max_pattern_dist)
+            if not umis:
+                continue
+            if cfg.write_intermediate_fastas:
+                stages.write_umi_fasta(
+                    umis, cons_store,
+                    os.path.join(lay.consensus_umi_fasta, f"region_{region}_detected_umis.fasta"),
+                )
+            region_records.append((region, umis))
+    with timer.stage("round2_umi_cluster"):
         grouped2 = stages.cluster_and_select_grouped(
             region_records,
             identity=cfg.vsearch_identity_consensus,
@@ -375,9 +599,10 @@ def _run_round2(lay, cfg, panel, engine_notrim, blast_id_threshold, overlap_cons
             min_reads_per_cluster=1,
             max_reads_per_cluster=cfg.max_reads_per_cluster,
             balance_strands=False,
-            device=clock.device,
+            device=ctx.device,
         )
     region_counts: dict[str, int] = {}
+    region_cluster_umis: dict[str, list[str]] = {}
     for region, _ in region_records:
         selected, stat_rows = grouped2[region]
         rdir = os.path.join(lay.clustering_consensus, f"region_{region}")
@@ -390,8 +615,21 @@ def _run_round2(lay, cfg, panel, engine_notrim, blast_id_threshold, overlap_cons
             ])
         # count = round-2 clusters (unique molecules)
         region_counts[region] = len(selected)
+        region_cluster_umis[region] = [cl.members[0].combined for cl in selected]
 
     counts_csv = stages.write_counts_csv(region_counts, lay.counts)
+    # the CSV on disk reads back as the in-memory totals it was written from
+    contracts.check_equal(
+        "counts", "counts CSV readback", _read_counts_csv(counts_csv),
+        "in-memory region counts", region_counts, detail={"library": library},
+    )
+    if cfg.compare_umi_overlap_between_regions:
+        _log("Testing for consensus umi matches between regions:", library)
+        umi_overlap.count_overlapping_umis(
+            region_cluster_umis, lay.logs, cfg.overlapping_umi_edit_threshold
+        )
+    _commit_pending_qc(qc_exec, pending, timer)
+    timer.write_tsv(os.path.join(lay.logs, "stage_timing.tsv"))
     lay.mark_stage_done("counts", artifacts=[counts_csv])
     if cfg.delete_tmp_files:
         for d in (lay.region_cluster_fasta, lay.clustering, lay.umi_fasta,
@@ -410,3 +648,16 @@ def _write_align_log(stats, path: str) -> None:
         fh.write(f"n_short: {stats.n_short}\n")
         fh.write(f"n_long: {stats.n_long}\n")
         fh.write(f"n_pass: {stats.n_pass}\n")
+
+
+def _read_counts_csv(path: str) -> dict[str, int]:
+    out: dict[str, int] = {}
+    if not os.path.exists(path):
+        return out
+    with open(path) as fh:
+        next(fh, None)
+        for line in fh:
+            region, _, count = line.rstrip("\n").rpartition(",")
+            if region:
+                out[region] = int(count)
+    return out

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from collections import defaultdict
 
 import numpy as np
@@ -23,6 +24,7 @@ from ont_tcrconsensus_tpu_torch.io import bucketing, fastx
 from ont_tcrconsensus_tpu_torch.ops import consensus as consensus_mod
 from ont_tcrconsensus_tpu_torch.ops import edit_distance, encode, sketch
 from ont_tcrconsensus_tpu_torch.pipeline.assign import ReadStore, ReferencePanel
+from ont_tcrconsensus_tpu_torch.robustness import contracts, retry
 
 # ---------------------------------------------------------------------------
 # stage: UMI record assembly
@@ -183,6 +185,12 @@ def cluster_and_select_grouped(
                 _group_members(recs, clusters.labels, roots),
                 min_reads_per_cluster, max_reads_per_cluster, balance_strands,
             )
+        # UMI conservation: the rescue relabels clusters but never creates
+        # or loses members
+        contracts.check_equal(
+            "umi", "cluster-stats member total", sum(r["n"] for r in stat_rows),
+            "eligible UMI records", len(recs), detail={"group": name},
+        )
         out[name] = (selected, stat_rows)
     return out
 
@@ -416,8 +424,9 @@ def polish_clusters_all(
     polished ``cluster_batch`` at a time (from the memory budget unless
     given). ``polisher`` (``models.polisher.make_pipeline_polisher``), when
     given, runs on each chunk after the vote rounds, on their kept final
-    pileup. A CUDA out-of-memory error re-derives a smaller batch from a
-    halved budget and requeues the chunk and the rest of its bucket;
+    pileup. A transient fault retries the chunk on the same device under
+    the retry policy; a CUDA out-of-memory error re-derives a smaller batch
+    from a halved budget and requeues the chunk and the rest of its bucket;
     results do not depend on the batch. Headers follow the reference's
     ``<group>_cluster<id>_<n_subreads>``. Returns per-group (header, seq)
     lists in cluster-id order.
@@ -488,22 +497,14 @@ def polish_clusters_all(
             run_items, cb_run, shrink = worklist.pop(0)
             for start in range(0, len(run_items), cb_run):
                 chunk = run_items[start : start + cb_run]
-                try:
-                    seqs = _dispatch_polish_packed(
-                        _pack_polish_chunk(chunk, cb_run, s_bucket, width), len(chunk),
-                        rounds=rounds, eff_band=eff_band, keep_pos=keep_pos,
-                        polisher=polisher, device=device,
-                    )
-                except torch.cuda.OutOfMemoryError:
-                    new_cb = _shrunken_cluster_batch(
-                        budget, shrink, s_bucket, width, eff_band,
-                        keep_final=polisher is not None, keep_pos=keep_pos, cb_run=cb_run,
-                    )
-                    if new_cb >= cb_run:
-                        raise
-                    torch.cuda.empty_cache()
-                    # requeue the failing chunk AND the untried remainder
-                    worklist.append((run_items[start:], new_cb, shrink + 1))
+                seqs = _dispatch_polish_retried(
+                    chunk, cb_run, s_bucket, width, shrink, rounds=rounds, eff_band=eff_band,
+                    keep_pos=keep_pos, polisher=polisher, budget=budget, device=device,
+                )
+                if isinstance(seqs, int):
+                    # out of memory: requeue the failing chunk AND the
+                    # untried remainder at the smaller batch
+                    worklist.append((run_items[start:], seqs, shrink + 1))
                     break
                 for c, seq in enumerate(seqs):
                     group_name, cl = chunk[c][0], chunk[c][1]
@@ -513,6 +514,59 @@ def polish_clusters_all(
     for entries in by_group.values():
         entries.sort(key=lambda kv: int(kv[0].rsplit("_cluster", 1)[1].split("_")[0]))
     return by_group
+
+
+def _dispatch_polish_retried(chunk, cb_run, s_bucket, width, shrink, *, rounds, eff_band,
+                             keep_pos, polisher, budget, device):
+    """Dispatch one chunk under the retry policy: the chunk's sequences, or
+    the smaller cluster batch to requeue at after an out-of-memory error
+    (an int). A transient fault retries the same chunk on the same device;
+    every other failure, and an out-of-memory error at a batch that cannot
+    shrink, is recorded and raised. Outcomes land in the robustness report
+    under ``polish.dispatch``."""
+    attempt = 1
+    while True:
+        try:
+            seqs = _dispatch_polish_packed(
+                _pack_polish_chunk(chunk, cb_run, s_bucket, width), len(chunk),
+                rounds=rounds, eff_band=eff_band, keep_pos=keep_pos,
+                polisher=polisher, device=device,
+            )
+        except Exception as exc:
+            pol, rec = retry.policy(), retry.recorder()
+            cls = retry.classify(exc)
+            if cls == "transient" and attempt < pol.max_attempts:
+                rec.record("polish.dispatch", classification=cls, outcome="retried",
+                           attempt=attempt, error=repr(exc))
+                time.sleep(pol.delay(attempt))
+                attempt += 1
+                continue
+            if cls == "oom":
+                new_cb = _shrunken_cluster_batch(
+                    budget, shrink, s_bucket, width, eff_band,
+                    keep_final=polisher is not None, keep_pos=keep_pos, cb_run=cb_run,
+                )
+                if new_cb < cb_run:
+                    rec.record("polish.dispatch", classification="oom", outcome="oom_shrink",
+                               attempt=attempt, error=repr(exc),
+                               detail={"cluster_batch_from": cb_run,
+                                       "cluster_batch_to": new_cb,
+                                       "shrink_level": shrink + 1})
+                    if device.type == "cuda":
+                        torch.cuda.empty_cache()
+                    return new_cb
+            rec.record("polish.dispatch", classification=cls,
+                       outcome={"oom": "not_retryable", "device_lost": "escalated",
+                                "transient": "exhausted"}.get(cls, "fatal"),
+                       attempt=attempt, error=repr(exc))
+            raise
+        if attempt > 1 or shrink:
+            retry.recorder().record(
+                "polish.dispatch", classification="oom" if shrink else "transient",
+                outcome="recovered", attempt=attempt,
+                detail={"shrink_level": shrink} if shrink else None,
+            )
+        return seqs
 
 
 def _pack_polish_chunk(chunk, cb, s_bucket, width):

@@ -10,7 +10,10 @@ reads a molecule, clusters of 2 subreads kept) runs ``rnn`` only: there the
 polisher, its depth-2 pass on qualities and strands included, changes the
 consensus, so its counts are the JAX package's, not the truth. The port
 runs through its CLI with ``--cpu``; without that flag it asks for the CUDA
-card."""
+card. On every lane the port writes every file the JAX package writes under
+``nano_tcr/`` (the QC logs and CSVs, both error profiles, the
+self-homology logs, ``robustness_report.json``, ...), byte for byte, but
+for the files :data:`NOT_BYTE_COMPARED` names, and nothing else."""
 
 import json
 
@@ -27,6 +30,21 @@ from ont_tcrconsensus_tpu_torch.pipeline import run as trun  # noqa: E402
 from ont_tcrconsensus_tpu_torch.pipeline.config import RunConfig  # noqa: E402
 
 ARTIFACTS = ("counts/umi_consensus_counts.csv", "fasta/merged_consensus.fasta")
+# files under nano_tcr/ of the JAX run that are not compared byte for byte
+NOT_BYTE_COMPARED = {
+    "telemetry.json": "the obs slice: timings, compared by schema once ported",
+    "history.jsonl": "the obs slice: a run ledger keyed by timings and commit",
+    "logs/trace.json": "the obs slice: a timeline (written only under telemetry full)",
+    "barcode01/stage_manifest.json": "completion timestamps",
+    "barcode01/logs/stage_timing.tsv": "seconds: its stage column is compared instead",
+}
+TIMING = "barcode01/logs/stage_timing.tsv"
+
+
+def _tree(root) -> dict[str, bytes]:
+    nano = root / "fastq_pass" / "nano_tcr"
+    return {p.relative_to(nano).as_posix(): p.read_bytes()
+            for p in sorted(nano.rglob("*")) if p.is_file()}
 
 
 def _lane_dir(root, lib, method, lane):
@@ -79,11 +97,9 @@ def runs(request, tmp_path_factory):
         trun.run_with_config(RunConfig.from_dict(_lane_dir(tmp / "vote", lib, "poa", lane)),
                              device="cpu")
         sides.append("vote")
-    out = {}
-    for side in sides:
-        lib_dir = tmp / side / "fastq_pass" / "nano_tcr" / "barcode01"
-        out[side] = {rel: (lib_dir / rel).read_bytes() for rel in ARTIFACTS}
-    return lib, out, jax_results, lane
+    trees = {side: _tree(tmp / side) for side in sides}
+    out = {side: {rel: trees[side][f"barcode01/{rel}"] for rel in ARTIFACTS} for side in sides}
+    return lib, out, jax_results, lane, trees
 
 
 def _config(tmp_path, **knobs):
@@ -96,12 +112,41 @@ def _config(tmp_path, **knobs):
 
 @pytest.mark.parametrize("rel", ARTIFACTS)
 def test_artifacts_byte_identical_to_jax(runs, rel):
-    _, out, _, _ = runs
+    _, out, _, _, _ = runs
     assert out["port"][rel] == out["jax"][rel]
 
 
+def test_every_jax_artifact_is_written_byte_identical(runs):
+    *_, trees = runs
+    port, jax = trees["port"], trees["jax"]
+    compared = sorted(set(jax) - set(NOT_BYTE_COMPARED))
+    assert "robustness_report.json" in compared
+    assert "barcode01/logs/merged_consensus_align_error_profile.log" in compared
+    assert [rel for rel in compared if rel not in port] == []
+    assert [rel for rel in compared if port[rel] != jax[rel]] == []
+
+
+def test_the_port_writes_nothing_the_jax_run_does_not(runs):
+    *_, trees = runs
+    assert sorted(set(trees["port"]) - set(trees["jax"])) == []
+
+
+def test_stage_timing_carries_the_jax_stage_names(runs):
+    *_, trees = runs
+
+    def table(side):
+        rows = trees[side][TIMING].decode().splitlines()
+        assert rows[0] == "stage\tseconds\tcalls"
+        seconds = [float(r.split("\t")[1]) for r in rows[1:]]
+        assert seconds == sorted(seconds, reverse=True)  # largest first, as in JAX
+        return sorted(r.split("\t")[0] for r in rows[1:])
+
+    assert table("port") == table("jax")
+    assert "round1_error_profile_bg" in table("port")
+
+
 def test_counts_equal_the_truth(runs):
-    lib, out, jax_results, lane = runs
+    lib, out, jax_results, lane, _ = runs
     rows = out["port"]["counts/umi_consensus_counts.csv"].decode().splitlines()
     assert rows[0] == "TCR,Count"
     got = {k: int(v) for k, v in (r.rsplit(",", 1) for r in rows[1:])}

@@ -45,7 +45,10 @@ def test_importing_every_port_module_loads_no_jax():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report["bad"] == []
     for must in ("ops.sw_kernel", "ops.pileup_kernel", "pipeline.run", "convert",
-                 "pipeline.cli", "__main__", "models.polisher", "device"):
+                 "pipeline.cli", "__main__", "models.polisher", "device",
+                 "pipeline.overlap", "qc.artifacts", "qc.error_profile", "qc.timing",
+                 "qc.umi_overlap", "robustness.contracts", "robustness.jobscope",
+                 "robustness.retry"):
         assert f"ont_tcrconsensus_tpu_torch.{must}" in report["modules"]
 
 
