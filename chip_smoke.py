@@ -39,21 +39,48 @@ of which fails the script (non-zero exit, no result line):
 6. small e2e: the tests' 4-region lane under ``rnn`` (the default) and
    under ``poa``, each on ``cuda`` and on ``cpu`` (plain versions): every
    file under ``nano_tcr/`` byte-identical (the QC logs and CSVs, both
-   error profiles, the reports), but the stage manifest's timestamps and
-   the stage table's seconds (its stage names must agree), counts equal to
-   the simulator's truth;
-7. full-size e2e: the representative lane (about 11k untrimmed reads of
+   error profiles, the reports), but the files of timings
+   (:data:`TIMED_FILES`): the stage table's names must agree, and
+   ``telemetry.json`` and ``history.jsonl`` must have equal key sets (only
+   the card has the ``device.hbm_bytes_in_use`` gauge), equal stage names
+   and dispatch sites with equal dispatch and get counts, and the same
+   config fingerprint; counts equal to the simulator's truth;
+7. observation on the card: the small lane under ``rnn`` with
+   ``telemetry: "full"``, ``profile_trace_dir``, ``live_port: 0`` and a
+   generous ``stage_timeout_s``: ``/healthz``, ``/metrics`` and
+   ``/progress`` answer while it runs (polled from a thread);
+   ``logs/trace.json`` holds a span for every stage of the stage table,
+   on the main thread's row or, for the QC worker's ``*_bg`` stages, on a
+   worker's row; the ``torch.profiler`` trace names both kernels (its
+   size and event count are printed); ``python -m
+   ont_tcrconsensus_tpu_torch --report`` exits 0 in a subprocess that
+   never loads torch; ``robustness_report.json`` holds no watchdog event;
+   counts equal the truth;
+8. full-size e2e: the representative lane (about 11k untrimmed reads of
    1.4-2.3 kb, 56 regions + 6 near-duplicate pairs + 2 negative controls,
    the systematic ONT error model, read batch 1024, band 128, seed 33) on
    ``cuda``, unobserved: the default config (``rnn`` polish, the error
-   profiles of 512 reads a round on the overlapped QC worker) first, then
-   in turns the default config with ``error_profile_sample: 0`` (no QC
-   profile), with ``overlap_qc: false`` (the profiles on the main thread)
-   and the default config again, ``--lane-runs`` rounds (1 by default),
-   then once under ``poa``. Kernel launch counts are zeroed
-   just before the first run and read just after it, and again around the
-   ``poa`` run; each kernel must have launched in both, and every run's
-   counts must equal the truth. Each run's stage seconds are printed under
+   profiles of 512 reads a round on the overlapped QC worker, ``telemetry:
+   "on"``) first, then in turns the default config with
+   ``error_profile_sample: 0`` (no QC profile), with ``overlap_qc: false``
+   (the profiles on the main thread), as it is and with ``telemetry:
+   "off"``, ``--lane-runs`` rounds (1 by default), then once under
+   ``poa``. For each default run its ``telemetry.json`` gives every
+   dispatch site's host and blocked seconds, the kernel builds (0 on a
+   warm build) and the device memory high-water mark, which must agree
+   with ``torch.cuda.max_memory_allocated`` within 1%, and the run's
+   telemetry roll-up (telemetry.json and the history entry) is timed; the
+   default runs' reads/s after the first are printed against the ``off``
+   runs', with the ratio of each adjacent on/off pair. The telemetry's
+   cost is also bounded directly: each plant (a dispatch scope, a
+   readback through ``timed_get``, a stage span, a counter, a histogram
+   sample) is timed armed against disarmed on the card's host, and its
+   added seconds, times its calls in the first run, plus the roll-up,
+   are set against that run's seconds. Kernel launch counts are zeroed
+   just before the first run (the main path's) and read just after it,
+   and again around the ``poa`` run; each kernel must have launched in
+   both, and every run's counts must equal the truth. Each run's stage
+   seconds are printed under
    the stage table's names, the error profiles' worker seconds
    (``*_bg``) beside the main thread's wait at their commit. The first
    run also records each launch's (batch, L, Lr, W), with a host copy of
@@ -669,8 +696,47 @@ def _run_lane(root: str, knobs: dict, device: str, timings: dict | None = None):
     return run_with_config(cfg, device=device, timings=timings)
 
 
-# files of a run that hold times, not results
-TIMED_FILES = ("barcode01/stage_manifest.json", "barcode01/logs/stage_timing.tsv")
+# files of a run that hold times, not results (the stage table's names and
+# the observation files' keys and names are compared instead)
+TIMED_FILES = ("barcode01/stage_manifest.json", "barcode01/logs/stage_timing.tsv",
+               "telemetry.json", "history.jsonl")
+# the gauge only a run on the card has
+DEVICE_GAUGE = "device.hbm_bytes_in_use"
+
+
+def _keys(value):
+    """A JSON value's nested key sets (the values themselves dropped)."""
+    if isinstance(value, dict):
+        return {k: _keys(v) for k, v in value.items()}
+    return None
+
+
+def _compare_obs(cuda: dict[str, bytes], cpu: dict[str, bytes], label: str) -> dict:
+    """telemetry.json and history.jsonl of a cuda run and a cpu run of one
+    lane: equal keys (but the device gauge), stage names, dispatch sites
+    and their counts, and config fingerprint."""
+    tel = {dev: json.loads(tree["telemetry.json"]) for dev, tree in
+           (("cuda", cuda), ("cpu", cpu))}
+    hist = {dev: [json.loads(ln) for ln in tree["history.jsonl"].decode().splitlines()]
+            for dev, tree in (("cuda", cuda), ("cpu", cpu))}
+    if DEVICE_GAUGE not in tel["cuda"]["gauges"] or DEVICE_GAUGE in tel["cpu"]["gauges"]:
+        raise AssertionError(f"{label}: the device gauge must be on cuda only")
+    keys = {dev: _keys(t) for dev, t in tel.items()}
+    del keys["cuda"]["gauges"][DEVICE_GAUGE]
+    if keys["cuda"] != keys["cpu"]:
+        raise AssertionError(f"{label}: telemetry.json keys differ between cuda and cpu")
+    counts = {dev: {site: (d["dispatches"], d["gets"]) for site, d in t["dispatch"].items()}
+              for dev, t in tel.items()}
+    if counts["cuda"] != counts["cpu"]:
+        raise AssertionError(f"{label}: dispatch counts differ: {counts}")
+    if len(hist["cuda"]) != 1 or len(hist["cpu"]) != 1:
+        raise AssertionError(f"{label}: history.jsonl must hold one entry a run")
+    (hc,), (hp,) = hist["cuda"], hist["cpu"]
+    if (set(hc) != set(hp) or hc["fingerprint"] != hp["fingerprint"]
+            or (hc["backend"], hp["backend"]) != ("cuda", "cpu")):
+        raise AssertionError(f"{label}: history entries differ in keys, fingerprint or backend")
+    return {"dispatch_counts": counts["cuda"], "fingerprint": hc["fingerprint"],
+            "stages": sorted(tel["cuda"]["stages"])}
 
 
 def _artifacts(root: str) -> dict[str, bytes]:
@@ -725,13 +791,132 @@ def small_e2e(method: str) -> dict:
             raise AssertionError(f"small e2e ({method}): {rel} differs between cuda and cpu")
     if _stage_names(art_cuda) != _stage_names(art_cpu):
         raise AssertionError(f"small e2e ({method}): stage names differ between cuda and cpu")
+    obs = _compare_obs(art_cuda, art_cpu, f"small e2e ({method})")
     for dev, got in (("cuda", got_cuda), ("cpu", got_cpu)):
         if got.get("barcode01") != lib.true_counts:
             raise AssertionError(f"small e2e ({method}) on {dev}: counts "
                                  f"{got.get('barcode01')} != truth {lib.true_counts}")
     return {"polish": method, "n_reads": len(lib.reads), "cuda_s": cuda_s, "cpu_s": cpu_s,
             "files_compared": len(art_cuda) - len(TIMED_FILES), "artifacts_identical": True,
-            "counts_exact": True}
+            "counts_exact": True, "obs": obs}
+
+
+# --report in a subprocess: the run's exit code and whether torch was loaded
+_REPORT_PROBE = r"""
+import runpy, sys
+sys.argv = ["ont_tcrconsensus_tpu_torch", "--report", sys.argv[1]]
+try:
+    runpy.run_module("ont_tcrconsensus_tpu_torch", run_name="__main__")
+    rc = 0
+except SystemExit as exc:
+    rc = exc.code or 0
+loaded = any(m == "torch" or m.startswith("torch.") for m in sys.modules)
+sys.stderr.write(f"TORCH_LOADED={loaded}\n")
+sys.exit(rc)
+"""
+
+
+def _poll_live(polled: dict, stop) -> None:
+    """Read /healthz, /metrics and /progress of the run's live plane once
+    each, as soon as it serves."""
+    import urllib.request
+
+    from ont_tcrconsensus_tpu_torch.obs import live as obs_live
+
+    while not stop.is_set() and len(polled) < 3:
+        srv = obs_live.server()
+        if srv is not None:
+            for route in ("/healthz", "/metrics", "/progress"):
+                if route in polled:
+                    continue
+                try:
+                    with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}{route}",
+                                                timeout=5) as resp:
+                        polled[route] = {"status": resp.status, "bytes": len(resp.read())}
+                except OSError:
+                    pass
+        time.sleep(0.01)
+
+
+def observation_phase() -> dict:
+    """The small lane under ``rnn`` with every observation knob on; see the
+    module docstring (phase 7)."""
+    import threading
+
+    import torch
+
+    from ont_tcrconsensus_tpu_torch.io import simulator
+
+    lib = simulator.simulate_library(
+        seed=11, num_regions=4, molecules_per_region=(2, 3), reads_per_molecule=(5, 8),
+        sub_rate=0.006, ins_rate=0.003, del_rate=0.003, region_len=(700, 850),
+    )
+    root = os.path.join(WORK, "obs")
+    _write_lane(root, lib)
+    prof_dir = os.path.join(root, "profile")
+    knobs = {"minimal_length": 600, "min_reads_per_cluster": 4, "read_batch_size": 64,
+             "telemetry": "full", "profile_trace_dir": prof_dir, "live_port": 0,
+             "stage_timeout_s": 600}
+    polled: dict = {}
+    stop = threading.Event()
+    poller = threading.Thread(target=_poll_live, args=(polled, stop), daemon=True)
+    poller.start()
+    t0 = time.perf_counter()
+    try:
+        got = _run_lane(root, knobs, "cuda")
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        poller.join(timeout=10)
+    run_s = time.perf_counter() - t0
+    if got.get("barcode01") != lib.true_counts:
+        raise AssertionError(f"observation: counts {got.get('barcode01')} != the truth")
+    if sorted(polled) != ["/healthz", "/metrics", "/progress"] or any(
+            r["status"] != 200 for r in polled.values()):
+        raise AssertionError(f"observation: the live plane answered {polled}")
+    tree = _artifacts(root)
+    nano = os.path.join(root, "fastq_pass", "nano_tcr")
+    # every stage of the table has its span: the main thread's, or for a
+    # worker stage (*_bg) a worker's row
+    trace = json.loads(tree["logs/trace.json"])
+    rows = {e["tid"]: e["args"]["name"] for e in trace["traceEvents"] if e["ph"] == "M"}
+    spans = collections.defaultdict(set)
+    for e in trace["traceEvents"]:
+        if e["ph"] == "X":
+            spans[e["name"]].add("worker" if rows[e["tid"]].startswith("stage-")
+                                 else rows[e["tid"]])
+    table = _stage_names(tree)
+    missing = [name for name in table if spans.get(name) != (
+        {"worker"} if name.endswith("_bg") else {"MainThread"})]
+    if missing or not any(n.endswith("_bg") for n in table):
+        raise AssertionError(f"observation: stages without their span on their row: {missing}")
+    # the whole-run profiler trace names both kernels
+    (prof_name,) = [f for f in os.listdir(prof_dir) if f.endswith(".pt.trace.json")]
+    with open(os.path.join(prof_dir, prof_name), "rb") as fh:
+        raw = fh.read()
+    kernels_named = {k: k.encode() in raw for k in ("sw_banded_kernel", "pileup_forward_kernel")}
+    if not all(kernels_named.values()):
+        raise AssertionError(f"observation: the profiler trace lacks a kernel: {kernels_named}")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    rep = subprocess.run([sys.executable, "-c", _REPORT_PROBE, os.path.dirname(nano)],
+                         capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+    if rep.returncode != 0 or "TORCH_LOADED=False" not in rep.stderr:
+        raise AssertionError(f"observation: --report rc {rep.returncode}: {rep.stderr[-2000:]}")
+    report = json.loads(tree["robustness_report.json"])
+    stalls = [e for e in report["events"] if e["site"] == "watchdog.stall"]
+    if stalls:
+        raise AssertionError(f"observation: watchdog events in a healthy run: {stalls}")
+    tel = json.loads(tree["telemetry.json"])
+    if tel["trace_json"] != "logs/trace.json" or DEVICE_GAUGE not in tel["gauges"]:
+        raise AssertionError("observation: telemetry.json lacks its trace or the device gauge")
+    return {"n_reads": len(lib.reads), "run_s": run_s, "live": polled,
+            "stages": table, "trace_events": len(trace["traceEvents"]),
+            "trace_bytes": len(tree["logs/trace.json"]),
+            "profiler_trace_bytes": len(raw), "profiler_trace_events": raw.count(b'"ph":'),
+            "profiler_kernels_named": kernels_named, "report_lines": len(rep.stdout.splitlines()),
+            "compile": tel["compile"], "hbm_high_water_bytes": tel["gauges"][DEVICE_GAUGE],
+            "dispatch": tel["dispatch"]}
 
 
 @contextlib.contextmanager
@@ -773,19 +958,110 @@ def _polisher_clock(stats: dict):
         polisher.make_pipeline_polisher = make
 
 
+@contextlib.contextmanager
+def _rollup_clock(stats: dict):
+    """While the block runs, add the host-clock seconds of the run's
+    telemetry roll-up (the memory peaks, telemetry.json, the history
+    entry) to ``stats["s"]`` (the module functions the run calls are
+    wrapped; what they write is untouched)."""
+    from ont_tcrconsensus_tpu_torch.obs import device, history, report
+
+    wrapped = [(device, "finalize_memory"), (report, "write_run_telemetry"),
+               (history, "record_run")]
+    originals = [getattr(mod, name) for mod, name in wrapped]
+
+    def timed(fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                stats["s"] += time.perf_counter() - t0
+        return call
+
+    for (mod, name), fn in zip(wrapped, originals):
+        setattr(mod, name, timed(fn))
+    try:
+        yield
+    finally:
+        for (mod, name), fn in zip(wrapped, originals):
+            setattr(mod, name, fn)
+
+
+# the counters the run's plants add to, one a call
+PLANT_COUNTERS = ("assign.batches", "cluster.batched", "polish.chunks")
+
+
+def plant_cost(dev, reps: int = 5000) -> dict:
+    """Microseconds one call of each telemetry plant takes armed and
+    disarmed on this host: a dispatch scope, a readback through
+    ``timed_get`` (of a small tensor on ``dev``, whose copy is made
+    either way), a stage span, a counter and a histogram sample. Medians
+    of 5 blocks of ``reps`` calls."""
+    import torch
+
+    from ont_tcrconsensus_tpu_torch.obs import device as obs_device, metrics, trace
+
+    x = torch.arange(256, dtype=torch.int32, device=dev)
+
+    def scope():
+        with obs_device.dispatch("polish.dispatch"):
+            pass
+
+    def span():
+        with trace.span("round1_polish"):
+            pass
+
+    plants = {"dispatch": scope, "get": lambda: obs_device.timed_get("polisher.get", x),
+              "span": span, "counter": lambda: metrics.counter_add("polish.chunks"),
+              "sample": lambda: metrics.observe("polish.chunk_clusters", 8)}
+    out = {}
+    for name, fn in plants.items():
+        us = {}
+        for armed in (False, True):
+            if armed:
+                metrics.arm()
+            try:
+                fn()
+                blocks = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    for _ in range(reps):
+                        fn()
+                    blocks.append((time.perf_counter() - t0) / reps * 1e6)
+                us["on" if armed else "off"] = float(np.median(blocks))
+            finally:
+                if armed:
+                    metrics.disarm()
+        out[name] = {**us, "added": max(us["on"] - us["off"], 0.0)}
+    return out
+
+
+def plant_calls(tel: dict) -> dict:
+    """The plant calls of one run, from its telemetry.json."""
+    return {"dispatch": sum(d["dispatches"] for d in tel["dispatch"].values()),
+            "get": sum(d["gets"] for d in tel["dispatch"].values()),
+            "span": sum(s["calls"] for s in tel["stages"].values()),
+            "counter": int(sum(tel["counters"].get(k, 0) for k in PLANT_COUNTERS)),
+            "sample": sum(h["count"] for h in tel["histograms"].values())}
+
+
 # the full lane's runs: the default config (rnn polish, QC profiles on
-# the overlapped worker), the same without the error profiles and with
-# them on the main thread, and the vote consensus alone
+# the overlapped worker, telemetry on), the same without the error
+# profiles, with them on the main thread and without telemetry, and the
+# vote consensus alone
 LANE_RUNS = {**POLISH, "rnn, error_profile_sample 0": {"error_profile_sample": 0},
-             "rnn, overlap_qc false": {"overlap_qc": False}}
+             "rnn, overlap_qc false": {"overlap_qc": False},
+             "rnn, telemetry off": {"telemetry": "off"}}
 
 
 def full_e2e(kernels, rounds: int) -> dict:
     """The full lane: the default config, then ``rounds`` times in turns the
     default config without the error profiles, with them on the main
-    thread, and as it is, then once under ``poa``. Kernel launches are
-    counted over the first run (recorded by shape for :func:`launch_gaps`)
-    and over the ``poa`` run, each from zero."""
+    thread, as it is and without telemetry, then once under ``poa``.
+    Kernel launches are counted over the first run (recorded by shape for
+    :func:`launch_gaps`) and over the ``poa`` run, each from zero. Each
+    default run's telemetry.json is read back and its roll-up timed."""
     import torch
 
     from ont_tcrconsensus_tpu_torch.io import simulator
@@ -806,9 +1082,10 @@ def full_e2e(kernels, rounds: int) -> dict:
     _write_lane(root, lib)
     data_s = time.perf_counter() - t0
     knobs = {"minimal_length": 1000, "min_reads_per_cluster": 4, "read_batch_size": 1024}
-    methods = (["rnn"] + ["rnn, error_profile_sample 0", "rnn, overlap_qc false", "rnn"] * rounds
-               + ["poa"])
+    methods = (["rnn"] + ["rnn, error_profile_sample 0", "rnn, overlap_qc false", "rnn",
+                          "rnn, telemetry off"] * rounds + ["poa"])
     seconds, stages, peaks, polisher_runs, launches, diffs = [], [], [], [], {}, {}
+    telemetry: dict[int, dict] = {}
     for run, method in enumerate(methods):
         counted = run == 0 or method == "poa"  # each path's launches, from zero
         torch.cuda.synchronize()
@@ -818,16 +1095,27 @@ def full_e2e(kernels, rounds: int) -> dict:
                 k.launches = 0
         stage_s: dict[str, float] = {}
         pol = {"s": 0.0, "peak_gb": None}
+        rollup = {"s": 0.0}
         with contextlib.ExitStack() as stack:
             if run == 0:
                 shapes = {key: stack.enter_context(_launch_shapes(module, name, shape_of))
                           for key, (module, name, shape_of) in recorded.items()}
             stack.enter_context(_polisher_clock(pol))
+            stack.enter_context(_rollup_clock(rollup))
             t0 = time.perf_counter()
             got = _run_lane(root, {**knobs, **LANE_RUNS[method]}, "cuda", timings=stage_s)
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
         peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        if method == "rnn":
+            with open(os.path.join(root, "fastq_pass", "nano_tcr", "telemetry.json")) as fh:
+                tel = json.load(fh)
+            telemetry[run] = {
+                "dispatch": tel["dispatch"], "compile": tel["compile"],
+                "hbm_high_water_bytes": tel["gauges"].get(DEVICE_GAUGE),
+                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                "stages": {k: v["seconds"] for k, v in tel["stages"].items()},
+                "plant_calls": plant_calls(tel), "rollup_s": rollup["s"]}
         stages.append(stage_s)
         polisher_runs.append(pol)
         if counted:
@@ -841,6 +1129,7 @@ def full_e2e(kernels, rounds: int) -> dict:
            "counts_exact": not diffs,
            "max_memory_allocated_gb": peaks, "polisher": polisher_runs,
            "data_s": data_s, "launches": launches, "stage_s": stages,
+           "telemetry": telemetry,
            "launch_gaps": {
                "sw": launch_gaps(shapes["sw"], sw_kernel.align_banded_cuda, _sw_costs, dev),
                "pileup": launch_gaps(shapes["pileup"], pileup_kernel.forward_planes_cuda,
@@ -858,8 +1147,9 @@ def main(argv=None) -> int:
     parser.add_argument("--out", help="also write every number to this JSON file")
     parser.add_argument("--lane-runs", type=int, default=1,
                         help="full-size lane: rounds of runs without the QC error profiles, "
-                             "with them on the main thread and with them overlapped, after "
-                             "the first (the main path's) run; one poa run follows them")
+                             "with them on the main thread, with them overlapped and without "
+                             "telemetry, after the first (the main path's) run; one poa run "
+                             "follows them")
     args = parser.parse_args(argv)
 
     try:
@@ -952,13 +1242,33 @@ def main(argv=None) -> int:
     for small in report["small_e2e"]:
         print(f"small e2e ({small['polish']}): {small['files_compared']} files identical on "
               f"cuda and cpu, stage names equal, counts exact (cuda {small['cuda_s']:.1f} s, "
-              f"cpu {small['cpu_s']:.1f} s)", flush=True)
+              f"cpu {small['cpu_s']:.1f} s); telemetry.json and history.jsonl keys equal but "
+              f"the device gauge, {len(small['obs']['stages'])} stages, dispatch counts "
+              f"{small['obs']['dispatch_counts']} equal, fingerprint "
+              f"{small['obs']['fingerprint']}", flush=True)
 
-    # 7. full-size e2e (the main path under the default config, then in
-    # turns without the QC profiles, with them serial and overlapped, then
-    # the poa path)
+    # 7. observation on the card
+    obs = report["observation"] = observation_phase()
+    print(f"observation (small lane, rnn, telemetry full, profiler, live plane, watchdog): "
+          f"{obs['run_s']:.1f} s, counts exact; live " + ", ".join(
+              f"{r} {v['status']} ({v['bytes']} B)" for r, v in obs["live"].items())
+          + f"; trace.json {obs['trace_events']} events ({obs['trace_bytes']} B), a span for "
+          f"each of {len(obs['stages'])} stages on its row; profiler trace "
+          f"{obs['profiler_trace_bytes']} B, {obs['profiler_trace_events']} events, names "
+          f"both kernels; --report exit 0 without torch ({obs['report_lines']} lines); no "
+          f"watchdog event; kernel builds {obs['compile']['count']}; device high-water "
+          f"{obs['hbm_high_water_bytes']} B", flush=True)
+    pd = obs["dispatch"].get("polish.dispatch", {})
+    print(f"observation polish.dispatch: host {pd.get('host_s')} s, blocked {pd.get('block_s')} "
+          f"s over {pd.get('dispatches')} dispatches; the profiler's busy share of a polish "
+          f"round (phase 3): {split['busy_share']}", flush=True)
+
+    # 8. full-size e2e (the main path under the default config, then in
+    # turns without the QC profiles, with them serial and overlapped, and
+    # without telemetry, then the poa path), and the plants' cost
     kernels = (sw_kernel.align_banded_cuda, pileup_kernel.forward_planes_cuda)
     full = report["full_e2e"] = full_e2e(kernels, max(args.lane_runs, 1))
+    plants = report["plant_cost_us"] = plant_cost(dev)
     print(f"full e2e: {full['n_reads']} reads in " + ", ".join(
           f"{s:.2f} s ({r:.1f} reads/s, {m})"
           for s, r, m in zip(full["seconds"], full["reads_per_s"], full["polish"]))
@@ -981,13 +1291,54 @@ def main(argv=None) -> int:
               for r in gaps["shapes"]), flush=True)
         print(f"full e2e run 0 {key}: kernel {gaps['kernel_ms']:.1f} ms in all, launches x "
               f"(time - bound) {gaps['launches_x_gap_ms']:.1f} ms", flush=True)
+    mem_off = {}
+    for run, tel in full["telemetry"].items():
+        print(f"full e2e run {run} telemetry: dispatch (host s / blocked s) " + ", ".join(
+              f"{site} {d['host_s']}/{d['block_s']} x{d['dispatches']}+{d['gets']}"
+              for site, d in tel["dispatch"].items())
+              + f"; kernel builds {tel['compile']['count']} ({tel['compile']['seconds']} s); "
+              f"device high-water {tel['hbm_high_water_bytes']} B, max_memory_allocated "
+              f"{tel['max_memory_allocated_bytes']} B; roll-up {tel['rollup_s']:.4f} s",
+              flush=True)
+        hw, mx = tel["hbm_high_water_bytes"], tel["max_memory_allocated_bytes"]
+        if hw is None or abs(hw - mx) > 0.01 * mx:
+            mem_off[run] = (hw, mx)
+    warm = [r for i, (r, m) in enumerate(zip(full["reads_per_s"], full["polish"]))
+            if m == "rnn" and i > 0]
+    rps = full["reads_per_s"]
+    off = [r for r, m in zip(rps, full["polish"]) if m == "rnn, telemetry off"]
+    # each round's default run comes just before its off run
+    ratios = [rps[i - 1] / rps[i] for i, m in enumerate(full["polish"])
+              if m == "rnn, telemetry off"]
+    # the plants' added seconds over the first run's calls, and its roll-up
+    first = full["telemetry"][0]
+    plants_s = sum(n * plants[k]["added"] * 1e-6 for k, n in first["plant_calls"].items())
+    bound_s = plants_s + first["rollup_s"]
+    full["telemetry_cost"] = {"on_reads_per_s": warm, "off_reads_per_s": off,
+                              "on_over_off": float(np.median(warm) / np.median(off)),
+                              "pair_ratios": ratios, "plants_s": plants_s,
+                              "bound_s": bound_s, "bound_share": bound_s / full["seconds"][0]}
+    print("telemetry plants (us a call, disarmed -> armed): " + ", ".join(
+          f"{k} {v['off']:.2f} -> {v['on']:.2f}" for k, v in plants.items())
+          + f"; run 0's calls {first['plant_calls']}: {plants_s * 1e3:.3f} ms, roll-up "
+          f"{first['rollup_s'] * 1e3:.1f} ms, together {bound_s:.4f} s of "
+          f"{full['seconds'][0]:.2f} s ({100 * full['telemetry_cost']['bound_share']:.4f}%)",
+          flush=True)
+    print(f"full e2e telemetry on (warm default runs) "
+          + ", ".join(f"{r:.1f}" for r in warm) + " reads/s against off "
+          + ", ".join(f"{r:.1f}" for r in off)
+          + f": on/off {full['telemetry_cost']['on_over_off']:.4f} (medians); adjacent pairs "
+          + ", ".join(f"{r:.4f}" for r in ratios), flush=True)
     _dump(args.out, report)
+    if mem_off:
+        return _fail(f"telemetry's device high-water and max_memory_allocated differ by more "
+                     f"than 1%: {mem_off}")
     if not full["counts_exact"]:
         return _fail(f"full e2e counts differ from the truth: {full.get('count_diffs')}")
     if not all(n for path in full["launches"].values() for n in path.values()):
         return _fail(f"a kernel of a path never launched: {full['launches']}")
 
-    # 8. kernels line
+    # 9. kernels line
     entries = []
     for k, key, name, src, replaces in (
         (sw_kernel.align_banded_cuda, "sw", "sw_banded",

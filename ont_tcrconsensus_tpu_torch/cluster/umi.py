@@ -24,6 +24,7 @@ import torch
 
 from ont_tcrconsensus_tpu_torch.device import resolve_device
 from ont_tcrconsensus_tpu_torch.io.bucketing import pow2_ceil
+from ont_tcrconsensus_tpu_torch.obs import device as obs_device
 from ont_tcrconsensus_tpu_torch.ops import edit_distance, encode, sketch
 
 
@@ -269,8 +270,11 @@ def _full_identities(codes, lens, device):
         lens = np.concatenate([lens, np.zeros(U_pad - U, lens.dtype)])
     t_codes = torch.from_numpy(codes).to(device)
     t_lens = torch.from_numpy(lens).to(device)
-    d = edit_distance.many_vs_many_dovetail(t_codes, t_lens, t_codes, t_lens)
-    d = d.cpu().numpy().astype(np.float32)[:U, :U]
+    # the blocking readback is the pass's device wait: timed under
+    # umi.distance (credited to an enclosing cluster.batched_dispatch)
+    d = obs_device.timed_get(
+        "umi.distance", edit_distance.many_vs_many_dovetail(t_codes, t_lens, t_codes, t_lens),
+    ).astype(np.float32)[:U, :U]
     longest = np.maximum(lens[:U, None], lens[None, :U]).astype(np.float32)
     ident = 1.0 - d / np.maximum(longest, 1.0)
     cols = np.arange(U - 1)[None, :]
@@ -331,9 +335,9 @@ def _neighbor_identities(codes, lens, shortlist_k, kmer_k, pair_batch, device):
     ident = np.zeros(n_padded, dtype=np.float32)
     for s in range(0, n_padded, chunk):
         sl = slice(s, s + chunk)
-        d = edit_distance.pairwise_dovetail(
+        d = obs_device.timed_get("umi.distance", edit_distance.pairwise_dovetail(
             t_codes[t_qi[sl]], t_lens[t_qi[sl]], t_codes[t_ti[sl]], t_lens[t_ti[sl]],
-        ).cpu().numpy().astype(np.float32)
+        )).astype(np.float32)
         longest = np.maximum(lens[qi[sl]], lens[ti[sl]]).astype(np.float32)
         ident[sl] = np.where(longest > 0, 1.0 - d / np.maximum(longest, 1.0), 0.0)
     ident = ident[:n_pairs].reshape(U, K)

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ont_tcrconsensus_tpu_torch.device import resolve_device
+from ont_tcrconsensus_tpu_torch.obs import device as obs_device
 from ont_tcrconsensus_tpu_torch.ops import consensus as consensus_mod
 from ont_tcrconsensus_tpu_torch.ops import pileup as pileup_mod
 from ont_tcrconsensus_tpu_torch.ops.encode import PAD_CODE
@@ -124,7 +125,9 @@ def load_low_depth_params() -> dict | None:
 
 def _predictions(model: ConsensusPolisher, feats: torch.Tensor, base_at: torch.Tensor):
     """Per position: class argmax and its softmax probability, insertion
-    argmax and its probability, and the pileup depth; numpy."""
+    argmax and its probability, and the pileup depth; numpy, read back
+    under ``polisher.get`` (its wait credited to the enclosing
+    ``polish.dispatch``)."""
     logits = model(feats)
     cls, ins = logits[..., :NUM_CLASSES], logits[..., NUM_CLASSES:]
     out = (
@@ -134,7 +137,7 @@ def _predictions(model: ConsensusPolisher, feats: torch.Tensor, base_at: torch.T
         torch.argmax(ins, dim=-1).to(torch.uint8),
         torch.softmax(ins, dim=-1).amax(dim=-1),
     )
-    return tuple(x.cpu().numpy() for x in out)
+    return obs_device.timed_get("polisher.get", out)
 
 
 def make_pipeline_polisher(params, band_width: int | None = None,

@@ -6,7 +6,9 @@ is loaded with :mod:`ctypes` (no PyTorch headers, so a build takes
 seconds). Libraries land in ``build/torch_kernels/`` beside the package,
 named by a hash of their sources, so an edited source never loads a stale
 build. Builds happen at first use, never at import; :func:`build_all`
-starts every ``nvcc`` at once. A failed build raises.
+starts every ``nvcc`` at once. A failed build raises. :func:`load`
+reports each library it makes ready, an ``nvcc`` build or a load from the
+build directory, to the telemetry build audit (``obs/device.kernel_built``).
 """
 
 from __future__ import annotations
@@ -17,18 +19,28 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-BUILD_DIR = os.path.join(
+DEFAULT_BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "build", "torch_kernels",
 )
+BUILD_DIR = DEFAULT_BUILD_DIR  # where libraries are built and looked up
 KERNELS = ("sw_banded", "pileup_forward")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 CUDA_NVCC = "/usr/local/cuda/bin/nvcc"  # the toolkit's home when not on PATH
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+
+
+def use_build_dir(path: str) -> None:
+    """Build and look up libraries under ``path`` from now on (a run's
+    ``compile_cache_dir``); libraries already loaded stay loaded."""
+    global BUILD_DIR
+    with _lock:
+        BUILD_DIR = path
 
 
 def nvcc_path() -> str:
@@ -98,12 +110,17 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            _finish(name, _start(name))
+            from ont_tcrconsensus_tpu_torch.obs import device as obs_device
+
+            t0 = time.monotonic()
+            started = _start(name)
+            _finish(name, started)
             lib = ctypes.CDLL(library_path(name))
             fn = getattr(lib, f"{name}_launch")
             fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _loaded[name] = lib
+            obs_device.kernel_built(name, time.monotonic() - t0, built=started is not None)
         return lib
 
 

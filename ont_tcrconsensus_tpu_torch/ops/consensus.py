@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ont_tcrconsensus_tpu_torch.device import resolve_device
+from ont_tcrconsensus_tpu_torch.obs import device as obs_device
 from ont_tcrconsensus_tpu_torch.ops import pileup
 from ont_tcrconsensus_tpu_torch.ops.encode import PAD_CODE
 
@@ -168,13 +169,16 @@ def consensus_clusters_batch(subreads: np.ndarray, subread_lens: np.ndarray,
             sub_a, lens_a, t_drafts, t_dlens, band_width=band_width, out_len=W,
         )
         new_drafts, new_lens = vote_columns_batch(base_at, ins_cnt, ins_base, t_drafts, t_dlens)
-        new_drafts = new_drafts[:, :W].cpu().numpy().copy()
-        new_lens = new_lens.cpu().numpy().astype(np.int32)
+        # one coalesced readback a round; its wait credits the enclosing
+        # dispatch frame (polish.dispatch)
+        new_drafts, new_lens, spans = obs_device.timed_get(
+            "consensus.get", (new_drafts[:, :W], new_lens, spans))
+        new_drafts = new_drafts.copy()
+        new_lens = new_lens.astype(np.int32)
         if (new_lens > W).any():
             raise ValueError("consensus grew past the padded width")
         new_drafts, new_lens = _extend_ends_batch(
-            new_drafts, new_lens, subreads[active], subread_lens[active],
-            spans.cpu().numpy(), dlens_a,
+            new_drafts, new_lens, subreads[active], subread_lens[active], spans, dlens_a,
         )
         stable = (new_lens == dlens_a) & (new_drafts == drafts_a).all(axis=1)
         drafts[active] = new_drafts

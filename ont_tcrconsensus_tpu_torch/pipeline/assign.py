@@ -25,9 +25,11 @@ import torch
 
 from ont_tcrconsensus_tpu_torch.device import resolve_device
 from ont_tcrconsensus_tpu_torch.io import bucketing, fastx
+from ont_tcrconsensus_tpu_torch.obs import device as obs_device
+from ont_tcrconsensus_tpu_torch.obs import metrics as obs_metrics
 from ont_tcrconsensus_tpu_torch.ops import ee_filter, encode, fuzzy_match, sketch, sw_kernel
 from ont_tcrconsensus_tpu_torch.ops.sw_align import PAD_SENTINEL
-from ont_tcrconsensus_tpu_torch.robustness import contracts
+from ont_tcrconsensus_tpu_torch.robustness import contracts, watchdog
 
 MIN_SCORE = 100  # SW score gate for a "primary alignment" equivalent
 BIG_DIST = 1 << 20  # sentinel distance for "no qualifying primer hit"
@@ -510,17 +512,19 @@ class AssignEngine:
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
-    @staticmethod
-    def _to_host(out: dict) -> dict[str, np.ndarray]:
-        return {k: v.cpu().numpy() for k, v in out.items()}
-
     def run_batch(self, batch: bucketing.ReadBatch, max_ee_rate: float, min_len: int,
                   overlap_frac: float | None = None) -> dict[str, np.ndarray]:
-        """The fused pass on one batch; ``overlap_frac`` (round 1) arms the
-        SW fast path."""
+        """The fused pass on one batch, read back to the host."""
+        return obs_device.to_host(self.run_batch_async(batch, max_ee_rate, min_len,
+                                                       overlap_frac=overlap_frac))
+
+    def run_batch_async(self, batch: bucketing.ReadBatch, max_ee_rate: float, min_len: int,
+                        overlap_frac: float | None = None) -> dict[str, torch.Tensor]:
+        """The fused pass on one batch, its outputs left on the device;
+        ``overlap_frac`` (round 1) arms the SW fast path."""
         fast = overlap_frac is not None and self.fast_denom > 0 and self.top_k == 2
         p = self.panel
-        out = _fused_pass(
+        return _fused_pass(
             self._upload(batch.codes),
             self._upload(batch.quals) if batch.quals is not None else None,
             self._upload(batch.lengths),
@@ -532,18 +536,21 @@ class AssignEngine:
             trim_window=self.trim_window, n_primers=self.n_primers,
             sw_subset_denom=self.fast_denom if fast else 0,
         )
-        return self._to_host(out)
 
     def run_batch_targeted(self, batch: bucketing.ReadBatch, cand_idx: np.ndarray,
                            min_len: int) -> dict[str, np.ndarray]:
-        """Round-2 pass on one batch against its candidate refs."""
+        """Round-2 pass on one batch against its candidate refs, read back."""
+        return obs_device.to_host(self.run_batch_targeted_async(batch, cand_idx, min_len))
+
+    def run_batch_targeted_async(self, batch: bucketing.ReadBatch, cand_idx: np.ndarray,
+                                 min_len: int) -> dict[str, torch.Tensor]:
+        """Round-2 pass on one batch, its outputs left on the device."""
         p = self.panel
-        out = _targeted_pass(
+        return _targeted_pass(
             self._upload(batch.codes), self._upload(batch.lengths), self._upload(cand_idx),
             p.d_codes, p.d_lens, self.umi_masks, self.umi_mask_lens, min_len,
             band_width=self.band_width, a5=self.a5, a3=self.a3,
         )
-        return self._to_host(out)
 
 
 def run_assign(
@@ -569,9 +576,12 @@ def run_assign(
     per aligned read (name, region, spans, blast id, filter status) for
     the consensus-filter QC artifacts. ``dispatch(batch, max_ee_rate,
     min_len)`` overrides the per-batch device call (round 2's targeted
-    pass); every filter step is shared. Batches run one after another on
-    this thread, in the JAX package's batch order, so the store's row order
-    is the same. The ingest, partition and store conservation contracts are
+    pass; it returns the outputs on the device); every filter step is
+    shared. Batches run one after another on this thread, in the JAX
+    package's batch order, so the store's row order is the same. Each batch
+    is one ``assign.dispatch`` scope (the launches) and one frameless
+    readback under the same site (the wait and the copy), the JAX package's
+    split. The ingest, partition and store conservation contracts are
     checked at the end.
     """
     panel = engine.panel
@@ -690,16 +700,24 @@ def run_assign(
 
     for batch in bucketing.batch_reads(limited(), batch_size=batch_size, widths=widths,
                                        min_len=1, counters=counters):
-        if dispatch is not None:
-            out = dispatch(batch, max_ee_rate, min_len)
-        else:
-            # overlap_frac arms the SW fast path only when no blast-id gate
-            # runs (round 1): round 2's gate needs true blast-ids
-            out = engine.run_batch(
-                batch, max_ee_rate, min_len,
-                overlap_frac=minimal_region_overlap if blast_id_threshold is None else None,
-            )
-        consume(batch, out)
+        # liveness: one heartbeat per batch; a wedged parser or dispatch
+        # stops them, and the stage's watchdog guard cancels into the
+        # transient retry of the whole idempotent pass
+        watchdog.heartbeat("assign.batch")
+        obs_metrics.counter_add("assign.batches")
+        with obs_device.dispatch("assign.dispatch", bucket=batch.width):
+            if dispatch is not None:
+                out_dev = dispatch(batch, max_ee_rate, min_len)
+            else:
+                # overlap_frac arms the SW fast path only when no blast-id
+                # gate runs (round 1): round 2's gate needs true blast-ids
+                out_dev = engine.run_batch_async(
+                    batch, max_ee_rate, min_len,
+                    overlap_frac=minimal_region_overlap if blast_id_threshold is None else None,
+                )
+        # the readback records under its own site, outside the frame, as
+        # the JAX package's consumer thread does
+        consume(batch, obs_device.timed_get("assign.dispatch", out_dev))
 
     blocks = []
     for width in sorted(acc):

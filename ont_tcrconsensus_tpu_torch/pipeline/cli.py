@@ -2,6 +2,9 @@
 
 Runs the pipeline on the CUDA card; ``--cpu`` is the only way onto the
 CPU. The run config is the JAX package's (same keys, same checks).
+``--report <workdir>`` renders a finished run's artifacts without loading
+torch, so it works on a host whose card is wedged; ``--live-port`` arms
+the live plane for the run.
 """
 
 from __future__ import annotations
@@ -14,14 +17,62 @@ def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
         description="Count unique TCR molecule nanopore consensus reads (PyTorch/CUDA)."
     )
-    parser.add_argument("json_config_file", help="Path to the analysis run JSON config file")
+    parser.add_argument(
+        "json_config_file",
+        help="Path to the analysis run JSON config file (with --report: a finished "
+        "run's workdir: the fastq_pass dir, its nano_tcr subdir, or the run config)",
+    )
     parser.add_argument("--cpu", action="store_true",
                         help="Run on the CPU instead of the CUDA card")
+    parser.add_argument(
+        "--report", action="store_true",
+        help="Render a run summary from a finished run's artifacts (telemetry.json, "
+        "robustness_report.json, stage_timing.tsv, logs/trace.json, history.jsonl); "
+        "reads files only and never imports torch",
+    )
+    parser.add_argument("--json", action="store_true",
+                        help="With --report: the machine-readable dump instead of the text")
+    parser.add_argument(
+        "--critical-path", action="store_true",
+        help="With --report: the critical path through the executed stage graph "
+        "recorded in telemetry.json",
+    )
+    parser.add_argument(
+        "--memory", action="store_true",
+        help="With --report: reconcile the static per-node memory estimate with the "
+        "measured node-boundary samples",
+    )
+    parser.add_argument(
+        "--live-port", type=int, default=None, metavar="PORT",
+        help="Arm the live plane for this run (overrides live_port): /healthz, "
+        "/metrics and /progress on 127.0.0.1:PORT and the crash flight recorder; "
+        "0 binds an ephemeral port",
+    )
     args = parser.parse_args(sys.argv[1:] if argv is None else argv)
+
+    if args.json and not args.report:
+        parser.error("--json is a --report option")
+    if args.critical_path and not args.report:
+        parser.error("--critical-path is a --report option")
+    if args.memory and not args.report:
+        parser.error("--memory is a --report option")
+    if args.live_port is not None and args.report:
+        parser.error("--live-port is a run option (it arms a live endpoint for the "
+                     "run's duration; --report exits at once)")
+
+    if args.report:
+        # never loads torch: works on a host whose card is wedged
+        from ont_tcrconsensus_tpu_torch.obs import report as report_mod
+
+        return report_mod.report_main(
+            args.json_config_file, as_json=args.json,
+            critical_path=args.critical_path, memory=args.memory,
+        )
 
     from ont_tcrconsensus_tpu_torch.pipeline.run import run_pipeline
 
-    run_pipeline(args.json_config_file, device="cpu" if args.cpu else "cuda")
+    run_pipeline(args.json_config_file, device="cpu" if args.cpu else "cuda",
+                 live_port=args.live_port)
     return 0
 
 

@@ -21,6 +21,17 @@ executor's stage names, the default executor's), the self-homology logs,
 ``robustness_report.json`` (retry policy and outcomes, contract counters)
 and ``stack_dumps_p0.log`` (SIGQUIT dumps every thread's stack there).
 
+The observation layer (:mod:`..obs`) is armed around the run as in the JAX
+package: ``telemetry`` ``on`` (the default) writes ``telemetry.json`` and
+appends to ``history.jsonl`` (and ``history_ledger``), ``full`` adds
+``logs/trace.json`` and the memory sampler; ``live_port`` serves
+``/healthz``, ``/metrics`` and ``/progress`` for the run's duration;
+``profile_trace_dir`` records the whole run with ``torch.profiler`` (host
+and CUDA activity) as a Chrome trace in that directory; ``stage_timeout_s``
+arms the stage watchdog, whose stack dumps go to each library's
+``logs/watchdog.log``. The kernels' build directory is the run's
+``compile_cache_dir`` (recorded as ``analysis.compile_cache``).
+
 Every device pass runs on ``device``: CUDA unless the caller asks for the
 CPU, and a CUDA request without a card raises. Nothing falls back to the
 CPU: a retry runs again on the same device.
@@ -28,6 +39,7 @@ CPU: a retry runs again on the same device.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import faulthandler
 import glob
@@ -37,6 +49,8 @@ import re
 import shutil
 import signal
 import sys
+import tempfile
+import time
 
 import numpy as np
 import torch
@@ -44,13 +58,20 @@ import torch
 from ont_tcrconsensus_tpu_torch.cluster import regions as regions_mod
 from ont_tcrconsensus_tpu_torch.device import resolve_device
 from ont_tcrconsensus_tpu_torch.io import bucketing, fastx, layout
+from ont_tcrconsensus_tpu_torch.obs import device as obs_device
+from ont_tcrconsensus_tpu_torch.obs import history as obs_history
+from ont_tcrconsensus_tpu_torch.obs import live as obs_live
+from ont_tcrconsensus_tpu_torch.obs import metrics as obs_metrics
+from ont_tcrconsensus_tpu_torch.obs import report as obs_report
+from ont_tcrconsensus_tpu_torch.obs import trace as obs_trace
+from ont_tcrconsensus_tpu_torch.ops import _build
 from ont_tcrconsensus_tpu_torch.parallel import budget as budget_mod
 from ont_tcrconsensus_tpu_torch.pipeline import overlap, stages
 from ont_tcrconsensus_tpu_torch.pipeline.assign import AssignEngine, ReferencePanel, run_assign
 from ont_tcrconsensus_tpu_torch.pipeline.config import RunConfig
 from ont_tcrconsensus_tpu_torch.qc import artifacts, error_profile, umi_overlap
 from ont_tcrconsensus_tpu_torch.qc.timing import StageTimer
-from ont_tcrconsensus_tpu_torch.robustness import contracts, retry
+from ont_tcrconsensus_tpu_torch.robustness import contracts, lockcheck, retry, watchdog
 
 # fallback precision bar when no reference pair survives the homology filter
 DEFAULT_BLAST_ID_BAR = 0.99
@@ -63,12 +84,6 @@ _NOT_YET = (
     ("chaos", bool, "chaos needs the robustness slice of the port"),
     ("on_bad_record", lambda v: v != "fail",
      "on_bad_record quarantine/drop needs the robustness slice of the port"),
-)
-# knobs that only add observation artifacts, with their "off" values:
-# accepted, not written yet
-_OBSERVATION_ONLY = (
-    ("telemetry", "off"), ("live_port", None), ("profile_trace_dir", None),
-    ("history_ledger", None),
 )
 
 
@@ -147,9 +162,31 @@ class _SigquitRunLog:
         self.fh = None
 
 
-def run_pipeline(config_path: str, device: str | torch.device | None = None):
-    """Run the pipeline from a JSON config; {library: {region: count}}."""
-    return run_with_config(RunConfig.from_json(config_path), device=device)
+def enable_build_cache(cache_dir: str | None = None) -> dict:
+    """Point the kernel builds at the run's ``compile_cache_dir``: None is
+    the package's ``build/torch_kernels/``, ``"off"`` a fresh temporary
+    directory (every kernel the process has not loaded yet is built
+    anew), anything else that directory. Returns the ``{"armed", "dir"}``
+    status recorded as ``analysis.compile_cache`` (the JAX package's
+    persistent XLA cache has the same record)."""
+    if cache_dir == "off":
+        tmp = tempfile.mkdtemp(prefix="tcr_torch_kernels_")
+        atexit.register(shutil.rmtree, tmp, ignore_errors=True)
+        _build.use_build_dir(tmp)
+        return {"armed": False, "dir": None}
+    resolved = cache_dir or _build.DEFAULT_BUILD_DIR
+    _build.use_build_dir(resolved)
+    return {"armed": True, "dir": resolved}
+
+
+def run_pipeline(config_path: str, device: str | torch.device | None = None,
+                 live_port: int | None = None):
+    """Run the pipeline from a JSON config; {library: {region: count}}.
+    ``live_port`` overrides the config's ``live_port``."""
+    cfg = RunConfig.from_json(config_path)
+    if live_port is not None:
+        cfg = dataclasses.replace(cfg, live_port=live_port)
+    return run_with_config(cfg, device=device)
 
 
 def run_with_config(cfg: RunConfig, device: str | torch.device | None = None,
@@ -160,21 +197,108 @@ def run_with_config(cfg: RunConfig, device: str | torch.device | None = None,
     ``timings``, when given, receives each stage's wall seconds summed over
     the libraries, under the names of ``logs/stage_timing.tsv``, plus
     ``self_homology``: the same spans as that table.
+
+    With ``profile_trace_dir`` set, the whole run is recorded by
+    ``torch.profiler`` (CPU activity, and CUDA activity on the card) and
+    written there as a Chrome trace, ``run_<time>_<pid>.pt.trace.json``:
+    every kernel by name with its device time, the counterpart of the JAX
+    package's ``jax.profiler`` capture. The trace grows with the launches
+    (a full-size lane makes millions), so it is meant for small lanes.
     """
     check_supported(cfg)
     dev = resolve_device(device)
     run_timer = StageTimer(dev)
-    sigquit_log = _SigquitRunLog()
     try:
-        return _run_with_config_body(cfg, dev, run_timer, sigquit_log)
+        if cfg.profile_trace_dir:
+            return _run_profiled(cfg, dev, run_timer)
+        return _run_with_config(cfg, dev, run_timer)
     finally:
-        sigquit_log.restore()
         if timings is not None:
             timings.update(run_timer.seconds)
 
 
+def _run_profiled(cfg: RunConfig, dev: torch.device, run_timer: StageTimer):
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(cfg.profile_trace_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        return _run_with_config(cfg, dev, run_timer)
+    finally:
+        prof.stop()
+        path = os.path.join(
+            cfg.profile_trace_dir,
+            f"run_{time.strftime('%Y%m%d_%H%M%S')}_{os.getpid()}.pt.trace.json",
+        )
+        try:
+            prof.export_chrome_trace(path)
+            _log(f"profiler trace: {path}")
+        except (OSError, RuntimeError) as exc:  # the trace must not mask the run's fate
+            _log(f"WARNING: could not write the profiler trace: {exc!r}")
+
+
+def _run_with_config(cfg: RunConfig, dev: torch.device, run_timer: StageTimer):
+    """Arm the process-global observation state around the body and disarm
+    all of it in one ``finally``, on every exit path, so an embedder's next
+    run inherits none of it."""
+    # lock checks first: the watchdog, registry and live plane below pick
+    # their lock type when they are built
+    lockcheck.arm_from_env()
+    wd = None
+    if cfg.stage_timeout_s:
+        wd = watchdog.Watchdog(base_timeout_s=cfg.stage_timeout_s)
+        watchdog.activate(wd)
+        wd.start()
+        _log(f"Watchdog armed: stage_timeout_s={cfg.stage_timeout_s} "
+             f"(soft at {watchdog.SOFT_FRACTION:.0%}, auto-scaled by workload size)")
+    sampler = None
+    run_armed_live = False
+    sigquit_log = _SigquitRunLog()
+    live_usr1 = obs_live.Sigusr1Hook()
+    try:
+        if cfg.telemetry != "off":
+            obs_metrics.arm()
+            if cfg.telemetry == "full":
+                obs_trace.arm()
+                sampler = obs_device.start_sampler(
+                    devices=[dev] if dev.type == "cuda" else [])
+        # the live plane arms whatever the telemetry level: its flight ring
+        # is the post-mortem context of runs without the trace collector.
+        # A plane armed by the caller is left to the caller.
+        if cfg.live_port is not None and obs_live.server() is None:
+            srv = obs_live.arm(cfg.live_port)
+            run_armed_live = True
+            live_usr1.install()
+            _log(f"Live observability plane on http://127.0.0.1:{srv.port} "
+                 "(/healthz /metrics /progress; SIGUSR1 flushes the flight recorder)")
+        try:
+            return _run_with_config_body(cfg, dev, run_timer, sigquit_log)
+        except BaseException as exc:
+            # the flight recorder's reason to exist: flush the last events
+            # while the process still can
+            obs_live.flush_armed(f"crash:{type(exc).__name__}")
+            raise
+    finally:
+        live_usr1.restore()
+        if run_armed_live:
+            obs_live.disarm()
+        if sampler is not None:
+            sampler.stop()
+        obs_trace.disarm()
+        obs_metrics.disarm()
+        if wd is not None:
+            watchdog.deactivate(wd)
+            wd.stop()
+        sigquit_log.restore()
+
+
 def _run_with_config_body(cfg: RunConfig, dev: torch.device, run_timer: StageTimer,
                           sigquit_log: _SigquitRunLog) -> dict[str, dict[str, int]]:
+    obs_metrics.analysis_set("compile_cache", enable_build_cache(cfg.compile_cache_dir))
     policy = retry.set_policy(retry.RetryPolicy(
         max_attempts=cfg.retry_max_attempts, base_delay_s=cfg.retry_base_delay_s,
     ))
@@ -183,20 +307,25 @@ def _run_with_config_body(cfg: RunConfig, dev: torch.device, run_timer: StageTim
     contracts.set_mode(cfg.contracts)
     contracts.reset()
     polisher = _rnn_polisher(cfg, dev) if cfg.polish_method == "rnn" else None
-    observed = [k for k, off in _OBSERVATION_ONLY if getattr(cfg, k) != off]
-    if observed:
-        _log(f"note: {observed} accepted; the port does not write their artifacts yet")
     reference = fastx.read_fasta_dict(cfg.reference_file)
     nano_dir = os.path.join(cfg.fastq_pass_dir, "nano_tcr")
     if os.path.exists(nano_dir):
         raise FileExistsError(f"{nano_dir} exists; remove it to rerun")
     os.makedirs(nano_dir)
     sigquit_log.register(nano_dir, 0)
+    # crash and SIGUSR1 flight-recorder flushes land in the output tree
+    # (a no-op when the live plane is disarmed)
+    obs_live.set_flush_path(os.path.join(nano_dir, "logs", "flight_recorder.json"))
 
     # PHASE A: reference self-homology
     _log("Mapping reference self homology")
-    with run_timer.stage("self_homology"):
-        homology = regions_mod.self_homology_map(reference, cfg.cluster_identity, device=dev)
+    # timed beside the stage table, not as a span: the JAX package's
+    # telemetry has no self_homology stage
+    t0 = time.perf_counter()
+    homology = regions_mod.self_homology_map(reference, cfg.cluster_identity, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
+    run_timer.add("self_homology", time.perf_counter() - t0)
     _write_homology_artifacts(homology, nano_dir)
     blast_id_threshold = cfg.blast_id_threshold
     overlap_consensus = cfg.minimal_region_overlap_consensus
@@ -243,21 +372,46 @@ def _run_with_config_body(cfg: RunConfig, dev: torch.device, run_timer: StageTim
         fastq_list = sorted(glob.glob(os.path.join(cfg.fastq_pass_dir, "*.fastq*")))
     if not fastq_list:
         raise FileNotFoundError(f"no fastq files under {cfg.fastq_pass_dir}")
+    # /progress denominators and ETA priors: per-node seconds from the
+    # run's own ledger and the cross-run one, for this config fingerprint
+    # (the ledger is read only when the plane is armed)
+    obs_live.progress_totals(len(fastq_list))
+    obs_live.configure_eta_priors(
+        [os.path.join(nano_dir, obs_history.HISTORY_BASENAME)]
+        + ([cfg.history_ledger] if cfg.history_ledger else []),
+        obs_history.config_fingerprint(cfg),
+    )
     results: dict[str, dict[str, int]] = {}
     try:
         for fastq in fastq_list:
-            lay = layout.init_library_dir(fastq, nano_dir)
-            timer = StageTimer(dev)
+            obs_live.progress_library(layout.library_name_from_fastq(fastq))
             try:
-                results[lay.library] = _run_library(fastq, lay, ctx, timer)
+                lay = layout.init_library_dir(fastq, nano_dir)
+                watchdog.set_log_path(os.path.join(lay.logs, "watchdog.log"))
+                timer = StageTimer(dev)
+                try:
+                    results[lay.library] = _run_library(fastq, lay, ctx, timer)
+                finally:
+                    run_timer.merge(timer)
             finally:
-                run_timer.merge(timer)
+                # a failed library still advances /progress
+                obs_live.progress_library_done()
     finally:
         try:
             recorder.write(os.path.join(nano_dir, "robustness_report.json"),
                            policy=policy, contracts=contracts.summary())
         except OSError as exc:  # report trouble must never mask the run's fate
             _log(f"WARNING: could not write robustness report: {exc!r}")
+        if cfg.telemetry != "off":
+            # the roll-up next to the robustness report, on failing paths
+            # too: memory peaks, telemetry.json (+ logs/trace.json at
+            # "full"), then the run's ledger entry (which never fails the run)
+            try:
+                obs_device.finalize_memory([dev] if dev.type == "cuda" else [])
+                obs_report.write_run_telemetry(nano_dir, cfg.telemetry)
+            except OSError as exc:
+                _log(f"WARNING: could not write telemetry artifacts: {exc!r}")
+            obs_history.record_run(nano_dir, cfg, backend=dev.type)
     _log("Done running all barcodes!")
     return results
 
@@ -316,15 +470,20 @@ def _run_library(fastq, lay, ctx: _RunContext, timer: StageTimer) -> dict[str, i
             for name, exc in qc_exec.wait_all():
                 _log(f"WARNING: overlapped stage {name} also failed: {exc!r}")
         raise
+    finally:
+        # the pool's busy/idle split (drained by now on every path)
+        if qc_exec is not None:
+            qc_exec.record_pool_metrics()
 
 
 def _side_stage(pending: list, qc_exec, timer: StageTimer, name: str, fn, *args,
-                commit=None, **kwargs) -> None:
+                commit=None, units: int = 0, **kwargs) -> None:
     """A stage nothing on the critical path consumes: on a QC worker when
-    there is one (``commit(result)`` then runs at the next commit point),
-    else here, timed under ``name``."""
+    there is one (``commit(result)`` then runs at the next commit point;
+    ``units`` sizes the worker's watchdog deadline), else here, timed under
+    ``name``."""
     if qc_exec is not None:
-        pending.append((qc_exec.submit(name, fn, *args, **kwargs), commit))
+        pending.append((qc_exec.submit(name, fn, *args, units=units, **kwargs), commit))
         return
     with timer.stage(name):
         result = fn(*args, **kwargs)
@@ -337,6 +496,7 @@ def _profile_stage(pending, qc_exec, timer, name, store, ctx, log_path) -> None:
         pending, qc_exec, timer, name, error_profile.profile_store, store, ctx.panel,
         sample_size=ctx.cfg.error_profile_sample, device=ctx.device,
         commit=lambda counters: error_profile.write_error_profile_log(*counters, log_path),
+        units=ctx.cfg.error_profile_sample,
     )
 
 
@@ -382,7 +542,9 @@ def _run_library_impl(fastq, lay, ctx: _RunContext, timer: StageTimer,
 
     # PHASE B + round-1 assignment: one fused pass per batch
     _log("Preprocessing, aligning and UMI-tagging nanopore reads:", library)
-    with timer.stage("round1_fused_assign"):
+    # watchdog guard over per-batch heartbeats (assign.py): a hung dispatch
+    # cancels into the transient retry below
+    with timer.stage("round1_fused_assign"), watchdog.guard("round1_fused_assign"):
         # the pass is idempotent (it streams the fastq into a fresh store),
         # so a transient fault re-runs it whole
         store, astats = retry.call_with_retry("assign.round1", lambda: run_assign(
@@ -436,16 +598,21 @@ def _run_library_impl(fastq, lay, ctx: _RunContext, timer: StageTimer,
                 )
             records_by_group.append((group_name, umis))
     with timer.stage("round1_umi_cluster"):
-        grouped = stages.cluster_and_select_grouped(
-            records_by_group,
-            identity=cfg.vsearch_identity,
-            min_umi_length=cfg.min_umi_length,
-            max_umi_length=cfg.max_umi_length,
-            min_reads_per_cluster=cfg.min_reads_per_cluster,
-            max_reads_per_cluster=cfg.max_reads_per_cluster,
-            balance_strands=cfg.balance_strands,
-            device=dev,
-        )
+        # the guard makes a hung pass a transient: a hard cancel raises
+        # StageTimeout into the retry wrapper (the pass is pure)
+        with watchdog.guard("round1_umi_cluster",
+                            units=sum(len(u) for _, u in records_by_group)):
+            grouped = retry.call_with_retry(
+                "cluster.batched_round1", lambda: stages.cluster_and_select_grouped(
+                    records_by_group,
+                    identity=cfg.vsearch_identity,
+                    min_umi_length=cfg.min_umi_length,
+                    max_umi_length=cfg.max_umi_length,
+                    min_reads_per_cluster=cfg.min_reads_per_cluster,
+                    max_reads_per_cluster=cfg.max_reads_per_cluster,
+                    balance_strands=cfg.balance_strands,
+                    device=dev,
+                ))
         selected_by_group: list[tuple[str, list[stages.SelectedCluster]]] = []
         for group_name, _ in records_by_group:
             selected, stat_rows = grouped[group_name]
@@ -458,7 +625,9 @@ def _run_library_impl(fastq, lay, ctx: _RunContext, timer: StageTimer,
     n_clusters = sum(len(s) for _, s in selected_by_group)
     _log(f"Polishing clusters: {library} "
          f"({n_clusters} clusters over {len(selected_by_group)} region clusters)")
-    with timer.stage("round1_polish"):
+    # guard scaled by the cluster count; the chunk loop heartbeats per
+    # dispatch, so only a chunk that stops progressing can expire
+    with timer.stage("round1_polish"), watchdog.guard("round1_polish", units=n_clusters):
         by_group = stages.polish_clusters_all(
             selected_by_group, store, max_read_length=cfg.max_read_length,
             polisher=ctx.polisher, budget=ctx.budget, cluster_batch=cfg.cluster_batch_size,
@@ -524,7 +693,7 @@ def _targeted_round2_dispatch(panel, engine, headers):
             if v:
                 refs = cluster_refs[cluster_of(nm)]
                 cand[row, : len(refs)] = refs
-        return engine.run_batch_targeted(batch, cand, min_len=min_len)
+        return engine.run_batch_targeted_async(batch, cand, min_len=min_len)
 
     return dispatch, None
 
@@ -544,7 +713,8 @@ def _run_round2(lay, ctx: _RunContext, merged_consensus, timer: StageTimer,
             _log(f"round 2: targeted assign unavailable ({why_not}); "
                  "falling back to the full fused assign")
     qc_rows: list[dict] = []
-    with timer.stage("round2_fused_assign"):
+    with timer.stage("round2_fused_assign"), \
+            watchdog.guard("round2_fused_assign", units=len(cons_records)):
         # transient-retried like round 1; qc_rows is cleared before each
         # retry so a half-consumed attempt cannot duplicate QC rows
         cons_store, cstats = retry.call_with_retry("assign.round2", lambda: run_assign(
@@ -590,52 +760,60 @@ def _run_round2(lay, ctx: _RunContext, merged_consensus, timer: StageTimer,
                     os.path.join(lay.consensus_umi_fasta, f"region_{region}_detected_umis.fasta"),
                 )
             region_records.append((region, umis))
-    with timer.stage("round2_umi_cluster"):
-        grouped2 = stages.cluster_and_select_grouped(
-            region_records,
-            identity=cfg.vsearch_identity_consensus,
-            min_umi_length=cfg.min_umi_length,
-            max_umi_length=cfg.max_umi_length,
-            min_reads_per_cluster=1,
-            max_reads_per_cluster=cfg.max_reads_per_cluster,
-            balance_strands=False,
-            device=ctx.device,
-        )
-    region_counts: dict[str, int] = {}
-    region_cluster_umis: dict[str, list[str]] = {}
-    for region, _ in region_records:
-        selected, stat_rows = grouped2[region]
-        rdir = os.path.join(lay.clustering_consensus, f"region_{region}")
-        os.makedirs(rdir, exist_ok=True)
-        stages.write_cluster_stats_tsv(stat_rows, os.path.join(rdir, "vsearch_cluster_stats.tsv"))
-        if cfg.write_intermediate_fastas:
-            fastx.write_fasta(os.path.join(rdir, "smolecule_clusters.fa"), [
-                (str(cl.cluster_id), cons_store.blocks[m.block].decode_one(m.row))
-                for cl in selected for m in cl.members
-            ])
-        # count = round-2 clusters (unique molecules)
-        region_counts[region] = len(selected)
-        region_cluster_umis[region] = [cl.members[0].combined for cl in selected]
-
-    counts_csv = stages.write_counts_csv(region_counts, lay.counts)
-    # the CSV on disk reads back as the in-memory totals it was written from
-    contracts.check_equal(
-        "counts", "counts CSV readback", _read_counts_csv(counts_csv),
-        "in-memory region counts", region_counts, detail={"library": library},
-    )
-    if cfg.compare_umi_overlap_between_regions:
-        _log("Testing for consensus umi matches between regions:", library)
-        umi_overlap.count_overlapping_umis(
-            region_cluster_umis, lay.logs, cfg.overlapping_umi_edit_threshold
-        )
+    with timer.stage("round2_umi_cluster"), watchdog.guard(
+            "round2_umi_cluster", units=sum(len(u) for _, u in region_records)):
+        grouped2 = retry.call_with_retry(
+            "cluster.batched_round2", lambda: stages.cluster_and_select_grouped(
+                region_records,
+                identity=cfg.vsearch_identity_consensus,
+                min_umi_length=cfg.min_umi_length,
+                max_umi_length=cfg.max_umi_length,
+                min_reads_per_cluster=1,
+                max_reads_per_cluster=cfg.max_reads_per_cluster,
+                balance_strands=False,
+                device=ctx.device,
+            ))
+    # round-2 QC commits before the counts checkpoint
     _commit_pending_qc(qc_exec, pending, timer)
-    timer.write_tsv(os.path.join(lay.logs, "stage_timing.tsv"))
-    lay.mark_stage_done("counts", artifacts=[counts_csv])
-    if cfg.delete_tmp_files:
-        for d in (lay.region_cluster_fasta, lay.clustering, lay.umi_fasta,
-                  lay.fasta, lay.clustering_consensus, lay.region_fasta,
-                  lay.consensus_umi_fasta):
-            shutil.rmtree(d, ignore_errors=True)
+    # the JAX graph's round2_counts node; the stage table is written inside
+    # it, so (as in the JAX package) the TSV has no round2_counts row while
+    # telemetry.json and the trace do
+    region_counts: dict[str, int] = {}
+    with timer.stage("round2_counts"):
+        region_cluster_umis: dict[str, list[str]] = {}
+        for region, _ in region_records:
+            selected, stat_rows = grouped2[region]
+            rdir = os.path.join(lay.clustering_consensus, f"region_{region}")
+            os.makedirs(rdir, exist_ok=True)
+            stages.write_cluster_stats_tsv(
+                stat_rows, os.path.join(rdir, "vsearch_cluster_stats.tsv"))
+            if cfg.write_intermediate_fastas:
+                fastx.write_fasta(os.path.join(rdir, "smolecule_clusters.fa"), [
+                    (str(cl.cluster_id), cons_store.blocks[m.block].decode_one(m.row))
+                    for cl in selected for m in cl.members
+                ])
+            # count = round-2 clusters (unique molecules)
+            region_counts[region] = len(selected)
+            region_cluster_umis[region] = [cl.members[0].combined for cl in selected]
+
+        counts_csv = stages.write_counts_csv(region_counts, lay.counts)
+        # the CSV on disk reads back as the in-memory totals it was written from
+        contracts.check_equal(
+            "counts", "counts CSV readback", _read_counts_csv(counts_csv),
+            "in-memory region counts", region_counts, detail={"library": library},
+        )
+        if cfg.compare_umi_overlap_between_regions:
+            _log("Testing for consensus umi matches between regions:", library)
+            umi_overlap.count_overlapping_umis(
+                region_cluster_umis, lay.logs, cfg.overlapping_umi_edit_threshold
+            )
+        timer.write_tsv(os.path.join(lay.logs, "stage_timing.tsv"))
+        lay.mark_stage_done("counts", artifacts=[counts_csv])
+        if cfg.delete_tmp_files:
+            for d in (lay.region_cluster_fasta, lay.clustering, lay.umi_fasta,
+                      lay.fasta, lay.clustering_consensus, lay.region_fasta,
+                      lay.consensus_umi_fasta):
+                shutil.rmtree(d, ignore_errors=True)
     return region_counts
 
 

@@ -21,10 +21,12 @@ import torch
 from ont_tcrconsensus_tpu_torch.cluster import umi as umi_mod
 from ont_tcrconsensus_tpu_torch.device import resolve_device
 from ont_tcrconsensus_tpu_torch.io import bucketing, fastx
+from ont_tcrconsensus_tpu_torch.obs import device as obs_device
+from ont_tcrconsensus_tpu_torch.obs import metrics as obs_metrics
 from ont_tcrconsensus_tpu_torch.ops import consensus as consensus_mod
 from ont_tcrconsensus_tpu_torch.ops import edit_distance, encode, sketch
 from ont_tcrconsensus_tpu_torch.pipeline.assign import ReadStore, ReferencePanel
-from ont_tcrconsensus_tpu_torch.robustness import contracts, retry
+from ont_tcrconsensus_tpu_torch.robustness import contracts, retry, watchdog
 
 # ---------------------------------------------------------------------------
 # stage: UMI record assembly
@@ -162,7 +164,13 @@ def cluster_and_select_grouped(
         for name, records in named_records
     ]
     groups = [[r.combined for r in recs] for _, recs in eligibles]
-    clusters_list = umi_mod.cluster_umis_grouped(groups, identity, device=device)
+    watchdog.heartbeat("cluster.batched_dispatch")
+    obs_metrics.counter_add("cluster.batched")
+    # one dispatch scope around the batched clustering pass: its waits (the
+    # distance readbacks in cluster/umi.py) are credited here, the rest is
+    # the pass's host time
+    with obs_device.dispatch("cluster.batched_dispatch"):
+        clusters_list = umi_mod.cluster_umis_grouped(groups, identity, device=device)
     out: dict[str, tuple[list[SelectedCluster], list[dict]]] = {}
     rescue_work: list[tuple] = []
     first_pass: dict[str, tuple] = {}
@@ -179,6 +187,7 @@ def cluster_and_select_grouped(
             rescue_work.append((name, recs, clusters, members, taken))
     roots_by = _rescue_grouped(rescue_work, identity, device) if rescue_work else {}
     for name, (recs, clusters, selected, stat_rows) in first_pass.items():
+        watchdog.heartbeat("cluster.group_select")
         roots = roots_by.get(name)
         if roots is not None:
             selected, stat_rows, _ = _run_selection(
@@ -506,6 +515,10 @@ def polish_clusters_all(
                     # untried remainder at the smaller batch
                     worklist.append((run_items[start:], seqs, shrink + 1))
                     break
+                # counted once the chunk settles: a retried chunk counts
+                # once, a requeued one only in the smaller chunks
+                obs_metrics.counter_add("polish.chunks")
+                obs_metrics.observe("polish.chunk_clusters", len(chunk))
                 for c, seq in enumerate(seqs):
                     group_name, cl = chunk[c][0], chunk[c][1]
                     by_group[group_name].append(
@@ -527,11 +540,18 @@ def _dispatch_polish_retried(chunk, cb_run, s_bucket, width, shrink, *, rounds, 
     attempt = 1
     while True:
         try:
-            seqs = _dispatch_polish_packed(
-                _pack_polish_chunk(chunk, cb_run, s_bucket, width), len(chunk),
-                rounds=rounds, eff_band=eff_band, keep_pos=keep_pos,
-                polisher=polisher, device=device,
-            )
+            # liveness: one heartbeat per chunk dispatch, so the watchdog
+            # fires only when a dispatch stops progressing
+            watchdog.heartbeat("polish.chunk")
+            packed = _pack_polish_chunk(chunk, cb_run, s_bucket, width)
+            # the dispatch split of the dominant stage: the readbacks in
+            # ops/consensus and the polisher credit their waits to this
+            # frame; the pack above sits outside it, as in the JAX package
+            with obs_device.dispatch("polish.dispatch", bucket=f"{s_bucket}x{width}"):
+                seqs = _dispatch_polish_packed(
+                    packed, len(chunk), rounds=rounds, eff_band=eff_band,
+                    keep_pos=keep_pos, polisher=polisher, device=device,
+                )
         except Exception as exc:
             pol, rec = retry.policy(), retry.recorder()
             cls = retry.classify(exc)

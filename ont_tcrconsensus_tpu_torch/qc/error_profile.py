@@ -31,6 +31,7 @@ import torch
 
 from ont_tcrconsensus_tpu_torch.device import resolve_device
 from ont_tcrconsensus_tpu_torch.ops import encode
+from ont_tcrconsensus_tpu_torch.robustness import watchdog
 
 _BASE = "acgtn"  # cs syntax is lowercase
 
@@ -523,6 +524,9 @@ def profile_store(store, panel, sample_size: int = 1000, seed: int = 0,
     tag_region: dict[str, Counter] = defaultdict(Counter)
     tag_blast: dict[str, Counter] = defaultdict(Counter)
     for s in range(0, len(handles), chunk):
+        # liveness: one heartbeat per profiled chunk (this runs on the
+        # overlapped worker under its own watchdog guard)
+        watchdog.heartbeat("qc.error_profile_chunk")
         part = handles[s : s + chunk]
         queries, ref_spans = [], []
         for bi, r in part:

@@ -6,15 +6,21 @@ when the calling thread's current stream has finished its work, so work a
 stage queued counts to that stage. Only the calling thread's stream is
 waited on: an overlapped QC worker runs on its own stream
 (:mod:`..pipeline.overlap`), and a critical-path stage does not wait for it.
+
+Every ``stage()`` scope measures through an :mod:`..obs.trace` span, with
+the stream wait inside the span: the one duration computed at the span's
+exit feeds this table, the run's ``telemetry.json`` stage table and (at
+``telemetry: full``) the ``trace.json`` row. One clock read, three views.
 """
 
 from __future__ import annotations
 
-import time
 from collections import defaultdict
 from contextlib import contextmanager
 
 import torch
+
+from ont_tcrconsensus_tpu_torch.obs import trace
 
 
 class StageTimer:
@@ -27,13 +33,19 @@ class StageTimer:
 
     @contextmanager
     def stage(self, name: str):
-        t0 = time.perf_counter()
+        sp = trace.span(name)
         try:
-            yield
+            with sp:
+                try:
+                    yield
+                finally:
+                    if self.device is not None and self.device.type == "cuda":
+                        torch.cuda.current_stream(self.device).synchronize()
         finally:
-            if self.device is not None and self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
-            self.add(name, time.perf_counter() - t0)
+            # sp.dur_s was computed at the span's exit (which ran, exception
+            # or not): the same measurement
+            self.seconds[name] += sp.dur_s
+            self.calls[name] += 1
 
     def add(self, name: str, seconds: float) -> None:
         """Record externally measured seconds (an overlapped worker's wall

@@ -6,7 +6,8 @@ that reach the pipeline's dispatch sites want different answers:
 - **transient** device or transport faults (dropped connections, torn
   calls, the JAX package's XLA ``UNAVAILABLE`` family of messages): retry
   the same dispatch with bounded exponential backoff, on the same device.
-  The work is deterministic, so a successful retry is byte-identical.
+  The work is deterministic, so a successful retry is byte-identical. A stage the watchdog
+  cancelled (``watchdog.StageTimeout``) is transient too.
 - **oom** (``torch.cuda.OutOfMemoryError``, host ``MemoryError``): the same
   shape fails again; the caller shrinks its batch (the polish dispatch's
   ladder) or gives up.
@@ -32,7 +33,8 @@ import time
 
 import torch
 
-from ont_tcrconsensus_tpu_torch.robustness import jobscope
+from ont_tcrconsensus_tpu_torch.obs import trace
+from ont_tcrconsensus_tpu_torch.robustness import jobscope, watchdog
 
 #: substrings marking a CUDA error that poisons the context: checked first,
 #: a retry on the same context can only fail again
@@ -85,6 +87,10 @@ def classify(exc: BaseException) -> str:
     deterministic bug only burns the retry budget."""
     if isinstance(exc, (torch.cuda.OutOfMemoryError, MemoryError)):
         return "oom"
+    if isinstance(exc, watchdog.StageTimeout):
+        # a watchdog-cancelled stall: rerunning the dispatch is the
+        # straggler answer (its message also carries DEADLINE_EXCEEDED)
+        return "transient"
     if isinstance(exc, (ConnectionError, TimeoutError, BrokenPipeError)):
         return "transient"
     msg = f"{type(exc).__name__}: {exc}"
@@ -152,6 +158,13 @@ class RobustnessRecorder:
             ev["detail"] = detail
         with self._lock:
             self.events.append(ev)
+        # the same event on the trace timeline (a free no-op below
+        # `telemetry: full`): retries, stalls and contract violations land
+        # on the ruler of the stage spans
+        trace.instant(site, args={
+            "classification": classification, "outcome": outcome,
+            "attempt": attempt,
+        })
 
     def summary(self) -> dict:
         """{site: {events, by_classification, by_outcome}} aggregates."""

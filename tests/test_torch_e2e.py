@@ -13,9 +13,14 @@ runs through its CLI with ``--cpu``; without that flag it asks for the CUDA
 card. On every lane the port writes every file the JAX package writes under
 ``nano_tcr/`` (the QC logs and CSVs, both error profiles, the
 self-homology logs, ``robustness_report.json``, ...), byte for byte, but
-for the files :data:`NOT_BYTE_COMPARED` names, and nothing else."""
+for the files :data:`NOT_BYTE_COMPARED` names, and nothing else. The
+observation files of timings (``telemetry.json``, ``history.jsonl``, and
+``logs/trace.json`` where written) are compared by schema and by names:
+the stage names, the dispatch sites with their dispatch and get counts,
+and the history entry's config fingerprint."""
 
 import json
+import math
 
 import pytest
 
@@ -30,15 +35,50 @@ from ont_tcrconsensus_tpu_torch.pipeline import run as trun  # noqa: E402
 from ont_tcrconsensus_tpu_torch.pipeline.config import RunConfig  # noqa: E402
 
 ARTIFACTS = ("counts/umi_consensus_counts.csv", "fasta/merged_consensus.fasta")
+# files of timings under nano_tcr/, compared by schema and names, not bytes
+BY_SCHEMA = {
+    "telemetry.json": "the run's telemetry roll-up: seconds, bytes and counts",
+    "history.jsonl": "the run ledger entry: timings, commit and time of day",
+    "logs/trace.json": "the timeline (written only under telemetry full)",
+}
 # files under nano_tcr/ of the JAX run that are not compared byte for byte
 NOT_BYTE_COMPARED = {
-    "telemetry.json": "the obs slice: timings, compared by schema once ported",
-    "history.jsonl": "the obs slice: a run ledger keyed by timings and commit",
-    "logs/trace.json": "the obs slice: a timeline (written only under telemetry full)",
+    **BY_SCHEMA,
     "barcode01/stage_manifest.json": "completion timestamps",
     "barcode01/logs/stage_timing.tsv": "seconds: its stage column is compared instead",
 }
 TIMING = "barcode01/logs/stage_timing.tsv"
+# The JAX package's default executor is its graph executor, which the port
+# gets in a later slice; until then the port's telemetry has the schema of a
+# JAX run under ``executor: "imperative"``. Keys only the graph executor
+# writes, and why:
+GRAPH_ONLY = {
+    "graph": "the executed graph's nodes, edges and worker pool",
+    "analysis.graftcheck": "the static graph check's verdict",
+    "transfers.donation": "the executor's donation audit of dropped edges",
+    "transfers.static_hbm_by_node": "the graph check's per-node memory estimate",
+}
+# ... and the imperative run's own key: the worker pool's split, which the
+# graph executor files under graph.pool
+IMPERATIVE_ONLY = {"overlap_pool": "graph.pool"}
+# history entry keys lifted from the graph sections above
+GRAPH_ONLY_HISTORY = {
+    "nodes": "per-node seconds of the executed graph",
+    "graftcheck": "lifted from analysis.graftcheck",
+    "donation": "the graph executor's per-edge donation audit",
+}
+# maps keyed by names (stages, sites, labels, edges): their keys are data,
+# compared by the tests that name them, and their values by schema
+NAME_MAPS = {"stages", "dispatch", "dispatch_by_stage", "compile.by_stage", "counters",
+             "gauges", "histograms", "transfers.sites", "transfers.edges",
+             "robustness_events"}
+# A dispatch site whose counts cannot match: the JAX package dispatches two
+# consensus rounds in one program on an accelerator and at polish widths of
+# 1024 and up on the CPU (ops/consensus.py's ``use_fused``), one readback a
+# pair; the port extends each round's ends on the host, so it reads back
+# every round. Per chunk the JAX count is ceil(port count / 2) there and
+# equal below 1024.
+COUNT_DIFFERS = {"consensus.get"}
 
 
 def _tree(root) -> dict[str, bytes]:
@@ -129,6 +169,99 @@ def test_every_jax_artifact_is_written_byte_identical(runs):
 def test_the_port_writes_nothing_the_jax_run_does_not(runs):
     *_, trees = runs
     assert sorted(set(trees["port"]) - set(trees["jax"])) == []
+
+
+def _schema(value, path=""):
+    """The shape of a JSON value: key sets, element types, numbers as one
+    type; a name map becomes the one shape of its values."""
+    if isinstance(value, dict):
+        if path in NAME_MAPS:
+            shapes = {json.dumps(_schema(v, f"{path}.*"), sort_keys=True)
+                      for v in value.values()}
+            assert len(shapes) <= 1, (path, shapes)
+            return {"*": json.loads(shapes.pop())} if shapes else {}
+        return {k: _schema(v, f"{path}.{k}" if path else k) for k, v in value.items()}
+    if isinstance(value, list):
+        return ["list"]
+    if isinstance(value, bool) or value is None or isinstance(value, str):
+        return type(value).__name__
+    assert isinstance(value, (int, float)), (path, value)
+    return "number"
+
+
+def _assert_same_schema(port, jax, path=""):
+    if isinstance(jax, dict) and isinstance(port, dict):
+        if "*" in jax or "*" in port:  # a name map: one shape, or no entry
+            if "*" in jax and "*" in port:
+                _assert_same_schema(port["*"], jax["*"], f"{path}.*")
+            return
+        pk, jk = set(port), set(jax)
+        for key in list(jk):
+            if (f"{path}.{key}" if path else key) in GRAPH_ONLY:
+                jk.discard(key)
+        for key in list(pk):
+            if (f"{path}.{key}" if path else key) in IMPERATIVE_ONLY:
+                pk.discard(key)
+        assert pk == jk, (path, sorted(pk ^ jk))
+        for key in pk:
+            _assert_same_schema(port[key], jax[key], f"{path}.{key}" if path else key)
+        return
+    assert port == jax, (path, port, jax)
+
+
+def _obs(trees, side):
+    tel = json.loads(trees[side]["telemetry.json"])
+    hist = [json.loads(ln) for ln in trees[side]["history.jsonl"].decode().splitlines()]
+    return tel, hist
+
+
+def test_obs_files_have_the_jax_schema(runs):
+    *_, trees = runs
+    for rel in BY_SCHEMA:
+        assert (rel in trees["port"]) is (rel in trees["jax"]), rel
+    assert "logs/trace.json" not in trees["port"]  # the default level is "on"
+    (tel, hist), (jtel, jhist) = _obs(trees, "port"), _obs(trees, "jax")
+    assert "graph" in jtel and "graftcheck" in jtel["analysis"] and "graph" not in tel
+    _assert_same_schema(_schema(tel), _schema(jtel))
+    assert tel["overlap_pool"].keys() == jtel["graph"]["pool"].keys()
+    assert tel["telemetry"] == jtel["telemetry"] == "on"
+    assert tel["analysis"]["compile_cache"]["armed"] is True
+    (entry,), (jentry,) = hist, jhist
+    assert set(entry) == set(jentry) - set(GRAPH_ONLY_HISTORY)
+    _assert_same_schema(_schema({k: v for k, v in entry.items() if k != "stages"}),
+                        _schema({k: v for k, v in jentry.items()
+                                 if k not in GRAPH_ONLY_HISTORY and k != "stages"}))
+
+
+def test_obs_files_carry_the_jax_names_and_counts(runs):
+    *_, trees = runs
+    (tel, hist), (jtel, jhist) = _obs(trees, "port"), _obs(trees, "jax")
+    assert sorted(tel["stages"]) == sorted(jtel["stages"])
+    assert sorted(hist[0]["stages"]) == sorted(jhist[0]["stages"])
+    assert sorted(tel["dispatch"]) == sorted(jtel["dispatch"])
+    for site, d in tel["dispatch"].items():
+        jd = jtel["dispatch"][site]
+        assert d["dispatches"] == jd["dispatches"], site
+        if site in COUNT_DIFFERS:
+            assert math.ceil(d["gets"] / 2) <= jd["gets"] <= d["gets"], site
+        else:
+            assert d["gets"] == jd["gets"], site
+    assert tel["histograms"] == jtel["histograms"]  # the polish chunks' sizes
+    assert sorted(tel["counters"]) == sorted(set(jtel["counters"]) - {"donation.audit"})
+    for name in ("assign.batches", "cluster.batched", "polish.chunks"):
+        assert tel["counters"][name] == jtel["counters"][name], name
+    assert tel["gauges"].keys() == jtel["gauges"].keys() == {"host.rss_bytes"}
+    assert tel["compile"]["count"] == 0  # no kernel is built on the CPU
+    assert tel["robustness_events"] == jtel["robustness_events"] == {}
+
+
+def test_history_has_one_entry_with_the_jax_fingerprint(runs):
+    *_, trees = runs
+    (_, hist), (_, jhist) = _obs(trees, "port"), _obs(trees, "jax")
+    assert len(hist) == len(jhist) == 1
+    assert hist[0]["fingerprint"] == jhist[0]["fingerprint"]
+    assert hist[0]["backend"] == jhist[0]["backend"] == "cpu"
+    assert hist[0]["source"] == "run" and hist[0]["schema"] == jhist[0]["schema"]
 
 
 def test_stage_timing_carries_the_jax_stage_names(runs):

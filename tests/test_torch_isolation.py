@@ -48,7 +48,9 @@ def test_importing_every_port_module_loads_no_jax():
                  "pipeline.cli", "__main__", "models.polisher", "device",
                  "pipeline.overlap", "qc.artifacts", "qc.error_profile", "qc.timing",
                  "qc.umi_overlap", "robustness.contracts", "robustness.jobscope",
-                 "robustness.retry"):
+                 "robustness.retry", "robustness.lockcheck", "robustness.watchdog",
+                 "obs", "obs.metrics", "obs.trace", "obs.transfers", "obs.device",
+                 "obs.history", "obs.critical_path", "obs.report", "obs.live"):
         assert f"ont_tcrconsensus_tpu_torch.{must}" in report["modules"]
 
 
@@ -116,3 +118,29 @@ def test_the_polisher_weights_ship_as_package_data():
     weights = os.listdir(os.path.join(PKG_DIR, "models", "weights"))
     assert {"polisher_v3.msgpack", "polisher_v3_eval.json", "polisher_v4.msgpack",
             "polisher_depth_gate_blastid.json"} <= set(weights)
+
+
+_TORCH_FREE_PROBE = r"""
+import importlib, json, sys
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+print(json.dumps(sorted(m for m in sys.modules if m == "torch" or m.startswith("torch."))))
+"""
+
+# modules the --report path and the ledger readers reach: they must load
+# without torch, so a host whose card is wedged can still read a run
+TORCH_FREE = ("pipeline.cli", "obs.report", "obs.history", "obs.critical_path",
+              "obs.transfers", "obs.metrics", "obs.trace", "obs.live",
+              "robustness.lockcheck", "robustness.watchdog", "robustness.jobscope")
+
+
+def test_the_report_path_loads_no_torch():
+    import json
+
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run(
+        [sys.executable, "-c", _TORCH_FREE_PROBE,
+         *(f"ont_tcrconsensus_tpu_torch.{m}" for m in TORCH_FREE)],
+        capture_output=True, text=True, env=env, cwd=REPO, timeout=300, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

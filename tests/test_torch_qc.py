@@ -526,8 +526,12 @@ def test_overlap_qc_on_and_off_write_the_same_artifacts(tmp_path):
     on = _tiny_lane(tmp_path / "on", {})
     off = _tiny_lane(tmp_path / "off", {"overlap_qc": False, "contracts": "strict"})
     timing = "barcode01/logs/stage_timing.tsv"
-    skip = {"barcode01/stage_manifest.json", timing, "robustness_report.json"}
+    # files of timings: the stage table, the manifest's timestamps, the
+    # report's event clocks and the telemetry roll-up with its ledger entry
+    skip = {"barcode01/stage_manifest.json", timing, "robustness_report.json",
+            "telemetry.json", "history.jsonl"}
     assert set(on) == set(off)
+    assert {"telemetry.json", "history.jsonl"} <= set(on)
     assert "barcode01/logs/barcode01_align_error_profile.log" in on
     assert "barcode01/logs/merged_consensus_align_error_profile.log" in on
     assert on["barcode01/logs/regions_w_overlapping_umis.tsv"].startswith(b"region_1\t")
