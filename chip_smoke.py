@@ -20,7 +20,7 @@ of which fails the script (non-zero exit, no result line):
    function needs over the int32 issue rate (``_bound_ms``); the design's
    own floor (its second F pass, band-shift moves, carry scan and warp
    shuffles) is reported beside it. The plain versions' times are one
-   call each. Then one polish round at a main-path tile, split into the
+   call each, the call whose outputs the kernel is held to. Then one polish round at a main-path tile, split into the
    B2 forward, the traceback and the vote, and traced once with
    ``torch.profiler`` for the card's busy share;
 4. polisher parity: at the same tile, the vote rounds' kept final pileup
@@ -37,18 +37,23 @@ of which fails the script (non-zero exit, no result line):
    card, two calls) and, from one call traced by ``torch.profiler``, its
    device events (kernel launches and copies) and busy time;
 6. small e2e: the tests' 4-region lane under ``rnn`` (the default) and
-   under ``poa``, each on ``cuda`` and on ``cpu`` (plain versions): every
-   file under ``nano_tcr/`` byte-identical (the QC logs and CSVs, both
-   error profiles, the reports), but the files of timings
-   (:data:`TIMED_FILES`): the stage table's names must agree, and
-   ``telemetry.json`` and ``history.jsonl`` must have equal key sets (only
-   the card has the ``device.hbm_bytes_in_use`` gauge), equal stage names
-   and dispatch sites with equal dispatch and get counts, and the same
-   config fingerprint; counts equal to the simulator's truth;
+   under ``poa``, each on ``cuda`` and on ``cpu`` (plain versions), both
+   through the default graph executor: every file under ``nano_tcr/``
+   byte-identical (the QC logs and CSVs, both error profiles, the
+   reports), but the files of timings (:data:`TIMED_FILES`): the stage
+   table's names must agree, and ``telemetry.json`` and ``history.jsonl``
+   must have equal key sets (only the card has the keys of
+   :data:`CARD_ONLY`: the memory gauge and the graph nodes' memory
+   samples), equal stage names and dispatch sites with equal dispatch and
+   get counts, and the same config fingerprint; under ``rnn`` a third run
+   on ``cuda`` under ``executor: "imperative"`` must write the graph run's
+   files byte for byte (but the files of timings); counts equal to the
+   simulator's truth;
 7. observation on the card: the small lane under ``rnn`` with
    ``telemetry: "full"``, ``profile_trace_dir``, ``live_port: 0`` and a
    generous ``stage_timeout_s``: ``/healthz``, ``/metrics`` and
-   ``/progress`` answer while it runs (polled from a thread);
+   ``/progress`` answer while it runs (polled from a thread), and
+   ``/progress`` names the graph node the run is in;
    ``logs/trace.json`` holds a span for every stage of the stage table,
    on the main thread's row or, for the QC worker's ``*_bg`` stages, on a
    worker's row; the ``torch.profiler`` trace names both kernels (its
@@ -59,19 +64,30 @@ of which fails the script (non-zero exit, no result line):
 8. full-size e2e: the representative lane (about 11k untrimmed reads of
    1.4-2.3 kb, 56 regions + 6 near-duplicate pairs + 2 negative controls,
    the systematic ONT error model, read batch 1024, band 128, seed 33) on
-   ``cuda``, unobserved: the default config (``rnn`` polish, the error
-   profiles of 512 reads a round on the overlapped QC worker, ``telemetry:
-   "on"``) first, then in turns the default config with
+   ``cuda``, unobserved, under the default config (the graph executor,
+   ``rnn`` polish, the error profiles of 512 reads a round on the
+   overlapped QC worker, ``telemetry: "on"``); then, on the small lane of
+   phase 6 (a polish round's host loop costs a lane of any depth about the
+   same, so only the small lane keeps the script inside its time limit),
+   ``--lane-runs`` rounds (1 by default) of the default config in turns with
    ``error_profile_sample: 0`` (no QC profile), with ``overlap_qc: false``
-   (the profiles on the main thread), as it is and with ``telemetry:
-   "off"``, ``--lane-runs`` rounds (1 by default), then once under
-   ``poa``. For each default run its ``telemetry.json`` gives every
+   (the profiles on the main thread), with ``executor: "imperative"``
+   (which must not run the graph), as it is and with ``telemetry:
+   "off"``, then once under ``poa``. Each default run must have run the
+   graph executor; its
+   nodes, graftcheck's verdict and static memory high-water, the donation
+   verdicts and each node's static memory estimate beside its measured
+   boundary sample (``--report --memory``'s reconciliation, its
+   divergences named) are printed. For each default run its
+   ``telemetry.json`` gives every
    dispatch site's host and blocked seconds, the kernel builds (0 on a
    warm build) and the device memory high-water mark, which must agree
    with ``torch.cuda.max_memory_allocated`` within 1%, and the run's
    telemetry roll-up (telemetry.json and the history entry) is timed; the
    default runs' reads/s after the first are printed against the ``off``
-   runs', with the ratio of each adjacent on/off pair. The telemetry's
+   runs', with the ratio of each adjacent on/off pair, and each round's
+   imperative run against the graph run after it: reads/s, their ratio
+   and each stage's seconds side by side. The telemetry's
    cost is also bounded directly: each plant (a dispatch scope, a
    readback through ``timed_get``, a stage span, a counter, a histogram
    sample) is timed armed against disarmed on the card's host, and its
@@ -90,9 +106,26 @@ of which fails the script (non-zero exit, no result line):
    (time - bound) the run spent at its real shapes. Peak device memory
    and the polisher's seconds (host clock to its stream synchronized) are
    read per run, and the peak reached inside a polisher call when that
-   call raised it.
+   call raised it;
+9. robustness on the card: the small lane under ``poa`` (no retry
+   back-off), undisturbed, then one chaos drill a run: a transient fault
+   at ``assign.dispatch`` and ``polish.dispatch`` (retried), an out of
+   memory error at ``polish.dispatch`` (the chunk batch shrinks), a
+   killed ``overlap.worker`` (recomputed on the main thread), a transient
+   fault at ``graph.node`` (outside every retry, as in the JAX package:
+   the library fails, and ``resume: true`` completes it from the round-1
+   checkpoint), a ``truncate-file`` library beside a good one (the good
+   one is counted, ``failed_libraries_p0.log`` is written and the run
+   raises), and, in a process of its own through the CLI, a ``preempt``
+   (exit 143) and a ``kill`` (exit 137) at ``run.round1_checkpoint``, each
+   completed by ``resume: true``, then a ``corrupt-artifact`` caught by
+   ``verify_resume: "full"`` (a ``resume.verify`` rerun). Each drill must
+   end with the truth's counts and the undisturbed run's counts CSV and
+   merged FASTA; its ``robustness_report.json`` events (site,
+   classification, outcome) and the phase's seconds are printed.
 
-Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+Each phase's start (seconds since the script began) is printed. Then one
+``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes every number
 to a JSON file.
 """
@@ -316,6 +349,19 @@ def _device_ms(fn) -> dict:
     return {"device_ms": busy_us / 1e3, "events": len(spans)}
 
 
+def _timed_once(fn):
+    """``fn()``'s result and its CUDA-event time in ms, one call."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def _time_ms(fn, reps: int) -> float:
     """Median CUDA-event time of ``fn()`` over ``reps`` calls (the caller
     has warmed it up)."""
@@ -347,8 +393,8 @@ def check_sw(dev, seed: int, B: int, L: int, W: int) -> dict:
                                  for x in dp_cases.dp_batch(B, L, W, seed))
     args = (reads, rl, refs, tl, offs)
     got = sw_kernel.align_banded_cuda(*args, band_width=W)
-    want = sw_align.align_banded(*args, band_width=W)
-    torch.cuda.synchronize()
+    # the plain version's one call: its parity result and its time
+    want, plain_ms = _timed_once(lambda: sw_align.align_banded(*args, band_width=W))
     max_err = 0
     for f in ("score", "read_start", "read_end", "ref_start", "ref_end", "n_match", "n_cols"):
         a, b = getattr(got, f), getattr(want, f)
@@ -361,7 +407,6 @@ def check_sw(dev, seed: int, B: int, L: int, W: int) -> dict:
     for _ in range(2):
         sw_kernel.align_banded_cuda(*args, band_width=W)
     ms = _time_ms(lambda: sw_kernel.align_banded_cuda(*args, band_width=W), 7)
-    plain_ms = _time_ms(lambda: sw_align.align_banded(*args, band_width=W), 1)
     return {"L": L, "B": B, "W": W, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             **_sw_costs(rl, refs.shape[1], L, W),
             "aligned_pairs": int((got.score > 0).sum())}
@@ -389,8 +434,8 @@ def check_pileup(dev, seed: int, N: int, L: int, W: int) -> dict:
                               for x in dp_cases.dp_batch(N, L, W, seed, offsets=False))
     args = (reads, rl, refs, tl)
     best_k, planes_k = pileup_kernel.forward_planes_cuda(*args, band_width=W)
-    best_p, planes_p = pileup._forward_batch(*args, band_width=W)
-    torch.cuda.synchronize()
+    (best_p, planes_p), plain_ms = _timed_once(
+        lambda: pileup._forward_batch(*args, band_width=W))
     for name, a, b in (("best", best_k, best_p), ("planes", planes_k, planes_p)):
         if not torch.equal(a, b):
             bad = (a != b).reshape(N, -1).any(dim=1).nonzero()[0, 0]
@@ -400,7 +445,6 @@ def check_pileup(dev, seed: int, N: int, L: int, W: int) -> dict:
     for _ in range(2):
         pileup_kernel.forward_planes_cuda(*args, band_width=W)
     ms = _time_ms(lambda: pileup_kernel.forward_planes_cuda(*args, band_width=W), 7)
-    plain_ms = _time_ms(lambda: pileup._forward_batch(*args, band_width=W), 1)
     return {"L": L, "N": N, "W": W, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
             **_pileup_costs(rl, refs.shape[1], L, W),
             "aligned_lanes": int((best_k[:, 0] > 0).sum())}
@@ -682,11 +726,15 @@ def _write_lane(root: str, lib) -> None:
                       lib.reads)
 
 
-def _run_lane(root: str, knobs: dict, device: str, timings: dict | None = None):
+def _run_lane(root: str, knobs: dict, device: str, timings: dict | None = None,
+              fresh: bool = True):
+    """One run of the lane at ``root``; ``fresh`` first removes its output
+    (a ``resume: true`` run keeps it)."""
     from ont_tcrconsensus_tpu_torch.pipeline.config import RunConfig
     from ont_tcrconsensus_tpu_torch.pipeline.run import run_with_config
 
-    shutil.rmtree(os.path.join(root, "fastq_pass", "nano_tcr"), ignore_errors=True)
+    if fresh:
+        shutil.rmtree(os.path.join(root, "fastq_pass", "nano_tcr"), ignore_errors=True)
     cfg = RunConfig.from_dict({
         "reference_file": os.path.join(root, "reference.fa"),
         "fastq_pass_dir": os.path.join(root, "fastq_pass"),
@@ -702,6 +750,10 @@ TIMED_FILES = ("barcode01/stage_manifest.json", "barcode01/logs/stage_timing.tsv
                "telemetry.json", "history.jsonl")
 # the gauge only a run on the card has
 DEVICE_GAUGE = "device.hbm_bytes_in_use"
+# and the graph executor's node-boundary memory samples, which only a run
+# on the card takes: (section, key)
+CARD_ONLY = (("gauges", DEVICE_GAUGE), ("counters", "memory.reconcile"),
+             ("transfers", "node_hbm"))
 
 
 def _keys(value):
@@ -713,16 +765,17 @@ def _keys(value):
 
 def _compare_obs(cuda: dict[str, bytes], cpu: dict[str, bytes], label: str) -> dict:
     """telemetry.json and history.jsonl of a cuda run and a cpu run of one
-    lane: equal keys (but the device gauge), stage names, dispatch sites
-    and their counts, and config fingerprint."""
+    lane: equal keys (but the card's own, :data:`CARD_ONLY`), stage names,
+    dispatch sites and their counts, and config fingerprint."""
     tel = {dev: json.loads(tree["telemetry.json"]) for dev, tree in
            (("cuda", cuda), ("cpu", cpu))}
     hist = {dev: [json.loads(ln) for ln in tree["history.jsonl"].decode().splitlines()]
             for dev, tree in (("cuda", cuda), ("cpu", cpu))}
-    if DEVICE_GAUGE not in tel["cuda"]["gauges"] or DEVICE_GAUGE in tel["cpu"]["gauges"]:
-        raise AssertionError(f"{label}: the device gauge must be on cuda only")
     keys = {dev: _keys(t) for dev, t in tel.items()}
-    del keys["cuda"]["gauges"][DEVICE_GAUGE]
+    for section, key in CARD_ONLY:
+        if key not in tel["cuda"][section] or key in tel["cpu"][section]:
+            raise AssertionError(f"{label}: {section}.{key} must be on cuda only")
+        del keys["cuda"][section][key]
     if keys["cuda"] != keys["cpu"]:
         raise AssertionError(f"{label}: telemetry.json keys differ between cuda and cpu")
     counts = {dev: {site: (d["dispatches"], d["gets"]) for site, d in t["dispatch"].items()}
@@ -756,6 +809,17 @@ def _stage_names(tree: dict[str, bytes]) -> list[str]:
     return sorted(r.split("\t")[0] for r in rows)
 
 
+def _small_library():
+    """The tests' 4-region lane (seed 11, 73 reads of 700-850 nt)."""
+    from ont_tcrconsensus_tpu_torch.io import simulator
+
+    return simulator.simulate_library(
+        seed=11, num_regions=4, molecules_per_region=(2, 3), reads_per_molecule=(5, 8),
+        sub_rate=0.006, ins_rate=0.003, del_rate=0.003, region_len=(700, 850),
+    )
+
+
+SMALL_KNOBS = {"minimal_length": 600, "min_reads_per_cluster": 4, "read_batch_size": 64}
 # the lanes' polish: the default config (no polish_method key: the bi-GRU
 # polisher) and the vote consensus alone
 POLISH = {"rnn": {}, "poa": {"polish_method": "poa"}}
@@ -764,16 +828,11 @@ POLISH = {"rnn": {}, "poa": {"polish_method": "poa"}}
 def small_e2e(method: str) -> dict:
     import torch
 
-    from ont_tcrconsensus_tpu_torch.io import simulator
 
-    lib = simulator.simulate_library(
-        seed=11, num_regions=4, molecules_per_region=(2, 3), reads_per_molecule=(5, 8),
-        sub_rate=0.006, ins_rate=0.003, del_rate=0.003, region_len=(700, 850),
-    )
+    lib = _small_library()
     root = os.path.join(WORK, "small")
     _write_lane(root, lib)
-    knobs = {"minimal_length": 600, "min_reads_per_cluster": 4, "read_batch_size": 64,
-             **POLISH[method]}
+    knobs = {**SMALL_KNOBS, **POLISH[method]}
     t0 = time.perf_counter()
     got_cuda = _run_lane(root, knobs, "cuda")
     torch.cuda.synchronize()
@@ -792,11 +851,30 @@ def small_e2e(method: str) -> dict:
     if _stage_names(art_cuda) != _stage_names(art_cpu):
         raise AssertionError(f"small e2e ({method}): stage names differ between cuda and cpu")
     obs = _compare_obs(art_cuda, art_cpu, f"small e2e ({method})")
-    for dev, got in (("cuda", got_cuda), ("cpu", got_cpu)):
+    runs = [("cuda", got_cuda), ("cpu", got_cpu)]
+    imperative_s = None
+    if method == "rnn":
+        # the default config under the imperative executor, on the card:
+        # the same files as the graph executor's run
+        t0 = time.perf_counter()
+        runs.append(("cuda, imperative",
+                     _run_lane(root, {**knobs, "executor": "imperative"}, "cuda")))
+        torch.cuda.synchronize()
+        imperative_s = time.perf_counter() - t0
+        art_imp = _artifacts(root)
+        if sorted(art_imp) != sorted(art_cuda):
+            raise AssertionError(f"small e2e: the file sets differ between the executors: "
+                                 f"{sorted(set(art_imp) ^ set(art_cuda))}")
+        for rel in sorted(set(art_cuda) - set(TIMED_FILES)):
+            if art_imp[rel] != art_cuda[rel]:
+                raise AssertionError(f"small e2e: {rel} differs between the graph and the "
+                                     "imperative executor")
+    for dev, got in runs:
         if got.get("barcode01") != lib.true_counts:
             raise AssertionError(f"small e2e ({method}) on {dev}: counts "
                                  f"{got.get('barcode01')} != truth {lib.true_counts}")
     return {"polish": method, "n_reads": len(lib.reads), "cuda_s": cuda_s, "cpu_s": cpu_s,
+            "imperative_s": imperative_s,
             "files_compared": len(art_cuda) - len(TIMED_FILES), "artifacts_identical": True,
             "counts_exact": True, "obs": obs}
 
@@ -817,22 +895,28 @@ sys.exit(rc)
 
 
 def _poll_live(polled: dict, stop) -> None:
-    """Read /healthz, /metrics and /progress of the run's live plane once
-    each, as soon as it serves."""
+    """Read /healthz and /metrics of the run's live plane once each, as
+    soon as it serves, and /progress until it names the graph node the run
+    is in (its per-node position)."""
     import urllib.request
 
     from ont_tcrconsensus_tpu_torch.obs import live as obs_live
 
-    while not stop.is_set() and len(polled) < 3:
+    while not stop.is_set() and (len(polled) < 3 or polled["/progress"].get("node") is None):
         srv = obs_live.server()
         if srv is not None:
             for route in ("/healthz", "/metrics", "/progress"):
-                if route in polled:
+                if route in polled and (route != "/progress" or polled[route].get("node")):
                     continue
                 try:
                     with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}{route}",
                                                 timeout=5) as resp:
-                        polled[route] = {"status": resp.status, "bytes": len(resp.read())}
+                        body = resp.read()
+                        polled[route] = {"status": resp.status, "bytes": len(body)}
+                        if route == "/progress":
+                            doc = json.loads(body)
+                            polled[route].update(node=doc.get("node"),
+                                                 nodes_total=doc.get("nodes_total"))
                 except OSError:
                     pass
         time.sleep(0.01)
@@ -845,17 +929,12 @@ def observation_phase() -> dict:
 
     import torch
 
-    from ont_tcrconsensus_tpu_torch.io import simulator
 
-    lib = simulator.simulate_library(
-        seed=11, num_regions=4, molecules_per_region=(2, 3), reads_per_molecule=(5, 8),
-        sub_rate=0.006, ins_rate=0.003, del_rate=0.003, region_len=(700, 850),
-    )
+    lib = _small_library()
     root = os.path.join(WORK, "obs")
     _write_lane(root, lib)
     prof_dir = os.path.join(root, "profile")
-    knobs = {"minimal_length": 600, "min_reads_per_cluster": 4, "read_batch_size": 64,
-             "telemetry": "full", "profile_trace_dir": prof_dir, "live_port": 0,
+    knobs = {**SMALL_KNOBS, "telemetry": "full", "profile_trace_dir": prof_dir, "live_port": 0,
              "stage_timeout_s": 600}
     polled: dict = {}
     stop = threading.Event()
@@ -874,6 +953,8 @@ def observation_phase() -> dict:
     if sorted(polled) != ["/healthz", "/metrics", "/progress"] or any(
             r["status"] != 200 for r in polled.values()):
         raise AssertionError(f"observation: the live plane answered {polled}")
+    if polled["/progress"].get("node") is None or not polled["/progress"].get("nodes_total"):
+        raise AssertionError(f"observation: /progress never named a graph node: {polled}")
     tree = _artifacts(root)
     nano = os.path.join(root, "fastq_pass", "nano_tcr")
     # every stage of the table has its span: the main thread's, or for a
@@ -917,6 +998,150 @@ def observation_phase() -> dict:
             "profiler_kernels_named": kernels_named, "report_lines": len(rep.stdout.splitlines()),
             "compile": tel["compile"], "hbm_high_water_bytes": tel["gauges"][DEVICE_GAUGE],
             "dispatch": tel["dispatch"]}
+
+
+# the robustness drills' config: the small lane under the cheap polish,
+# with no back-off between retries
+DRILL_KNOBS = {**SMALL_KNOBS, "polish_method": "poa", "retry_base_delay_s": 0.0}
+DRILL_FILES = ("counts/umi_consensus_counts.csv", "fasta/merged_consensus.fasta")
+
+
+def _drill_files(root: str, library: str = "barcode01") -> dict[str, bytes]:
+    out = {}
+    for rel in DRILL_FILES:
+        with open(os.path.join(root, "fastq_pass", "nano_tcr", library, rel), "rb") as fh:
+            out[rel] = fh.read()
+    return out
+
+
+def _drill_events(root: str) -> list[tuple[str, str, str]]:
+    with open(os.path.join(root, "fastq_pass", "nano_tcr", "robustness_report.json")) as fh:
+        report = json.load(fh)
+    return [(e["site"], e["classification"], e["outcome"]) for e in report["events"]]
+
+
+def _drill_stages(root: str) -> dict:
+    path = os.path.join(root, "fastq_pass", "nano_tcr", "barcode01", "stage_manifest.json")
+    with open(path) as fh:
+        data = json.load(fh)
+    return data.get("stages", data)
+
+
+def _drill_cli(root: str, knobs: dict) -> subprocess.CompletedProcess:
+    """The port's CLI on the card in a process of its own (a kill or a
+    preemption ends that process, not this one)."""
+    shutil.rmtree(os.path.join(root, "fastq_pass", "nano_tcr"), ignore_errors=True)
+    cfg = os.path.join(root, "drill_config.json")
+    with open(cfg, "w") as fh:
+        json.dump({"reference_file": os.path.join(root, "reference.fa"),
+                   "fastq_pass_dir": os.path.join(root, "fastq_pass"),
+                   "delete_tmp_files": False, **knobs}, fh)
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "TCR_CHAOS")}
+    env["PYTHONPATH"] = ROOT
+    return subprocess.run([sys.executable, "-m", "ont_tcrconsensus_tpu_torch", cfg],
+                          capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+
+
+def robustness_phase() -> dict:
+    """Phase 9: the chaos drills on the card; see the module docstring."""
+
+    t_phase = time.perf_counter()
+    lib = _small_library()
+    root = os.path.join(WORK, "drills")
+    _write_lane(root, lib)
+    if _run_lane(root, DRILL_KNOBS, "cuda").get("barcode01") != lib.true_counts:
+        raise AssertionError("drills: the undisturbed run's counts differ from the truth")
+    want = _drill_files(root)
+    drills: dict[str, list] = {}
+
+    def finish(name: str, got: dict, expect: tuple = ()) -> None:
+        if got.get("barcode01") != lib.true_counts:
+            raise AssertionError(f"drill {name}: counts {got.get('barcode01')} != the truth")
+        if _drill_files(root) != want:
+            raise AssertionError(f"drill {name}: the counts CSV or the merged FASTA differs "
+                                 "from the undisturbed run's")
+        events = _drill_events(root)
+        missing = [e for e in expect if e not in events]
+        if missing:
+            raise AssertionError(f"drill {name}: no {missing} among the events {events}")
+        drills[name] = events
+
+    def failing(name: str, knobs: dict) -> str:
+        try:
+            _run_lane(root, knobs, "cuda")
+        except RuntimeError as exc:
+            return str(exc)
+        raise AssertionError(f"drill {name}: the run did not fail")
+
+    # in-run recovery
+    for name, plan, expect in (
+        ("transient at assign.dispatch and polish.dispatch",
+         [{"site": "assign.dispatch", "kind": "transient"},
+          {"site": "polish.dispatch", "kind": "transient"}],
+         (("assign.round1", "transient", "retried"), ("assign.round1", "transient", "recovered"),
+          ("polish.dispatch", "transient", "retried"),
+          ("polish.dispatch", "transient", "recovered"))),
+        ("oom at polish.dispatch", [{"site": "polish.dispatch", "kind": "oom"}],
+         (("polish.dispatch", "oom", "oom_shrink"), ("polish.dispatch", "oom", "recovered"))),
+        ("killed overlap.worker", [{"site": "overlap.worker", "kind": "transient"}],
+         (("overlap.worker", "transient", "retried"),
+          ("overlap.worker", "transient", "recovered"))),
+    ):
+        finish(name, _run_lane(root, {**DRILL_KNOBS, "chaos": plan}, "cuda"), expect)
+
+    # graph.node is outside every retry wrapper (as in the JAX package): the
+    # node fails its library, and resume completes it from the round-1
+    # checkpoint (the fault fires at the 8th node, round2_umi_records)
+    name = "transient at graph.node, then resume"
+    msg = failing(name, {**DRILL_KNOBS, "chaos": [
+        {"site": "graph.node", "kind": "transient", "skip": 7}]})
+    done = _drill_stages(root)
+    if "round1_consensus" not in done or "counts" in done or "barcode01" not in msg:
+        raise AssertionError(f"drill {name}: {msg}; stages {sorted(done)}")
+    finish(name, _run_lane(root, {**DRILL_KNOBS, "resume": True}, "cuda", fresh=False))
+
+    # a truncated library beside a good one
+    name = "truncate-file beside a good library"
+    lib_dir = os.path.join(root, "fastq_pass", "barcode02")
+    os.makedirs(lib_dir)
+    shutil.copy(os.path.join(root, "fastq_pass", "barcode01", "barcode01.fastq.gz"),
+                os.path.join(lib_dir, "barcode02.fastq.gz"))
+    try:
+        msg = failing(name, {**DRILL_KNOBS, "chaos": [
+            {"site": "ingest.library_fastq", "kind": "truncate-file"}]})
+        with open(os.path.join(root, "fastq_pass", "nano_tcr", "failed_libraries_p0.log")) as fh:
+            failed = [ln.split("\t")[0] for ln in fh.read().splitlines()]
+        if (not msg.startswith("1 library(ies) failed: ['barcode01']") or failed != ["barcode01"]
+                or _drill_files(root, "barcode02") != want):
+            raise AssertionError(f"drill {name}: {msg}; failed {failed}")
+        drills[name] = _drill_events(root)
+    finally:
+        shutil.rmtree(lib_dir)
+        for f in os.listdir(os.path.join(root, "fastq_pass", "barcode01")):
+            if "chaos" in f:
+                os.remove(os.path.join(root, "fastq_pass", "barcode01", f))
+
+    # in a process of its own: a preemption and a kill at the round-1
+    # checkpoint, each resumed here
+    for name, kind, rc in (("preempt at run.round1_checkpoint, then resume", "preempt", 143),
+                           ("kill at run.round1_checkpoint, then resume", "kill", 137)):
+        proc = _drill_cli(root, {**DRILL_KNOBS, "chaos": [
+            {"site": "run.round1_checkpoint", "kind": kind}]})
+        done = _drill_stages(root)
+        if proc.returncode != rc or "round1_consensus" not in done or "counts" in done:
+            raise AssertionError(f"drill {name}: exit {proc.returncode} (want {rc}), stages "
+                                 f"{sorted(done)}: {proc.stderr[-2000:]}")
+        finish(name, _run_lane(root, {**DRILL_KNOBS, "resume": True}, "cuda", fresh=False))
+
+    # a completed artifact rots before a resume that verifies it in full
+    name = "corrupt-artifact under verify_resume full"
+    finish(name, _run_lane(root, {**DRILL_KNOBS, "resume": True, "verify_resume": "full",
+                                  "chaos": [{"site": "resume.verify",
+                                             "kind": "corrupt-artifact"}]},
+                           "cuda", fresh=False),
+           (("resume.verify", "integrity", "rerun"),))
+    return {"n_reads": len(lib.reads), "seconds": time.perf_counter() - t_phase,
+            "drills": drills}
 
 
 @contextlib.contextmanager
@@ -1052,19 +1277,22 @@ def plant_calls(tel: dict) -> dict:
 # vote consensus alone
 LANE_RUNS = {**POLISH, "rnn, error_profile_sample 0": {"error_profile_sample": 0},
              "rnn, overlap_qc false": {"overlap_qc": False},
+             "rnn, executor imperative": {"executor": "imperative"},
              "rnn, telemetry off": {"telemetry": "off"}}
 
 
 def full_e2e(kernels, rounds: int) -> dict:
-    """The full lane: the default config, then ``rounds`` times in turns the
-    default config without the error profiles, with them on the main
-    thread, as it is and without telemetry, then once under ``poa``.
+    """The full lane under the default config, then, on the small lane,
+    ``rounds`` times in turns the default config without the error
+    profiles, with them on the main thread, under the imperative order, as
+    it is and without telemetry, then once under ``poa``.
     Kernel launches are counted over the first run (recorded by shape for
     :func:`launch_gaps`) and over the ``poa`` run, each from zero. Each
     default run's telemetry.json is read back and its roll-up timed."""
     import torch
 
     from ont_tcrconsensus_tpu_torch.io import simulator
+    from ont_tcrconsensus_tpu_torch.obs import transfers as obs_transfers
     from ont_tcrconsensus_tpu_torch.ops import pileup, pileup_kernel, sw_kernel
 
     dev = torch.device("cuda")
@@ -1073,20 +1301,26 @@ def full_e2e(kernels, rounds: int) -> dict:
     shapes: dict = {}
 
     t0 = time.perf_counter()
-    lib = simulator.simulate_library(
+    libs = {"full": simulator.simulate_library(
         seed=33, num_regions=56, molecules_per_region=(8, 14), reads_per_molecule=(12, 22),
         error_model=simulator.OntErrorModel(), with_adapters=True, num_similar_pairs=6,
         similar_divergence=0.01, num_negative_controls=2,
-    )
-    root = os.path.join(WORK, "full")
-    _write_lane(root, lib)
+    ), "small": _small_library()}
+    roots = {lane: os.path.join(WORK, f"lane_{lane}") for lane in libs}
+    for lane, lib in libs.items():
+        _write_lane(roots[lane], lib)
     data_s = time.perf_counter() - t0
-    knobs = {"minimal_length": 1000, "min_reads_per_cluster": 4, "read_batch_size": 1024}
-    methods = (["rnn"] + ["rnn, error_profile_sample 0", "rnn, overlap_qc false", "rnn",
-                          "rnn, telemetry off"] * rounds + ["poa"])
+    lane_knobs = {"full": {"minimal_length": 1000, "min_reads_per_cluster": 4,
+                           "read_batch_size": 1024},
+                  "small": SMALL_KNOBS}
+    methods = (["rnn"] + ["rnn, error_profile_sample 0", "rnn, overlap_qc false",
+                          "rnn, executor imperative", "rnn", "rnn, telemetry off"] * rounds
+               + ["poa"])
+    lanes = ["full"] + ["small"] * (len(methods) - 1)
     seconds, stages, peaks, polisher_runs, launches, diffs = [], [], [], [], {}, {}
     telemetry: dict[int, dict] = {}
-    for run, method in enumerate(methods):
+    for run, (lane, method) in enumerate(zip(lanes, methods)):
+        root, lib = roots[lane], libs[lane]
         counted = run == 0 or method == "poa"  # each path's launches, from zero
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1103,29 +1337,48 @@ def full_e2e(kernels, rounds: int) -> dict:
             stack.enter_context(_polisher_clock(pol))
             stack.enter_context(_rollup_clock(rollup))
             t0 = time.perf_counter()
-            got = _run_lane(root, {**knobs, **LANE_RUNS[method]}, "cuda", timings=stage_s)
+            got = _run_lane(root, {**lane_knobs[lane], **LANE_RUNS[method]}, "cuda",
+                            timings=stage_s)
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
         peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        if method == "rnn, executor imperative":
+            with open(os.path.join(root, "fastq_pass", "nano_tcr", "telemetry.json")) as fh:
+                if "graph" in json.load(fh):
+                    raise AssertionError(f"full e2e run {run}: executor imperative ran the "
+                                         "graph executor")
         if method == "rnn":
             with open(os.path.join(root, "fastq_pass", "nano_tcr", "telemetry.json")) as fh:
                 tel = json.load(fh)
+            if "graph" not in tel:
+                raise AssertionError(f"full e2e run {run}: the default config did not run "
+                                     "the graph executor")
+            memory = obs_transfers.analyze_memory(tel)
             telemetry[run] = {
                 "dispatch": tel["dispatch"], "compile": tel["compile"],
                 "hbm_high_water_bytes": tel["gauges"].get(DEVICE_GAUGE),
                 "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
                 "stages": {k: v["seconds"] for k, v in tel["stages"].items()},
-                "plant_calls": plant_calls(tel), "rollup_s": rollup["s"]}
+                "plant_calls": plant_calls(tel), "rollup_s": rollup["s"],
+                "graph_nodes_run": sorted(n for n, g in tel["graph"]["nodes"].items()
+                                          if g.get("runs")),
+                "graftcheck": tel["analysis"]["graftcheck"],
+                "donation": {e: d["verdict"]
+                             for e, d in tel["transfers"].get("donation", {}).items()},
+                "memory": {"nodes": memory["nodes"], "problems": memory["problems"]}}
         stages.append(stage_s)
         polisher_runs.append(pol)
         if counted:
             launches[method] = {k.__name__: k.launches for k in kernels}
         counts = got.get("barcode01") or {}
-        diffs.update({f"run {run} ({method}): {k}": (counts.get(k, 0), lib.true_counts.get(k, 0))
+        diffs.update({f"run {run} ({lane} lane, {method}): {k}": (counts.get(k, 0), lib.true_counts.get(k, 0))
                       for k in set(counts) | set(lib.true_counts)
                       if counts.get(k, 0) != lib.true_counts.get(k, 0)})
-    out = {"n_reads": len(lib.reads), "n_regions": len(lib.reference), "polish": methods,
-           "seconds": seconds, "reads_per_s": [len(lib.reads) / s for s in seconds],
+    n_reads = [len(libs[lane].reads) for lane in lanes]
+    out = {"n_reads": len(libs["full"].reads), "n_regions": len(libs["full"].reference),
+           "small_n_reads": len(libs["small"].reads),
+           "lane": lanes, "polish": methods,
+           "seconds": seconds, "reads_per_s": [n / s for n, s in zip(n_reads, seconds)],
            "counts_exact": not diffs,
            "max_memory_allocated_gb": peaks, "polisher": polisher_runs,
            "data_s": data_s, "launches": launches, "stage_s": stages,
@@ -1146,10 +1399,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every number to this JSON file")
     parser.add_argument("--lane-runs", type=int, default=1,
-                        help="full-size lane: rounds of runs without the QC error profiles, "
-                             "with them on the main thread, with them overlapped and without "
-                             "telemetry, after the first (the main path's) run; one poa run "
-                             "follows them")
+                        help="rounds, on the small lane, of runs without the QC "
+                             "error profiles, with them on the main thread, under executor "
+                             "imperative, as it is and without telemetry, after the full "
+                             "lane's run (the main path's); one poa run follows them")
     args = parser.parse_args(argv)
 
     try:
@@ -1170,6 +1423,13 @@ def main(argv=None) -> int:
         return _fail("the port imported JAX or the JAX package")
 
     report: dict = {}
+    t_start = time.perf_counter()
+    starts = report["phase_start_s"] = {}
+
+    def phase(name: str) -> None:
+        starts[name] = time.perf_counter() - t_start
+        print(f"phase {name}: starts at {starts[name]:.1f} s", flush=True)
+
     # 1. device
     dev = resolve_device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -1178,6 +1438,7 @@ def main(argv=None) -> int:
     report["device"] = {"kind": kind, "nvidia_smi": smi, "torch": torch.__version__,
                         "cuda": torch.version.cuda}
 
+    phase("2 build")
     # 2. build
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -1193,6 +1454,7 @@ def main(argv=None) -> int:
             report["sass"][fn] = mix
             print(f"  sass {fn}: " + ", ".join(f"{m} {n}" for m, n in mix.items()), flush=True)
 
+    phase("3 kernel parity")
     # 3. kernel parity at main-path shapes
     # (batch, L, W): the read passes' buckets at band 128, the
     # self-homology pass's band 512; polish at band 64, and at band 128 for
@@ -1216,6 +1478,7 @@ def main(argv=None) -> int:
           f"{split['device_ms']:.1f} ms over {split['device_events']} traced events, busy share "
           f"{split['busy_share']}", flush=True)
 
+    phase("4 polisher")
     # 4. the polisher, cuda vs cpu
     pol = report["polisher"] = polisher_parity(20)
     print(f"polisher (C={pol['C']} S={pol['S']} L={pol['L']} W={pol['W']}, {pol['weights']}, "
@@ -1229,6 +1492,7 @@ def main(argv=None) -> int:
         _dump(args.out, report)
         return _fail(f"polisher decisions differ between cuda and cpu: {pol['flips']}")
 
+    phase("5 error profile")
     # 5. the QC error profile's device path against numpy
     ep = report["error_profile"] = error_profile_phase()
     print(f"error profile ({ep['n_reads']} reads of {ep['read_len'][0]}-{ep['read_len'][1]} nt): "
@@ -1237,16 +1501,20 @@ def main(argv=None) -> int:
           + f" s ({ep['device_events']} device events, busy {ep['device_busy_ms']:.1f} ms), "
           f"numpy {ep['numpy_s']:.2f} s", flush=True)
 
+    phase("6 small e2e")
     # 6. small e2e, cuda vs cpu, under both polish methods
     report["small_e2e"] = [small_e2e(method) for method in POLISH]
     for small in report["small_e2e"]:
+        imp = (f"; under executor imperative on cuda ({small['imperative_s']:.1f} s) the same "
+               "files byte for byte" if small["imperative_s"] is not None else "")
         print(f"small e2e ({small['polish']}): {small['files_compared']} files identical on "
               f"cuda and cpu, stage names equal, counts exact (cuda {small['cuda_s']:.1f} s, "
               f"cpu {small['cpu_s']:.1f} s); telemetry.json and history.jsonl keys equal but "
-              f"the device gauge, {len(small['obs']['stages'])} stages, dispatch counts "
+              f"the card's own, {len(small['obs']['stages'])} stages, dispatch counts "
               f"{small['obs']['dispatch_counts']} equal, fingerprint "
-              f"{small['obs']['fingerprint']}", flush=True)
+              f"{small['obs']['fingerprint']}{imp}", flush=True)
 
+    phase("7 observation")
     # 7. observation on the card
     obs = report["observation"] = observation_phase()
     print(f"observation (small lane, rnn, telemetry full, profiler, live plane, watchdog): "
@@ -1263,15 +1531,18 @@ def main(argv=None) -> int:
           f"s over {pd.get('dispatches')} dispatches; the profiler's busy share of a polish "
           f"round (phase 3): {split['busy_share']}", flush=True)
 
-    # 8. full-size e2e (the main path under the default config, then in
-    # turns without the QC profiles, with them serial and overlapped, and
-    # without telemetry, then the poa path), and the plants' cost
+    phase("8 full e2e")
+    # 8. full-size e2e (the main path under the default config, then, on
+    # the small lane, in turns without the QC profiles, with them serial and
+    # overlapped, under the imperative order and without telemetry, then the
+    # poa path), and the plants' cost
     kernels = (sw_kernel.align_banded_cuda, pileup_kernel.forward_planes_cuda)
-    full = report["full_e2e"] = full_e2e(kernels, max(args.lane_runs, 1))
+    full = report["full_e2e"] = full_e2e(kernels, max(args.lane_runs, 0))
     plants = report["plant_cost_us"] = plant_cost(dev)
-    print(f"full e2e: {full['n_reads']} reads in " + ", ".join(
-          f"{s:.2f} s ({r:.1f} reads/s, {m})"
-          for s, r, m in zip(full["seconds"], full["reads_per_s"], full["polish"]))
+    print(f"full e2e: full lane {full['n_reads']} reads, small lane {full['small_n_reads']} "
+          "reads; "
+          + ", ".join(f"{s:.2f} s ({r:.1f} reads/s, {lane} lane, {m})" for s, r, lane, m in
+                      zip(full["seconds"], full["reads_per_s"], full["lane"], full["polish"]))
           + f"; counts_exact={full['counts_exact']}, max memory "
           + ", ".join(f"{gb:.2f}" for gb in full["max_memory_allocated_gb"])
           + f" GB, launches {full['launches']}", flush=True)
@@ -1280,7 +1551,8 @@ def main(argv=None) -> int:
             f"{r} error profile: worker {stage_s[f'{r}_error_profile_bg']:.2f} s, commit wait "
             f"{stage_s[f'{r}_error_profile']:.3f} s" for r in ("round1", "round2")
             if f"{r}_error_profile_bg" in stage_s)
-        print(f"full e2e run {run} ({full['polish'][run]}): {full['reads_per_s'][run]:.1f} "
+        print(f"full e2e run {run} ({full['lane'][run]} lane, {full['polish'][run]}): "
+              f"{full['reads_per_s'][run]:.1f} "
               f"reads/s; stages (s): "
               + ", ".join(f"{k} {v:.2f}" for k, v in stage_s.items())
               + f"; polisher {full['polisher'][run]['s']:.2f} (peak inside it: "
@@ -1300,6 +1572,14 @@ def main(argv=None) -> int:
               f"device high-water {tel['hbm_high_water_bytes']} B, max_memory_allocated "
               f"{tel['max_memory_allocated_bytes']} B; roll-up {tel['rollup_s']:.4f} s",
               flush=True)
+        print(f"full e2e run {run} graph executor: {len(tel['graph_nodes_run'])} nodes run "
+              f"({', '.join(tel['graph_nodes_run'])}); graftcheck {tel['graftcheck']['verdict']}"
+              f", static high-water {tel['graftcheck']['hbm_high_water_bytes_est']} B at "
+              f"{tel['graftcheck']['hbm_high_water_node']}; donation {tel['donation']}; node "
+              "memory (static / measured B): " + ", ".join(
+                  f"{n} {r.get('static_bytes')}/{r.get('measured_end_bytes')}"
+                  for n, r in tel["memory"]["nodes"].items())
+              + f"; --report --memory problems: {tel['memory']['problems']}", flush=True)
         hw, mx = tel["hbm_high_water_bytes"], tel["max_memory_allocated_bytes"]
         if hw is None or abs(hw - mx) > 0.01 * mx:
             mem_off[run] = (hw, mx)
@@ -1315,7 +1595,8 @@ def main(argv=None) -> int:
     plants_s = sum(n * plants[k]["added"] * 1e-6 for k, n in first["plant_calls"].items())
     bound_s = plants_s + first["rollup_s"]
     full["telemetry_cost"] = {"on_reads_per_s": warm, "off_reads_per_s": off,
-                              "on_over_off": float(np.median(warm) / np.median(off)),
+                              "on_over_off": (float(np.median(warm) / np.median(off))
+                                              if off else None),
                               "pair_ratios": ratios, "plants_s": plants_s,
                               "bound_s": bound_s, "bound_share": bound_s / full["seconds"][0]}
     print("telemetry plants (us a call, disarmed -> armed): " + ", ".join(
@@ -1324,11 +1605,25 @@ def main(argv=None) -> int:
           f"{first['rollup_s'] * 1e3:.1f} ms, together {bound_s:.4f} s of "
           f"{full['seconds'][0]:.2f} s ({100 * full['telemetry_cost']['bound_share']:.4f}%)",
           flush=True)
-    print(f"full e2e telemetry on (warm default runs) "
-          + ", ".join(f"{r:.1f}" for r in warm) + " reads/s against off "
-          + ", ".join(f"{r:.1f}" for r in off)
-          + f": on/off {full['telemetry_cost']['on_over_off']:.4f} (medians); adjacent pairs "
-          + ", ".join(f"{r:.4f}" for r in ratios), flush=True)
+    if off:
+        print(f"full e2e telemetry on (warm default runs) "
+              + ", ".join(f"{r:.1f}" for r in warm) + " reads/s against off "
+              + ", ".join(f"{r:.1f}" for r in off)
+              + f": on/off {full['telemetry_cost']['on_over_off']:.4f} (medians); adjacent "
+              "pairs " + ", ".join(f"{r:.4f}" for r in ratios), flush=True)
+    # each round's imperative run comes just before its graph run
+    full["executor_pairs"] = [
+        {"imperative_reads_per_s": rps[i], "graph_reads_per_s": rps[i + 1],
+         "graph_over_imperative": rps[i + 1] / rps[i],
+         "stages": {k: (full["stage_s"][i].get(k), full["stage_s"][i + 1].get(k))
+                    for k in dict.fromkeys([*full["stage_s"][i], *full["stage_s"][i + 1]])}}
+        for i, m in enumerate(full["polish"]) if m == "rnn, executor imperative"]
+    for pair in full["executor_pairs"]:
+        print(f"full e2e executors: imperative {pair['imperative_reads_per_s']:.1f} reads/s, "
+              f"graph {pair['graph_reads_per_s']:.1f} reads/s (graph/imperative "
+              f"{pair['graph_over_imperative']:.4f}); stages (s, imperative/graph): " + ", ".join(
+                  f"{k} {'-' if a is None else f'{a:.2f}'}/{'-' if b is None else f'{b:.2f}'}"
+                  for k, (a, b) in pair["stages"].items()), flush=True)
     _dump(args.out, report)
     if mem_off:
         return _fail(f"telemetry's device high-water and max_memory_allocated differ by more "
@@ -1338,7 +1633,19 @@ def main(argv=None) -> int:
     if not all(n for path in full["launches"].values() for n in path.values()):
         return _fail(f"a kernel of a path never launched: {full['launches']}")
 
-    # 9. kernels line
+    phase("9 robustness")
+    # 9. robustness on the card
+    rob = report["robustness"] = robustness_phase()
+    for name, events in rob["drills"].items():
+        print(f"drill {name}: events " + (", ".join("/".join(e) for e in events) or "none"),
+              flush=True)
+    print(f"robustness: {len(rob['drills'])} drills on the small lane ({rob['n_reads']} reads, "
+          f"poa), each ending with the undisturbed run's counts CSV and merged FASTA; "
+          f"{rob['seconds']:.1f} s", flush=True)
+    _dump(args.out, report)
+
+    phase("10 kernels line")
+    # 10. kernels line
     entries = []
     for k, key, name, src, replaces in (
         (sw_kernel.align_banded_cuda, "sw", "sw_banded",

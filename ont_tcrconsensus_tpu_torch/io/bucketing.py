@@ -1,6 +1,8 @@
 """Length bucketing: ragged reads -> fixed-shape device batches.
 
-A copy of the JAX package's record path (``io/bucketing.py``): reads are
+A copy of the JAX package's record path (``io/bucketing.py``) and its
+pre-encoded path (:class:`EncodedRecords`, the graph executor's round-1 to
+round-2 hand-off): reads are
 grouped into a small set of padded widths, and each bucket is emitted in
 fixed-size batches (a final partial batch is padded up with dummy rows,
 masked out by ``valid``). The fused read pass picks its SW subset per
@@ -143,3 +145,70 @@ def _make_batch(recs: list, width: int, batch_size: int, with_quals: bool) -> Re
         ids.append(rec.header if hasattr(rec, "header") else rec.name)
     ids.extend([""] * (B - n))
     return ReadBatch(codes=codes, quals=quals, lengths=lengths, valid=valid, ids=ids, width=width)
+
+
+@dataclasses.dataclass
+class EncodedRecords:
+    """Pre-encoded reads: parallel header/code-vector lists.
+
+    The device-resident hand-off type: round 1's consensus codes (under
+    ``keep_codes``) go to round 2 through :func:`batch_encoded` without a
+    decode-to-string and re-encode pass. Code vectors are 1-d uint8 in
+    0..4; decode∘encode is a bijection on that alphabet, so the batches are
+    byte-identical to the string path's for the same sequences.
+    """
+
+    headers: list[str]
+    codes: list[np.ndarray]
+
+    def __len__(self) -> int:
+        return len(self.headers)
+
+
+def batch_encoded(
+    records: EncodedRecords,
+    batch_size: int = 2048,
+    widths: Sequence[int] = DEFAULT_WIDTHS,
+    min_len: int = 1,
+    counters: IngestCounters | None = None,
+) -> Iterator[ReadBatch]:
+    """:func:`batch_reads` over :class:`EncodedRecords`: the same buckets,
+    drop gates, counters and flush policy, and no qualities (consensus
+    sequences carry none, as FASTA records do)."""
+    pending: dict[int, list] = {w: [] for w in widths}
+
+    def flush(w: int) -> ReadBatch:
+        rows = pending[w]
+        pending[w] = []
+        B = min(batch_size, pow2_ceil(len(rows), 64))
+        codes = np.full((B, w), encode.PAD_CODE, dtype=np.uint8)
+        lengths = np.zeros((B,), dtype=np.int32)
+        valid = np.zeros((B,), dtype=bool)
+        for i, (c, _) in enumerate(rows):
+            codes[i, : c.size] = c
+            lengths[i] = c.size
+            valid[i] = True
+        ids = [h for _, h in rows] + [""] * (B - len(rows))
+        return ReadBatch(codes=codes, quals=None, lengths=lengths, valid=valid, ids=ids,
+                         width=w)
+
+    for header, codes in zip(records.headers, records.codes):
+        codes = np.asarray(codes, dtype=np.uint8)
+        ln = int(codes.size)
+        if counters is not None:
+            counters.n_records += 1
+        if ln < min_len:
+            if counters is not None:
+                counters.n_dropped_short += 1
+            continue
+        w = bucket_width(ln, widths)
+        if w is None:
+            if counters is not None:
+                counters.n_dropped_long += 1
+            continue
+        pending[w].append((codes, header))
+        if len(pending[w]) == batch_size:
+            yield flush(w)
+    for w in widths:
+        if pending[w]:
+            yield flush(w)

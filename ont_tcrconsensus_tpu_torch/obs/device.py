@@ -218,8 +218,23 @@ def _device_bytes_in_use(devices, key: str) -> int | None:
     return total if seen else None
 
 
+#: the CUDA devices the current run declared (None: no run declared any)
+_RUN_DEVICES: list | None = None
+
+
+def set_run_devices(devices: list | None) -> None:
+    """Declare the CUDA devices of the run in progress (``[]`` for a CPU
+    run; None when it ends), so a sample taken during a CPU run never reads
+    a card that an earlier run of the process used."""
+    global _RUN_DEVICES
+    _RUN_DEVICES = devices
+
+
 def run_devices() -> list[torch.device]:
-    """The CUDA devices this process has used (none before CUDA starts)."""
+    """The CUDA devices the current run declared; without a declaration,
+    those this process has used (none before CUDA starts)."""
+    if _RUN_DEVICES is not None:
+        return list(_RUN_DEVICES)
     if not torch.cuda.is_initialized():
         return []
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]

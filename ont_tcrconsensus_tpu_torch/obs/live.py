@@ -93,7 +93,7 @@ class FlightRecorder:
         self.last_flush: dict | None = None
 
     def _add_locked(self, ev: dict) -> None:
-        lockcheck.assert_held(self._lock, "FlightRecorder._add_locked")
+        lockcheck.assert_owner(self, "FlightRecorder._add_locked")
         ev["thread"] = threading.current_thread().name
         self.events.append(ev)
         self.total += 1
@@ -256,7 +256,7 @@ class ProgressTracker:
             self.done.add(name)
 
     def _node_est_locked(self, name: str, est: dict, avg: float) -> float:
-        lockcheck.assert_held(self._lock, "ProgressTracker._node_est_locked")
+        lockcheck.assert_owner(self, "ProgressTracker._node_est_locked")
         v = est.get(name)
         if v is None:
             return avg
@@ -312,7 +312,7 @@ class ProgressTracker:
 
 
 # Lock ownership for FlightRecorder / ProgressTracker is declared in the
-# JAX package's lock registry (robustness/locks.py).
+# port's lock table (robustness/locks.py), which lockcheck reads.
 
 
 def load_node_priors(ledger_paths: list[str],

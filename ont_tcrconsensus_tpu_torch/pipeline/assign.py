@@ -29,7 +29,7 @@ from ont_tcrconsensus_tpu_torch.obs import device as obs_device
 from ont_tcrconsensus_tpu_torch.obs import metrics as obs_metrics
 from ont_tcrconsensus_tpu_torch.ops import ee_filter, encode, fuzzy_match, sketch, sw_kernel
 from ont_tcrconsensus_tpu_torch.ops.sw_align import PAD_SENTINEL
-from ont_tcrconsensus_tpu_torch.robustness import contracts, watchdog
+from ont_tcrconsensus_tpu_torch.robustness import contracts, faults, watchdog
 
 MIN_SCORE = 100  # SW score gate for a "primary alignment" equivalent
 BIG_DIST = 1 << 20  # sentinel distance for "no qualifying primer hit"
@@ -685,25 +685,36 @@ def run_assign(
         acc_names[batch.width].append([batch.ids[i].partition(" ")[0] for i in rows])
 
     source_desc = "<records>"
-    if isinstance(source, (str, bytes)) or hasattr(source, "__fspath__"):
-        source_desc = source
-        source = fastx.read_fastx(source)
-    records = iter(source)
+    if isinstance(source, bucketing.EncodedRecords):
+        # the graph executor's hand-off: round-1 consensus codes batch
+        # without a string pass (never subsampled, as in the JAX package)
+        batches = bucketing.batch_encoded(source, batch_size=batch_size, widths=widths,
+                                          min_len=1, counters=counters)
+    else:
+        if isinstance(source, (str, bytes)) or hasattr(source, "__fspath__"):
+            source_desc = source
+            source = fastx.read_fastx(source)
+        records = iter(source)
 
-    def limited():
-        taken = 0
-        for rec in records:
-            if subsample is not None and taken >= subsample:
-                return
-            taken += 1
-            yield rec
+        def limited():
+            taken = 0
+            for rec in records:
+                if subsample is not None and taken >= subsample:
+                    return
+                taken += 1
+                yield rec
 
-    for batch in bucketing.batch_reads(limited(), batch_size=batch_size, widths=widths,
-                                       min_len=1, counters=counters):
+        batches = bucketing.batch_reads(limited(), batch_size=batch_size, widths=widths,
+                                        min_len=1, counters=counters)
+
+    for batch in batches:
         # liveness: one heartbeat per batch; a wedged parser or dispatch
         # stops them, and the stage's watchdog guard cancels into the
         # transient retry of the whole idempotent pass
         watchdog.heartbeat("assign.batch")
+        # chaos site: a transient fault on the fused-pass dispatch raises
+        # out of run_assign into the retry of the whole idempotent pass
+        faults.inject("assign.dispatch")
         obs_metrics.counter_add("assign.batches")
         with obs_device.dispatch("assign.dispatch", bucket=batch.width):
             if dispatch is not None:

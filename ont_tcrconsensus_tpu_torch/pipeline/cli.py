@@ -1,7 +1,12 @@
 """CLI entry point: ``python -m ont_tcrconsensus_tpu_torch <run_config.json> [--cpu]``.
 
-Runs the pipeline on the CUDA card; ``--cpu`` is the only way onto the
-CPU. The run config is the JAX package's (same keys, same checks).
+Runs the pipeline on the CUDA card; ``--cpu``, or the environment
+variable ``TCR_CONSENSUS_FORCE_CPU`` (as in the JAX package's CLI), puts it
+on the CPU. The variable only ever selects the CPU: without it and without
+``--cpu`` a host with no card raises, it never falls back. The run config
+is the JAX package's (same keys, same checks). A run stopped by
+SIGTERM/SIGINT (or a chaos ``preempt``) exits 143 with every committed
+checkpoint intact; ``resume: true`` continues it.
 ``--report <workdir>`` renders a finished run's artifacts without loading
 torch, so it works on a host whose card is wedged; ``--live-port`` arms
 the live plane for the run.
@@ -10,6 +15,7 @@ the live plane for the run.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 
@@ -23,7 +29,8 @@ def main(argv: list[str] | None = None) -> int:
         "run's workdir: the fastq_pass dir, its nano_tcr subdir, or the run config)",
     )
     parser.add_argument("--cpu", action="store_true",
-                        help="Run on the CPU instead of the CUDA card")
+                        help="Run on the CPU instead of the CUDA card (so does a "
+                        "non-empty TCR_CONSENSUS_FORCE_CPU)")
     parser.add_argument(
         "--report", action="store_true",
         help="Render a run summary from a finished run's artifacts (telemetry.json, "
@@ -70,9 +77,17 @@ def main(argv: list[str] | None = None) -> int:
         )
 
     from ont_tcrconsensus_tpu_torch.pipeline.run import run_pipeline
+    from ont_tcrconsensus_tpu_torch.robustness import shutdown
 
-    run_pipeline(args.json_config_file, device="cpu" if args.cpu else "cuda",
-                 live_port=args.live_port)
+    cpu = args.cpu or bool(os.environ.get("TCR_CONSENSUS_FORCE_CPU"))
+    try:
+        run_pipeline(args.json_config_file, device="cpu" if cpu else "cuda",
+                     live_port=args.live_port)
+    except shutdown.Preempted as p:
+        # committed checkpoints are intact; 143 is the conventional SIGTERM
+        # status, so an orchestrator reschedules the run
+        print(f"preempted: {p}; rerun with resume=true to continue", file=sys.stderr)
+        return 143
     return 0
 
 

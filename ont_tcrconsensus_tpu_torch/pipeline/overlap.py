@@ -35,7 +35,7 @@ import torch
 
 from ont_tcrconsensus_tpu_torch.obs import metrics as obs_metrics
 from ont_tcrconsensus_tpu_torch.obs import trace
-from ont_tcrconsensus_tpu_torch.robustness import jobscope, lockcheck, watchdog
+from ont_tcrconsensus_tpu_torch.robustness import faults, jobscope, lockcheck, watchdog
 
 
 class DeferredStage:
@@ -68,6 +68,9 @@ class DeferredStage:
                 # stalled worker is cancelled with a StageTimeout that
                 # surfaces at commit and is recomputed there
                 with watchdog.guard(f"overlap.{self.name}", units=self.units):
+                    # chaos site: a worker dying mid-stage (the injected
+                    # exception surfaces at commit, like any worker failure)
+                    faults.inject("overlap.worker")
                     watchdog.heartbeat("overlap.worker")
                     if self._device is not None and self._device.type == "cuda":
                         stream = torch.cuda.Stream(self._device)

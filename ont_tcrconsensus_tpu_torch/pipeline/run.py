@@ -1,8 +1,6 @@
 """The end-to-end two-round UMI consensus pipeline, on one device.
 
-The counterpart of the JAX package's ``pipeline/run.py`` one-shot run, in
-its imperative stage order (which the JAX package pins byte-identical to
-its graph executor, so ``executor`` "graph" and "imperative" both run it):
+The counterpart of the JAX package's ``pipeline/run.py`` one-shot run:
 
   PHASE A (once):  reference self-homology -> region clusters + precision bar
   PHASE B (per library): fused read pass (primer trim -> EE filter ->
@@ -12,14 +10,29 @@ its graph executor, so ``executor`` "graph" and "imperative" both run it):
   round 2:         consensus align + blast-id filter -> split by region ->
                    UMI cluster @0.97 -> select(min=1) -> counts CSV
 
+Each library runs through the graph executor (``executor: "graph"``, the
+default: :mod:`..graph`, which derives overlap, checkpoints, resume and the
+graph's telemetry from the node declarations) or in the imperative stage
+order (``executor: "imperative"``); both write the same artifacts.
+
 Beside the counts it writes the JAX package's QC and report artifacts: the
 read-stats, flagstat, split and consensus-filter logs and CSVs, both
 error profiles (``error_profile_sample`` reads a round; under
 ``overlap_qc`` on a worker thread, committed on the main thread before
-each round's checkpoint), ``logs/stage_timing.tsv`` (under the JAX graph
-executor's stage names, the default executor's), the self-homology logs,
-``robustness_report.json`` (retry policy and outcomes, contract counters)
-and ``stack_dumps_p0.log`` (SIGQUIT dumps every thread's stack there).
+each round's checkpoint), ``logs/stage_timing.tsv``, the self-homology
+logs, ``robustness_report.json`` (retry policy and outcomes, the chaos
+plan, contract counters) and ``stack_dumps_p0.log`` (SIGQUIT dumps every
+thread's stack there).
+
+Fault tolerance is the JAX package's: every run declares its chaos plan
+(``chaos`` or ``TCR_CHAOS``, :mod:`..robustness.faults`); a failed library
+is logged and skipped, the rest run, and the run ends with
+``failed_libraries_p0.log`` and a ``RuntimeError``; a failed group or region
+is skipped and reported, and its round is not checkpointed;
+SIGTERM/SIGINT stop the run at the next stage boundary with
+:class:`..robustness.shutdown.Preempted`; ``resume=True`` continues from the
+stage manifest after verifying the checkpointed artifacts
+(``verify_resume``).
 
 The observation layer (:mod:`..obs`) is armed around the run as in the JAX
 package: ``telemetry`` ``on`` (the default) writes ``telemetry.json`` and
@@ -34,7 +47,8 @@ arms the stage watchdog, whose stack dumps go to each library's
 
 Every device pass runs on ``device``: CUDA unless the caller asks for the
 CPU, and a CUDA request without a card raises. Nothing falls back to the
-CPU: a retry runs again on the same device.
+CPU, and nothing falls back from the graph executor to the imperative
+order: a retry runs again on the same device and executor.
 """
 
 from __future__ import annotations
@@ -57,6 +71,9 @@ import torch
 
 from ont_tcrconsensus_tpu_torch.cluster import regions as regions_mod
 from ont_tcrconsensus_tpu_torch.device import resolve_device
+from ont_tcrconsensus_tpu_torch.graph import check as graph_check
+from ont_tcrconsensus_tpu_torch.graph import executor as graph_exec
+from ont_tcrconsensus_tpu_torch.graph import pipeline as graph_pipeline
 from ont_tcrconsensus_tpu_torch.io import bucketing, fastx, layout
 from ont_tcrconsensus_tpu_torch.obs import device as obs_device
 from ont_tcrconsensus_tpu_torch.obs import history as obs_history
@@ -64,14 +81,22 @@ from ont_tcrconsensus_tpu_torch.obs import live as obs_live
 from ont_tcrconsensus_tpu_torch.obs import metrics as obs_metrics
 from ont_tcrconsensus_tpu_torch.obs import report as obs_report
 from ont_tcrconsensus_tpu_torch.obs import trace as obs_trace
+from ont_tcrconsensus_tpu_torch.obs import transfers as obs_transfers
 from ont_tcrconsensus_tpu_torch.ops import _build
 from ont_tcrconsensus_tpu_torch.parallel import budget as budget_mod
 from ont_tcrconsensus_tpu_torch.pipeline import overlap, stages
-from ont_tcrconsensus_tpu_torch.pipeline.assign import AssignEngine, ReferencePanel, run_assign
+from ont_tcrconsensus_tpu_torch.pipeline.assign import AssignEngine, ReferencePanel
 from ont_tcrconsensus_tpu_torch.pipeline.config import RunConfig
 from ont_tcrconsensus_tpu_torch.qc import artifacts, error_profile, umi_overlap
 from ont_tcrconsensus_tpu_torch.qc.timing import StageTimer
-from ont_tcrconsensus_tpu_torch.robustness import contracts, lockcheck, retry, watchdog
+from ont_tcrconsensus_tpu_torch.robustness import (
+    contracts,
+    faults,
+    lockcheck,
+    retry,
+    shutdown,
+    watchdog,
+)
 
 # fallback precision bar when no reference pair survives the homology filter
 DEFAULT_BLAST_ID_BAR = 0.99
@@ -80,10 +105,8 @@ DEFAULT_BLAST_ID_BAR = 0.99
 _NOT_YET = (
     ("mesh_shape", bool, "mesh_shape needs the multi-GPU mesh slice of the port"),
     ("distributed", bool, "distributed needs the multi-GPU mesh slice of the port"),
-    ("resume", bool, "resume needs the robustness slice of the port"),
-    ("chaos", bool, "chaos needs the robustness slice of the port"),
     ("on_bad_record", lambda v: v != "fail",
-     "on_bad_record quarantine/drop needs the robustness slice of the port"),
+     "on_bad_record quarantine/drop needs the ingest validation slice of the port"),
 )
 
 
@@ -259,13 +282,16 @@ def _run_with_config(cfg: RunConfig, dev: torch.device, run_timer: StageTimer):
     run_armed_live = False
     sigquit_log = _SigquitRunLog()
     live_usr1 = obs_live.Sigusr1Hook()
+    cards = [dev] if dev.type == "cuda" else []
     try:
+        # the memory samples (the sampler, the graph's node boundaries, the
+        # roll-up's peak) read only this run's card
+        obs_device.set_run_devices(cards)
         if cfg.telemetry != "off":
             obs_metrics.arm()
             if cfg.telemetry == "full":
                 obs_trace.arm()
-                sampler = obs_device.start_sampler(
-                    devices=[dev] if dev.type == "cuda" else [])
+                sampler = obs_device.start_sampler(devices=cards)
         # the live plane arms whatever the telemetry level: its flight ring
         # is the post-mortem context of runs without the trace collector.
         # A plane armed by the caller is left to the caller.
@@ -279,8 +305,12 @@ def _run_with_config(cfg: RunConfig, dev: torch.device, run_timer: StageTimer):
             return _run_with_config_body(cfg, dev, run_timer, sigquit_log)
         except BaseException as exc:
             # the flight recorder's reason to exist: flush the last events
-            # while the process still can
-            obs_live.flush_armed(f"crash:{type(exc).__name__}")
+            # while the process still can (a SIGTERM drain is a
+            # BaseException, so Exception alone would miss it)
+            obs_live.flush_armed(
+                "sigterm_drain" if isinstance(exc, shutdown.Preempted)
+                else f"crash:{type(exc).__name__}"
+            )
             raise
     finally:
         live_usr1.restore()
@@ -290,6 +320,7 @@ def _run_with_config(cfg: RunConfig, dev: torch.device, run_timer: StageTimer):
             sampler.stop()
         obs_trace.disarm()
         obs_metrics.disarm()
+        obs_device.set_run_devices(None)
         if wd is not None:
             watchdog.deactivate(wd)
             wd.stop()
@@ -299,6 +330,13 @@ def _run_with_config(cfg: RunConfig, dev: torch.device, run_timer: StageTimer):
 def _run_with_config_body(cfg: RunConfig, dev: torch.device, run_timer: StageTimer,
                           sigquit_log: _SigquitRunLog) -> dict[str, dict[str, int]]:
     obs_metrics.analysis_set("compile_cache", enable_build_cache(cfg.compile_cache_dir))
+    # every run declares its chaos state: the config key wins over the
+    # TCR_CHAOS variable, and with neither a stale plan of an earlier
+    # in-process run is disarmed
+    if cfg.chaos:
+        faults.arm(cfg.chaos, seed=cfg.chaos_seed)
+    elif faults.arm_from_env() is None:
+        faults.disarm()
     policy = retry.set_policy(retry.RetryPolicy(
         max_attempts=cfg.retry_max_attempts, base_delay_s=cfg.retry_base_delay_s,
     ))
@@ -309,9 +347,9 @@ def _run_with_config_body(cfg: RunConfig, dev: torch.device, run_timer: StageTim
     polisher = _rnn_polisher(cfg, dev) if cfg.polish_method == "rnn" else None
     reference = fastx.read_fasta_dict(cfg.reference_file)
     nano_dir = os.path.join(cfg.fastq_pass_dir, "nano_tcr")
-    if os.path.exists(nano_dir):
-        raise FileExistsError(f"{nano_dir} exists; remove it to rerun")
-    os.makedirs(nano_dir)
+    if os.path.exists(nano_dir) and not cfg.resume:
+        raise FileExistsError(f"{nano_dir} exists; set resume=true to continue or remove it")
+    os.makedirs(nano_dir, exist_ok=True)
     sigquit_log.register(nano_dir, 0)
     # crash and SIGUSR1 flight-recorder flushes land in the output tree
     # (a no-op when the live plane is disarmed)
@@ -382,36 +420,80 @@ def _run_with_config_body(cfg: RunConfig, dev: torch.device, run_timer: StageTim
         obs_history.config_fingerprint(cfg),
     )
     results: dict[str, dict[str, int]] = {}
+    failed_libraries: list[tuple[str, str]] = []
+    preempted: shutdown.Preempted | None = None
+    # the first SIGTERM/SIGINT requests a stop; the loop raises Preempted
+    # at the next stage boundary, the library's guard drains its workers,
+    # and the run exits with every committed checkpoint intact
+    coord = shutdown.ShutdownCoordinator()
+    coord.install()  # False off the main thread: cooperative stops only
+    shutdown.activate(coord)
     try:
         for fastq in fastq_list:
+            shutdown.checkpoint("run.library_start")
             obs_live.progress_library(layout.library_name_from_fastq(fastq))
+            # the whole library is guarded (its dir and resume included): a
+            # failed library is reported and skipped, and resume retries it
+            # (no stage marked); Preempted is a BaseException and passes
             try:
-                lay = layout.init_library_dir(fastq, nano_dir)
+                lay = layout.init_library_dir(fastq, nano_dir, resume=cfg.resume)
                 watchdog.set_log_path(os.path.join(lay.logs, "watchdog.log"))
+                if cfg.resume and lay.stage_done("counts"):
+                    counts_csv = os.path.join(lay.counts, "umi_consensus_counts.csv")
+                    # chaos site: corruption of a completed artifact between
+                    # the run and this resume
+                    faults.corrupt_artifact("resume.verify", counts_csv)
+                    if graph_exec.verify_resume_stage(lay, "counts", cfg):
+                        _log("Library already complete:", lay.library)
+                        results[lay.library] = _read_counts_csv(counts_csv)
+                        continue
                 timer = StageTimer(dev)
                 try:
                     results[lay.library] = _run_library(fastq, lay, ctx, timer)
                 finally:
                     run_timer.merge(timer)
+            except Exception as exc:
+                library = layout.library_name_from_fastq(fastq)
+                failed_libraries.append((library, repr(exc)))
+                _log(f"WARNING: library {library} failed and is skipped: {exc!r}")
             finally:
                 # a failed library still advances /progress
                 obs_live.progress_library_done()
+    except shutdown.Preempted as p:
+        preempted = p
+        _log(f"PREEMPTED: {p}; every committed stage checkpoint is "
+             "resume-safe — rerun with resume=true to continue")
     finally:
+        coord.uninstall()
+        shutdown.deactivate(coord)
         try:
             recorder.write(os.path.join(nano_dir, "robustness_report.json"),
                            policy=policy, contracts=contracts.summary())
         except OSError as exc:  # report trouble must never mask the run's fate
             _log(f"WARNING: could not write robustness report: {exc!r}")
         if cfg.telemetry != "off":
-            # the roll-up next to the robustness report, on failing paths
-            # too: memory peaks, telemetry.json (+ logs/trace.json at
-            # "full"), then the run's ledger entry (which never fails the run)
+            # the roll-up next to the robustness report, on failing and
+            # preempted paths too: memory peaks, telemetry.json (+
+            # logs/trace.json at "full"), then the run's ledger entry
+            # (which never fails the run)
             try:
-                obs_device.finalize_memory([dev] if dev.type == "cuda" else [])
+                obs_device.finalize_memory(obs_device.run_devices())
                 obs_report.write_run_telemetry(nano_dir, cfg.telemetry)
             except OSError as exc:
                 _log(f"WARNING: could not write telemetry artifacts: {exc!r}")
             obs_history.record_run(nano_dir, cfg, backend=dev.type)
+    if failed_libraries:
+        with open(os.path.join(nano_dir, "failed_libraries_p0.log"), "w") as fh:
+            for library, err in failed_libraries:
+                fh.write(f"{library}\t{err}\n")
+    if preempted is not None:
+        raise preempted
+    if failed_libraries:
+        raise RuntimeError(
+            f"{len(failed_libraries)} library(ies) failed: "
+            f"{sorted(lib for lib, _ in failed_libraries)} — see "
+            "failed_libraries_*.log; rerun with resume=true to retry"
+        )
     _log("Done running all barcodes!")
     return results
 
@@ -460,10 +542,13 @@ def _rnn_polisher(cfg: RunConfig, dev: torch.device):
 
 
 def _run_library(fastq, lay, ctx: _RunContext, timer: StageTimer) -> dict[str, int]:
-    """One library; under ``overlap_qc`` its side stages run on worker
-    threads, drained on a critical-path failure so none outlives it."""
+    """One library, through the graph executor or the imperative order;
+    under ``overlap_qc`` its side stages run on worker threads, drained on
+    a critical-path failure so none outlives it."""
     qc_exec = overlap.StageExecutor(device=ctx.device) if ctx.cfg.overlap_qc else None
     try:
+        if ctx.cfg.executor == "graph":
+            return _run_library_graph(fastq, lay, ctx, timer, qc_exec)
         return _run_library_impl(fastq, lay, ctx, timer, qc_exec)
     except BaseException:
         if qc_exec is not None:
@@ -474,6 +559,34 @@ def _run_library(fastq, lay, ctx: _RunContext, timer: StageTimer) -> dict[str, i
         # the pool's busy/idle split (drained by now on every path)
         if qc_exec is not None:
             qc_exec.record_pool_metrics()
+
+
+def _run_library_graph(fastq, lay, ctx: _RunContext, timer: StageTimer,
+                       qc_exec) -> dict[str, int]:
+    """Declare the library graph and hand it to the graph executor, which
+    derives overlap submissions, commit points, resume, per-node timers and
+    watchdog guards from the node/edge declarations (graph/pipeline.py);
+    this function only supplies the per-library context."""
+    lctx = graph_pipeline.LibraryContext(
+        cfg=ctx.cfg, lay=lay, timer=timer, device=ctx.device, panel=ctx.panel,
+        engine=ctx.engine, engine_notrim=ctx.engine_notrim,
+        blast_id_threshold=ctx.blast_id_threshold,
+        overlap_consensus=ctx.overlap_consensus, polisher=ctx.polisher,
+        read_batch=ctx.read_batch, budget=ctx.budget,
+    )
+    spec = graph_pipeline.build_library_graph(ctx.cfg)
+    try:
+        # graftcheck's static verdict rides telemetry.json and the history
+        # ledger, and its per-node memory estimate goes into the registry
+        # for --report --memory. Analysis, not the run: it never fails it.
+        report = graph_check.analyze(spec, graph_check.production_byte_model(ctx.cfg))
+        obs_metrics.analysis_set("graftcheck", report.summary())
+        for step in report.liveness:
+            obs_transfers.static_hbm(step["node"], step["hbm_bytes_est"])
+    except Exception as exc:
+        _log(f"WARNING: graftcheck analysis failed: {exc!r}")
+    executor = graph_exec.GraphExecutor(spec, lctx, side_exec=qc_exec)
+    return executor.run({"library_fastq": fastq})["region_counts"]
 
 
 def _side_stage(pending: list, qc_exec, timer: StageTimer, name: str, fn, *args,
@@ -540,14 +653,30 @@ def _run_library_impl(fastq, lay, ctx: _RunContext, timer: StageTimer,
     library = lay.library
     merged_path = os.path.join(lay.fasta, "merged_consensus.fasta")
 
+    # stage-level resume: a completed round 1 is reloaded from its artifact
+    # after verification (verify_resume): a torn or rotted consensus fasta
+    # re-runs round 1 instead of seeding round 2
+    if cfg.resume and lay.stage_done("round1_consensus") and os.path.exists(merged_path):
+        faults.corrupt_artifact("resume.verify", merged_path)
+        if graph_exec.verify_resume_stage(lay, "round1_consensus", cfg):
+            _log("Resuming from round-1 consensus:", library)
+            merged_consensus = [
+                (rec.header, rec.sequence) for rec in fastx.read_fastx(merged_path)
+            ]
+            return _run_round2(lay, ctx, merged_consensus, timer, qc_exec,
+                               round1_complete=True)
+
     # PHASE B + round-1 assignment: one fused pass per batch
     _log("Preprocessing, aligning and UMI-tagging nanopore reads:", library)
+    # chaos site for file-level data faults: a mutated sibling copy of the
+    # input is read instead (the original is never touched)
+    fastq = faults.mutate_input("ingest.library_fastq", fastq)
     # watchdog guard over per-batch heartbeats (assign.py): a hung dispatch
     # cancels into the transient retry below
     with timer.stage("round1_fused_assign"), watchdog.guard("round1_fused_assign"):
         # the pass is idempotent (it streams the fastq into a fresh store),
         # so a transient fault re-runs it whole
-        store, astats = retry.call_with_retry("assign.round1", lambda: run_assign(
+        store, astats = retry.call_with_retry("assign.round1", lambda: stages.run_assign(
             fastq, ctx.engine,
             max_ee_rate=cfg.max_ee_rate_base,
             min_len=cfg.minimal_length,
@@ -558,37 +687,40 @@ def _run_library_impl(fastq, lay, ctx: _RunContext, timer: StageTimer,
             max_read_length=cfg.max_read_length,
             subsample=cfg.dorado_trim_subsample_fastq,
         ))
-        with open(os.path.join(lay.logs, "ee_filter.log"), "w") as fh:
-            fh.write(f"reads passing EE/length filter: {astats.n_total - astats.n_ee_fail}\n")
-            fh.write(f"reads with primer trim: {astats.n_trimmed}\n")
-        _write_align_log(astats, os.path.join(lay.logs, f"{library}_region_cluster_split.log"))
-        artifacts.write_fastq_stats_log(
-            astats, os.path.join(lay.logs, f"{library}_fastq_stats.log"))
-        artifacts.write_flagstat_log(astats, os.path.join(lay.logs, f"{library}_flagstat.log"))
+    _write_assign_logs(astats, lay)
 
     pending: list = []
     if cfg.error_profile_sample:
+        # off the critical path under overlap_qc: computed while polish
+        # runs, committed before the round-1 checkpoint below
         _profile_stage(pending, qc_exec, timer, "round1_error_profile", store, ctx,
                        os.path.join(lay.logs, f"{library}_align_error_profile.log"))
-    with timer.stage("round1_region_split"):
-        groups = stages.group_by_region_cluster(store, panel)
-        artifacts.write_region_split_log(
-            astats, groups, store, panel.names,
-            {n: len(s) for n, s in panel.seqs.items()},
-            regions_mod.NEGATIVE_CONTROL_SUFFIXES,
-            os.path.join(lay.logs, f"{library}_filter_and_split_reads_by_region_cluster.err"),
-        )
+    groups = stages.group_by_region_cluster(store, panel)
     if cfg.write_intermediate_fastas:
-        _side_stage(pending, qc_exec, timer, "write_region_fastas", stages.write_region_fastas,
-                    groups, store, lay.region_cluster_fasta, "region_cluster")
+        with timer.stage("write_region_fastas"):
+            stages.write_region_fastas(groups, store, lay.region_cluster_fasta,
+                                       "region_cluster")
+    artifacts.write_region_split_log(
+        astats, groups, store, panel.names,
+        {n: len(s) for n, s in panel.seqs.items()},
+        regions_mod.NEGATIVE_CONTROL_SUFFIXES,
+        os.path.join(lay.logs, f"{library}_filter_and_split_reads_by_region_cluster.err"),
+    )
 
-    # round 1: UMI records per region cluster, ONE batched clustering pass,
-    # then ONE library-wide batched consensus polish
-    with timer.stage("round1_umi_records"):
-        records_by_group: list[tuple[str, list]] = []
-        for cluster_key in sorted(groups):
-            group_name = f"region_cluster{cluster_key}"
-            umis = stages.build_umi_records(store, groups[cluster_key], cfg.max_pattern_dist)
+    # round 1: UMI records per region cluster, one library-wide batched
+    # clustering pass, then one library-wide batched consensus polish. A
+    # poisoned group is skipped and reported and the rest complete; if the
+    # batched pass itself fails its retries, every group clusters on its
+    # own so one bad group cannot poison its peers.
+    selected_by_group: list[tuple[str, list[stages.SelectedCluster]]] = []
+    failed_groups: list[tuple[str, str]] = []
+    records_by_group: list[tuple[str, list]] = []
+    for cluster_key in sorted(groups):
+        group_name = f"region_cluster{cluster_key}"
+        try:
+            with timer.stage("round1_umi_records"):
+                umis = stages.build_umi_records(store, groups[cluster_key],
+                                                cfg.max_pattern_dist)
             if not umis:
                 continue
             if cfg.write_intermediate_fastas:
@@ -597,63 +729,75 @@ def _run_library_impl(fastq, lay, ctx: _RunContext, timer: StageTimer,
                     os.path.join(lay.umi_fasta, f"{group_name}_detected_umis.fasta"),
                 )
             records_by_group.append((group_name, umis))
-    with timer.stage("round1_umi_cluster"):
-        # the guard makes a hung pass a transient: a hard cancel raises
-        # StageTimeout into the retry wrapper (the pass is pure)
-        with watchdog.guard("round1_umi_cluster",
-                            units=sum(len(u) for _, u in records_by_group)):
-            grouped = retry.call_with_retry(
-                "cluster.batched_round1", lambda: stages.cluster_and_select_grouped(
-                    records_by_group,
-                    identity=cfg.vsearch_identity,
-                    min_umi_length=cfg.min_umi_length,
-                    max_umi_length=cfg.max_umi_length,
-                    min_reads_per_cluster=cfg.min_reads_per_cluster,
-                    max_reads_per_cluster=cfg.max_reads_per_cluster,
-                    balance_strands=cfg.balance_strands,
-                    device=dev,
-                ))
-        selected_by_group: list[tuple[str, list[stages.SelectedCluster]]] = []
-        for group_name, _ in records_by_group:
-            selected, stat_rows = grouped[group_name]
+        except Exception as exc:
+            failed_groups.append((group_name, repr(exc)))
+            _log(f"WARNING: {group_name} failed and is skipped: {exc!r}")
+
+    select = stages.umi_cluster_selector(cfg, records_by_group, 1, dev, timer)
+    for group_name, umis in records_by_group:
+        try:
+            selected, stat_rows = select(group_name, umis)
             cdir = os.path.join(lay.clustering, group_name)
             os.makedirs(cdir, exist_ok=True)
             stages.write_cluster_stats_tsv(
                 stat_rows, os.path.join(cdir, "vsearch_cluster_stats.tsv"))
             if selected:
                 selected_by_group.append((group_name, selected))
+        except Exception as exc:
+            failed_groups.append((group_name, repr(exc)))
+            _log(f"WARNING: {group_name} failed and is skipped: {exc!r}")
     n_clusters = sum(len(s) for _, s in selected_by_group)
     _log(f"Polishing clusters: {library} "
          f"({n_clusters} clusters over {len(selected_by_group)} region clusters)")
     # guard scaled by the cluster count; the chunk loop heartbeats per
     # dispatch, so only a chunk that stops progressing can expire
     with timer.stage("round1_polish"), watchdog.guard("round1_polish", units=n_clusters):
-        by_group = stages.polish_clusters_all(
+        by_group, polish_failed = stages.polish_clusters_all(
             selected_by_group, store, max_read_length=cfg.max_read_length,
             polisher=ctx.polisher, budget=ctx.budget, cluster_batch=cfg.cluster_batch_size,
             device=dev,
         )
-    # round-1 QC commits before the round-1 checkpoint: once it is marked,
-    # a later resume skips round 1, so its log must exist by then
-    _commit_pending_qc(qc_exec, pending, timer)
-    with timer.stage("round1_consensus"):
-        merged_consensus: list[tuple[str, str]] = []
-        for group_name, selected in selected_by_group:
-            # every selected cluster produced exactly one consensus record
+    merged_consensus: list[tuple[str, str]] = []
+    for group_name, selected in selected_by_group:
+        if group_name in polish_failed:
+            failed_groups.append((group_name, polish_failed[group_name]))
+            _log(f"WARNING: {group_name} polish failed and is skipped: "
+                 f"{polish_failed[group_name]}")
+        else:
+            # every selected cluster of a non-failed group produced exactly
+            # one consensus record
             contracts.check_equal(
                 "consensus", f"{group_name} consensus records",
                 len(by_group[group_name]), "selected clusters", len(selected),
                 detail={"library": library, "group": group_name},
             )
             merged_consensus.extend(by_group[group_name])
-        n_written = fastx.write_fasta(merged_path, merged_consensus)
-        contracts.check_equal(
-            "consensus", "merged_consensus.fasta records written", n_written,
-            "in-memory consensus entries", len(merged_consensus),
-            detail={"library": library},
-        )
+    if failed_groups:
+        _log("Not all umi cluster region fastas were successfully polished! "
+             f"Incomplete: {[g for g, _ in failed_groups]}")
+        with open(os.path.join(lay.logs, "incomplete_region_clusters.log"), "w") as fh:
+            for group_name, err in failed_groups:
+                fh.write(f"{group_name}\t{err}\n")
+
+    # round-1 QC commits before the round-1 checkpoint: once it is marked,
+    # a later resume skips round 1, so its log must exist by then
+    _commit_pending_qc(qc_exec, pending, timer)
+    n_written = fastx.write_fasta(merged_path, merged_consensus)
+    contracts.check_equal(
+        "consensus", "merged_consensus.fasta records written", n_written,
+        "in-memory consensus entries", len(merged_consensus),
+        detail={"library": library},
+    )
+    if not failed_groups:
+        # an incomplete round 1 is not checkpointed: resume retries the
+        # failed groups instead of reusing a consensus missing them
         lay.mark_stage_done("round1_consensus", artifacts=[merged_path])
-    return _run_round2(lay, ctx, merged_consensus, timer, qc_exec)
+    # chaos site + preemption checkpoint at the round-1 commit: the
+    # manifest just committed, so a kill here resumes into round 2 only
+    faults.inject("run.round1_checkpoint")
+    shutdown.checkpoint("run.round1_checkpoint")
+    return _run_round2(lay, ctx, merged_consensus, timer, qc_exec,
+                       round1_complete=not failed_groups)
 
 
 _R2_HEADER = re.compile(r"^region_cluster(\d+)_cluster\d+_\d+$")
@@ -699,7 +843,7 @@ def _targeted_round2_dispatch(panel, engine, headers):
 
 
 def _run_round2(lay, ctx: _RunContext, merged_consensus, timer: StageTimer,
-                qc_exec) -> dict[str, int]:
+                qc_exec, round1_complete: bool) -> dict[str, int]:
     cfg, panel = ctx.cfg, ctx.panel
     library = lay.library
     _log("Aligning unique molecule consensus TCR sequences:", library)
@@ -717,7 +861,7 @@ def _run_round2(lay, ctx: _RunContext, merged_consensus, timer: StageTimer,
             watchdog.guard("round2_fused_assign", units=len(cons_records)):
         # transient-retried like round 1; qc_rows is cleared before each
         # retry so a half-consumed attempt cannot duplicate QC rows
-        cons_store, cstats = retry.call_with_retry("assign.round2", lambda: run_assign(
+        cons_store, cstats = retry.call_with_retry("assign.round2", lambda: stages.run_assign(
             cons_records, ctx.engine_notrim,
             max_ee_rate=1.0,  # no quality data on consensus sequences
             min_len=1,
@@ -730,28 +874,29 @@ def _run_round2(lay, ctx: _RunContext, merged_consensus, timer: StageTimer,
             collect_qc=qc_rows,
             dispatch=dispatch,
         ), reset=qc_rows.clear)
-        artifacts.write_consensus_filter_artifacts(
-            qc_rows, {n: len(s) for n, s in panel.seqs.items()}, lay.logs,
-            "merged_consensus", blast_id_threshold=ctx.blast_id_threshold,
-            minimal_region_overlap=ctx.overlap_consensus,
-        )
-        artifacts.write_flagstat_log(
-            cstats, os.path.join(lay.logs, "merged_consensus_flagstat.log"))
+    _write_round2_assign_logs(qc_rows, cstats, lay, panel, ctx.blast_id_threshold,
+                              ctx.overlap_consensus)
     pending: list = []
     if cfg.error_profile_sample:
         # overlapped with round-2 clustering; committed before the counts
         # checkpoint
         _profile_stage(pending, qc_exec, timer, "round2_error_profile", cons_store, ctx,
                        os.path.join(lay.logs, "merged_consensus_align_error_profile.log"))
+    region_groups = stages.group_by_region(cons_store, panel)
+    if cfg.write_intermediate_fastas:
+        stages.write_region_fastas(region_groups, cons_store, lay.region_fasta, "region_")
 
-    # round 2: UMI dedup at consensus identity, one batched pass
-    with timer.stage("round2_umi_records"):
-        region_groups = stages.group_by_region(cons_store, panel)
-        if cfg.write_intermediate_fastas:
-            stages.write_region_fastas(region_groups, cons_store, lay.region_fasta, "region_")
-        region_records: list[tuple[str, list]] = []
-        for region, parts in sorted(region_groups.items()):
-            umis = stages.build_umi_records(cons_store, parts, cfg.max_pattern_dist)
+    # round 2: UMI dedup at consensus identity, one batched pass; a failed
+    # region is skipped and reported, a failed batched pass retries per
+    # region
+    region_counts: dict[str, int] = {}
+    region_cluster_umis: dict[str, list[str]] = {}
+    failed_regions: list[tuple[str, str]] = []
+    region_records: list[tuple[str, list]] = []
+    for region, parts in sorted(region_groups.items()):
+        try:
+            with timer.stage("round2_umi_records"):
+                umis = stages.build_umi_records(cons_store, parts, cfg.max_pattern_dist)
             if not umis:
                 continue
             if cfg.write_intermediate_fastas:
@@ -760,61 +905,97 @@ def _run_round2(lay, ctx: _RunContext, merged_consensus, timer: StageTimer,
                     os.path.join(lay.consensus_umi_fasta, f"region_{region}_detected_umis.fasta"),
                 )
             region_records.append((region, umis))
-    with timer.stage("round2_umi_cluster"), watchdog.guard(
-            "round2_umi_cluster", units=sum(len(u) for _, u in region_records)):
-        grouped2 = retry.call_with_retry(
-            "cluster.batched_round2", lambda: stages.cluster_and_select_grouped(
-                region_records,
-                identity=cfg.vsearch_identity_consensus,
-                min_umi_length=cfg.min_umi_length,
-                max_umi_length=cfg.max_umi_length,
-                min_reads_per_cluster=1,
-                max_reads_per_cluster=cfg.max_reads_per_cluster,
-                balance_strands=False,
-                device=ctx.device,
-            ))
-    # round-2 QC commits before the counts checkpoint
-    _commit_pending_qc(qc_exec, pending, timer)
-    # the JAX graph's round2_counts node; the stage table is written inside
-    # it, so (as in the JAX package) the TSV has no round2_counts row while
-    # telemetry.json and the trace do
-    region_counts: dict[str, int] = {}
-    with timer.stage("round2_counts"):
-        region_cluster_umis: dict[str, list[str]] = {}
-        for region, _ in region_records:
-            selected, stat_rows = grouped2[region]
-            rdir = os.path.join(lay.clustering_consensus, f"region_{region}")
-            os.makedirs(rdir, exist_ok=True)
-            stages.write_cluster_stats_tsv(
-                stat_rows, os.path.join(rdir, "vsearch_cluster_stats.tsv"))
-            if cfg.write_intermediate_fastas:
-                fastx.write_fasta(os.path.join(rdir, "smolecule_clusters.fa"), [
-                    (str(cl.cluster_id), cons_store.blocks[m.block].decode_one(m.row))
-                    for cl in selected for m in cl.members
-                ])
-            # count = round-2 clusters (unique molecules)
-            region_counts[region] = len(selected)
-            region_cluster_umis[region] = [cl.members[0].combined for cl in selected]
+        except Exception as exc:
+            failed_regions.append((region, repr(exc)))
+            _log(f"WARNING: round-2 region {region} failed and is skipped: {exc!r}")
 
-        counts_csv = stages.write_counts_csv(region_counts, lay.counts)
-        # the CSV on disk reads back as the in-memory totals it was written from
-        contracts.check_equal(
-            "counts", "counts CSV readback", _read_counts_csv(counts_csv),
-            "in-memory region counts", region_counts, detail={"library": library},
-        )
-        if cfg.compare_umi_overlap_between_regions:
-            _log("Testing for consensus umi matches between regions:", library)
-            umi_overlap.count_overlapping_umis(
-                region_cluster_umis, lay.logs, cfg.overlapping_umi_edit_threshold
-            )
-        timer.write_tsv(os.path.join(lay.logs, "stage_timing.tsv"))
-        lay.mark_stage_done("counts", artifacts=[counts_csv])
-        if cfg.delete_tmp_files:
-            for d in (lay.region_cluster_fasta, lay.clustering, lay.umi_fasta,
-                      lay.fasta, lay.clustering_consensus, lay.region_fasta,
-                      lay.consensus_umi_fasta):
-                shutil.rmtree(d, ignore_errors=True)
+    select = stages.umi_cluster_selector(cfg, region_records, 2, ctx.device, timer)
+    for region, umis in region_records:
+        try:
+            selected, stat_rows = select(region, umis)
+            _finish_round2_region(region, selected, stat_rows, cons_store, lay, cfg,
+                                  region_counts, region_cluster_umis)
+        except Exception as exc:
+            failed_regions.append((region, repr(exc)))
+            _log(f"WARNING: round-2 region {region} failed and is skipped: {exc!r}")
+    # round-2 QC commits before the stage table and the counts checkpoint
+    _commit_pending_qc(qc_exec, pending, timer)
+    _write_counts(lay, cfg, region_counts, region_cluster_umis, failed_regions, timer,
+                  complete=round1_complete and not failed_regions)
     return region_counts
+
+
+def _write_assign_logs(astats, lay) -> None:
+    """Round 1's read-pass logs: EE filter, region split, read stats,
+    flagstat."""
+    library = lay.library
+    with open(os.path.join(lay.logs, "ee_filter.log"), "w") as fh:
+        fh.write(f"reads passing EE/length filter: {astats.n_total - astats.n_ee_fail}\n")
+        fh.write(f"reads with primer trim: {astats.n_trimmed}\n")
+    _write_align_log(astats, os.path.join(lay.logs, f"{library}_region_cluster_split.log"))
+    artifacts.write_fastq_stats_log(astats, os.path.join(lay.logs, f"{library}_fastq_stats.log"))
+    artifacts.write_flagstat_log(astats, os.path.join(lay.logs, f"{library}_flagstat.log"))
+
+
+def _write_round2_assign_logs(qc_rows, cstats, lay, panel, blast_id_threshold,
+                              overlap_consensus) -> None:
+    """Round 2's consensus-filter artifacts and flagstat."""
+    artifacts.write_consensus_filter_artifacts(
+        qc_rows, {n: len(s) for n, s in panel.seqs.items()}, lay.logs,
+        "merged_consensus", blast_id_threshold=blast_id_threshold,
+        minimal_region_overlap=overlap_consensus,
+    )
+    artifacts.write_flagstat_log(cstats, os.path.join(lay.logs, "merged_consensus_flagstat.log"))
+
+
+def _finish_round2_region(region, selected, stat_rows, cons_store, lay, cfg,
+                          region_counts, region_cluster_umis) -> None:
+    """Round-2 artifacts + counting for one exact region."""
+    rdir = os.path.join(lay.clustering_consensus, f"region_{region}")
+    os.makedirs(rdir, exist_ok=True)
+    stages.write_cluster_stats_tsv(stat_rows, os.path.join(rdir, "vsearch_cluster_stats.tsv"))
+    if cfg.write_intermediate_fastas:
+        fastx.write_fasta(os.path.join(rdir, "smolecule_clusters.fa"), [
+            (str(cl.cluster_id), cons_store.blocks[m.block].decode_one(m.row))
+            for cl in selected for m in cl.members
+        ])
+    # count = round-2 clusters (unique molecules)
+    region_counts[region] = len(selected)
+    region_cluster_umis[region] = [cl.members[0].combined for cl in selected]
+
+
+def _write_counts(lay, cfg, region_counts, region_cluster_umis, failed_regions,
+                  timer: StageTimer, complete: bool) -> str:
+    """The library's tail, shared by both executors: the incomplete-region
+    log, the counts CSV (checked against the in-memory totals), the UMI
+    overlap test, the stage table, the counts checkpoint (only when the
+    library is complete, so resume retries what failed) and the tmp-file
+    cleanup. Returns the CSV's path."""
+    if failed_regions:
+        with open(os.path.join(lay.logs, "incomplete_regions.log"), "w") as fh:
+            for region, err in failed_regions:
+                fh.write(f"{region}\t{err}\n")
+    counts_csv = stages.write_counts_csv(region_counts, lay.counts)
+    contracts.check_equal(
+        "counts", "counts CSV readback", _read_counts_csv(counts_csv),
+        "in-memory region counts", region_counts, detail={"library": lay.library},
+    )
+    if cfg.compare_umi_overlap_between_regions:
+        _log("Testing for consensus umi matches between regions:", lay.library)
+        umi_overlap.count_overlapping_umis(
+            region_cluster_umis, lay.logs, cfg.overlapping_umi_edit_threshold
+        )
+    # the stage table lands before the counts mark: a crash in between
+    # leaves counts unmarked and resume regenerates both
+    timer.write_tsv(os.path.join(lay.logs, "stage_timing.tsv"))
+    if complete:
+        lay.mark_stage_done("counts", artifacts=[counts_csv])
+    if cfg.delete_tmp_files:
+        for d in (lay.region_cluster_fasta, lay.clustering, lay.umi_fasta,
+                  lay.fasta, lay.clustering_consensus, lay.region_fasta,
+                  lay.consensus_umi_fasta):
+            shutil.rmtree(d, ignore_errors=True)
+    return counts_csv
 
 
 def _write_align_log(stats, path: str) -> None:

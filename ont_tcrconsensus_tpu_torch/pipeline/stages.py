@@ -10,8 +10,10 @@ ladder, and counting. Strings materialize only at artifact boundaries.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+import sys
 import time
 from collections import defaultdict
 
@@ -25,8 +27,9 @@ from ont_tcrconsensus_tpu_torch.obs import device as obs_device
 from ont_tcrconsensus_tpu_torch.obs import metrics as obs_metrics
 from ont_tcrconsensus_tpu_torch.ops import consensus as consensus_mod
 from ont_tcrconsensus_tpu_torch.ops import edit_distance, encode, sketch
-from ont_tcrconsensus_tpu_torch.pipeline.assign import ReadStore, ReferencePanel
-from ont_tcrconsensus_tpu_torch.robustness import contracts, retry, watchdog
+# run_assign is re-exported: both executors call it as ``stages.run_assign``
+from ont_tcrconsensus_tpu_torch.pipeline.assign import ReadStore, ReferencePanel, run_assign  # noqa: F401
+from ont_tcrconsensus_tpu_torch.robustness import contracts, faults, retry, watchdog
 
 # ---------------------------------------------------------------------------
 # stage: UMI record assembly
@@ -202,6 +205,102 @@ def cluster_and_select_grouped(
         )
         out[name] = (selected, stat_rows)
     return out
+
+
+def cluster_and_select(
+    umi_records: list[UmiRecord],
+    identity: float,
+    min_umi_length: int,
+    max_umi_length: int,
+    min_reads_per_cluster: int,
+    max_reads_per_cluster: int,
+    balance_strands: bool,
+    device: str | torch.device | None = None,
+) -> tuple[list[SelectedCluster], list[dict]]:
+    """One group's clustering, subread selection and rescue: the per-group
+    fallback after the batched pass (:func:`cluster_and_select_grouped`)
+    failed, with the same results. Returns (selected clusters, per-cluster
+    stats rows, skipped clusters included)."""
+    device = resolve_device(device)
+    eligible = [r for r in umi_records if min_umi_length <= len(r.combined) <= max_umi_length]
+    if not eligible:
+        return [], []
+    clusters = umi_mod.cluster_umis([r.combined for r in eligible], identity, device=device)
+    members = _group_members(eligible, clusters.labels)
+    selected, stat_rows, taken = _run_selection(
+        members, min_reads_per_cluster, max_reads_per_cluster, balance_strands,
+    )
+    if min_reads_per_cluster > 1:
+        roots = _rescue_grouped([(None, eligible, clusters, members, taken)], identity,
+                                device)[None]
+        if roots is not None:
+            selected, stat_rows, _ = _run_selection(
+                _group_members(eligible, clusters.labels, roots),
+                min_reads_per_cluster, max_reads_per_cluster, balance_strands,
+            )
+    contracts.check_equal(
+        "umi", "cluster-stats member total", sum(r["n"] for r in stat_rows),
+        "eligible UMI records", len(eligible),
+    )
+    return selected, stat_rows
+
+
+def umi_cluster_selector(cfg, named_records: list[tuple[str, list[UmiRecord]]],
+                         round_no: int, device, timer=None):
+    """Round ``round_no``'s UMI clustering of every group: one batched pass
+    (:func:`cluster_and_select_grouped`, chaos site and retry site
+    ``cluster.batched_round{round_no}``) whose failure after its retries is
+    recorded as ``degraded``. Returns ``select(name, umis) -> (selected,
+    stat_rows)``: the batched result, or after a degradation that group's
+    own pass (:func:`cluster_and_select`), so one bad group cannot poison
+    its peers; the caller guards each group. ``timer`` (the imperative
+    order) times the batched pass and each fallback under
+    ``round{round_no}_umi_cluster`` and guards the batched pass; a graph
+    node already runs inside both."""
+    site, stage = f"cluster.batched_round{round_no}", f"round{round_no}_umi_cluster"
+    knobs = dict(
+        identity=cfg.vsearch_identity if round_no == 1 else cfg.vsearch_identity_consensus,
+        min_umi_length=cfg.min_umi_length,
+        max_umi_length=cfg.max_umi_length,
+        min_reads_per_cluster=cfg.min_reads_per_cluster if round_no == 1 else 1,
+        max_reads_per_cluster=cfg.max_reads_per_cluster,
+        balance_strands=cfg.balance_strands if round_no == 1 else False,
+        device=device,
+    )
+
+    def timed():
+        return timer.stage(stage) if timer is not None else contextlib.nullcontext()
+
+    def _batched():
+        if round_no == 1:
+            faults.inject("cluster.batched_round1")
+        else:
+            faults.inject("cluster.batched_round2")
+        return cluster_and_select_grouped(named_records, **knobs)
+
+    grouped = None
+    with timed():
+        try:
+            # the guard makes a hung pass a transient: a hard cancel raises
+            # StageTimeout into the retry wrapper (the pass is pure)
+            with (watchdog.guard(stage, units=sum(len(u) for _, u in named_records))
+                  if timer is not None else contextlib.nullcontext()):
+                grouped = retry.call_with_retry(site, _batched)
+        except Exception as exc:
+            retry.recorder().record(site, classification=retry.classify(exc),
+                                    outcome="degraded", error=repr(exc))
+            what, unit = (("UMI", "region cluster") if round_no == 1
+                          else ("round-2 UMI", "region"))
+            print(f"WARNING: batched {what} clustering failed ({exc!r}); "
+                  f"retrying each {unit} individually", file=sys.stderr)
+
+    def select(name: str, umis: list[UmiRecord]):
+        if grouped is not None:
+            return grouped[name]
+        with timed():
+            return cluster_and_select(umis, **knobs)
+
+    return select
 
 
 #: relaxed dovetail free-end budget for the second-chance UMI pass
@@ -422,8 +521,9 @@ def polish_clusters_all(
     polisher=None,
     cluster_batch: int | None = None,
     budget=None,
+    keep_codes: bool = False,
     device: str | torch.device | None = None,
-) -> dict[str, list[tuple[str, str]]]:
+) -> tuple[dict[str, list[tuple[str, str]]], dict[str, str]]:
     """Consensus for every selected cluster of every group, batched together,
     on ``device`` (the card when None).
 
@@ -436,57 +536,75 @@ def polish_clusters_all(
     pileup. A transient fault retries the chunk on the same device under
     the retry policy; a CUDA out-of-memory error re-derives a smaller batch
     from a halved budget and requeues the chunk and the rest of its bucket;
-    results do not depend on the batch. Headers follow the reference's
-    ``<group>_cluster<id>_<n_subreads>``. Returns per-group (header, seq)
-    lists in cluster-id order.
+    results do not depend on the batch. Any other failure of a chunk (and a
+    transient or out-of-memory error the ladder cannot absorb) degrades:
+    the chunk's groups are reported failed and the other chunks complete;
+    a lost device escalates (raises). Headers follow the reference's
+    ``<group>_cluster<id>_<n_subreads>``. ``keep_codes=True`` gives each
+    consensus as its 1-d uint8 code vector (the graph executor's
+    device-resident hand-off) instead of a string.
+
+    Returns ``(consensus_by_group, failed_groups)``: per-group (header,
+    seq) lists in cluster-id order, and {group: error} for the groups hit by
+    a failed chunk or a failed gather. The run (both executors) drops a failed group's
+    whole output, its successful chunks included: a partial group would
+    under-count its molecules.
     """
     device = resolve_device(device)
     prepared: dict[tuple[int, int], list] = defaultdict(list)
     by_group: dict[str, list[tuple[str, str]]] = {g: [] for g, _ in selected_by_group}
+    failed: dict[str, str] = {}
     for group_name, selected in selected_by_group:
-        for cl in selected:
-            rows_codes, rows_rev = [], []
-            rows_quals: list | None = []
-            max_len = 0
-            for m in cl.members:
-                blk = store.blocks[m.block]
-                ln = int(blk.lens[m.row])
-                c = blk.codes[m.row, :ln]
-                q = blk.quals[m.row, :ln] if blk.quals is not None else None
-                if m.strand == "-":
-                    c = encode.revcomp_codes(c)
-                    q = q[::-1] if q is not None else None  # q[i] stays the phred of base i
-                rows_codes.append(c)
-                if q is None:
-                    rows_quals = None
-                elif rows_quals is not None:
-                    rows_quals.append(q)
-                rows_rev.append(m.strand == "-")
-                max_len = max(max_len, ln)
-            # one lane-width of growth slack above the longest subread
-            need = max_len + 128
-            width = min(
-                max_read_length,
-                next((w for w in bucketing.DEFAULT_WIDTHS if w >= need), max_read_length),
-            )
-            codes, lens = encode.pad_batch(rows_codes, pad_to=width, multiple=128)
-            s_bucket = bucketing.pow2_ceil(len(rows_codes))
-            quals = None
-            if rows_quals is not None:
-                quals = np.zeros((s_bucket, codes.shape[1]), np.uint8)
-                for i, q in enumerate(rows_quals):
-                    quals[i, : len(q)] = q
-            strands = np.zeros(s_bucket, bool)
-            strands[: len(rows_rev)] = rows_rev
-            if s_bucket > len(rows_codes):
-                pad_rows = s_bucket - len(rows_codes)
-                codes = np.concatenate(
-                    [codes, np.full((pad_rows, codes.shape[1]), encode.PAD_CODE, np.uint8)]
+        # the gather degrades per group like the device chunks below: a
+        # poisoned cluster fails only its own group
+        try:
+            group_prepared = []
+            for cl in selected:
+                rows_codes, rows_rev = [], []
+                rows_quals: list | None = []
+                max_len = 0
+                for m in cl.members:
+                    blk = store.blocks[m.block]
+                    ln = int(blk.lens[m.row])
+                    c = blk.codes[m.row, :ln]
+                    q = blk.quals[m.row, :ln] if blk.quals is not None else None
+                    if m.strand == "-":
+                        c = encode.revcomp_codes(c)
+                        q = q[::-1] if q is not None else None  # q[i] stays the phred of base i
+                    rows_codes.append(c)
+                    if q is None:
+                        rows_quals = None
+                    elif rows_quals is not None:
+                        rows_quals.append(q)
+                    rows_rev.append(m.strand == "-")
+                    max_len = max(max_len, ln)
+                # one lane-width of growth slack above the longest subread
+                need = max_len + 128
+                width = min(
+                    max_read_length,
+                    next((w for w in bucketing.DEFAULT_WIDTHS if w >= need), max_read_length),
                 )
-                lens = np.concatenate([lens, np.zeros(pad_rows, lens.dtype)])
-            prepared[(s_bucket, codes.shape[1])].append(
-                (group_name, cl, codes, lens, quals, strands)
-            )
+                codes, lens = encode.pad_batch(rows_codes, pad_to=width, multiple=128)
+                s_bucket = bucketing.pow2_ceil(len(rows_codes))
+                quals = None
+                if rows_quals is not None:
+                    quals = np.zeros((s_bucket, codes.shape[1]), np.uint8)
+                    for i, q in enumerate(rows_quals):
+                        quals[i, : len(q)] = q
+                strands = np.zeros(s_bucket, bool)
+                strands[: len(rows_rev)] = rows_rev
+                if s_bucket > len(rows_codes):
+                    pad_rows = s_bucket - len(rows_codes)
+                    codes = np.concatenate(
+                        [codes, np.full((pad_rows, codes.shape[1]), encode.PAD_CODE, np.uint8)]
+                    )
+                    lens = np.concatenate([lens, np.zeros(pad_rows, lens.dtype)])
+                group_prepared.append((s_bucket, codes.shape[1], cl, codes, lens, quals, strands))
+        except Exception as exc:
+            failed[group_name] = repr(exc)
+            continue
+        for s_bucket, width, cl, codes, lens, quals, strands in group_prepared:
+            prepared[(s_bucket, width)].append((group_name, cl, codes, lens, quals, strands))
 
     keep_pos = bool(getattr(polisher, "wants_v4", False))
     for (s_bucket, width), items in sorted(prepared.items()):
@@ -508,17 +626,22 @@ def polish_clusters_all(
                 chunk = run_items[start : start + cb_run]
                 seqs = _dispatch_polish_retried(
                     chunk, cb_run, s_bucket, width, shrink, rounds=rounds, eff_band=eff_band,
-                    keep_pos=keep_pos, polisher=polisher, budget=budget, device=device,
+                    keep_pos=keep_pos, polisher=polisher, budget=budget,
+                    keep_codes=keep_codes, device=device,
                 )
                 if isinstance(seqs, int):
                     # out of memory: requeue the failing chunk AND the
                     # untried remainder at the smaller batch
                     worklist.append((run_items[start:], seqs, shrink + 1))
                     break
-                # counted once the chunk settles: a retried chunk counts
-                # once, a requeued one only in the smaller chunks
+                # counted once the chunk settles (done or failed): a retried
+                # chunk counts once, a requeued one only in the smaller chunks
                 obs_metrics.counter_add("polish.chunks")
                 obs_metrics.observe("polish.chunk_clusters", len(chunk))
+                if isinstance(seqs, BaseException):
+                    for group_name, *_ in chunk:
+                        failed.setdefault(group_name, repr(seqs))
+                    continue
                 for c, seq in enumerate(seqs):
                     group_name, cl = chunk[c][0], chunk[c][1]
                     by_group[group_name].append(
@@ -526,23 +649,24 @@ def polish_clusters_all(
                     )
     for entries in by_group.values():
         entries.sort(key=lambda kv: int(kv[0].rsplit("_cluster", 1)[1].split("_")[0]))
-    return by_group
+    return by_group, failed
 
 
 def _dispatch_polish_retried(chunk, cb_run, s_bucket, width, shrink, *, rounds, eff_band,
-                             keep_pos, polisher, budget, device):
-    """Dispatch one chunk under the retry policy: the chunk's sequences, or
+                             keep_pos, polisher, budget, keep_codes, device):
+    """Dispatch one chunk under the retry policy: the chunk's sequences;
     the smaller cluster batch to requeue at after an out-of-memory error
-    (an int). A transient fault retries the same chunk on the same device;
-    every other failure, and an out-of-memory error at a batch that cannot
-    shrink, is recorded and raised. Outcomes land in the robustness report
-    under ``polish.dispatch``."""
+    (an int); or, for a failure the chunk cannot recover from, the
+    exception (its groups degrade). A transient fault retries the same
+    chunk on the same device; a lost device is recorded and raised.
+    Outcomes land in the robustness report under ``polish.dispatch``."""
     attempt = 1
     while True:
         try:
             # liveness: one heartbeat per chunk dispatch, so the watchdog
             # fires only when a dispatch stops progressing
             watchdog.heartbeat("polish.chunk")
+            faults.inject("polish.dispatch")
             packed = _pack_polish_chunk(chunk, cb_run, s_bucket, width)
             # the dispatch split of the dominant stage: the readbacks in
             # ops/consensus and the polisher credit their waits to this
@@ -550,11 +674,17 @@ def _dispatch_polish_retried(chunk, cb_run, s_bucket, width, shrink, *, rounds, 
             with obs_device.dispatch("polish.dispatch", bucket=f"{s_bucket}x{width}"):
                 seqs = _dispatch_polish_packed(
                     packed, len(chunk), rounds=rounds, eff_band=eff_band,
-                    keep_pos=keep_pos, polisher=polisher, device=device,
+                    keep_pos=keep_pos, polisher=polisher, keep_codes=keep_codes,
+                    device=device,
                 )
         except Exception as exc:
             pol, rec = retry.policy(), retry.recorder()
             cls = retry.classify(exc)
+            if cls == "device_lost":
+                # neither a retry nor a smaller batch lands on a lost device
+                rec.record("polish.dispatch", classification=cls, outcome="escalated",
+                           attempt=attempt, error=repr(exc))
+                raise
             if cls == "transient" and attempt < pol.max_attempts:
                 rec.record("polish.dispatch", classification=cls, outcome="retried",
                            attempt=attempt, error=repr(exc))
@@ -575,11 +705,9 @@ def _dispatch_polish_retried(chunk, cb_run, s_bucket, width, shrink, *, rounds, 
                     if device.type == "cuda":
                         torch.cuda.empty_cache()
                     return new_cb
-            rec.record("polish.dispatch", classification=cls,
-                       outcome={"oom": "not_retryable", "device_lost": "escalated",
-                                "transient": "exhausted"}.get(cls, "fatal"),
+            rec.record("polish.dispatch", classification=cls, outcome="degraded",
                        attempt=attempt, error=repr(exc))
-            raise
+            return exc
         if attempt > 1 or shrink:
             retry.recorder().record(
                 "polish.dispatch", classification="oom" if shrink else "transient",
@@ -610,9 +738,10 @@ def _pack_polish_chunk(chunk, cb, s_bucket, width):
 
 
 def _dispatch_polish_packed(packed, C, *, rounds, eff_band, keep_pos, polisher,
-                            device) -> list[str]:
+                            keep_codes, device) -> list:
     """Consensus (and polish) of one packed (cb, S, W) tile; the C real
-    clusters' sequences in chunk order."""
+    clusters' sequences in chunk order (strings, or 1-d uint8 code vectors
+    under ``keep_codes``)."""
     sub, lens, quals, strands = packed
     drafts, dlens, *rest = consensus_mod.consensus_clusters_batch(
         sub, lens, rounds=rounds, band_width=eff_band,
@@ -621,6 +750,9 @@ def _dispatch_polish_packed(packed, C, *, rounds, eff_band, keep_pos, polisher,
     if polisher is not None:
         drafts, dlens = polisher(sub, lens, drafts, dlens, pileup=rest[0],
                                  band_width=eff_band, quals=quals, strands=strands)
+    if keep_codes:
+        drafts, dlens = np.asarray(drafts), np.asarray(dlens)
+        return [drafts[c, : int(dlens[c])].astype(np.uint8, copy=True) for c in range(C)]
     return encode.decode_batch(drafts[:C], dlens[:C])
 
 

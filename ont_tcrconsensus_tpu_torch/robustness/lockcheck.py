@@ -13,6 +13,8 @@ chosen in ``__init__``): the pipeline arms from the environment first in
 live plane, and the module arms at import when ``TCR_LOCKCHECK`` is
 already set, so a subprocess needs no code hook. :func:`assert_held` skips
 locks made before arming (a plain ``Lock`` has no ``_is_owned``).
+Which lock guards which attribute is the lock table of :mod:`.locks`;
+:func:`assert_owner` checks a class's lock by that table.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from __future__ import annotations
 import os
 import sys
 import threading
+
+from ont_tcrconsensus_tpu_torch.robustness import locks
 
 ENV_VAR = "TCR_LOCKCHECK"
 
@@ -90,6 +94,18 @@ def assert_held(lock, label: str) -> None:
         if len(_VIOLATIONS) < MAX_VIOLATIONS:
             _VIOLATIONS.append(msg)
     sys.stderr.write(msg + "\n")
+
+
+def assert_owner(obj, label: str) -> None:
+    """:func:`assert_held` on the lock that the lock table
+    (:data:`.locks.LOCK_OWNERSHIP`) names for ``obj``'s class; a class the
+    table does not list is not checked."""
+    if not _ARMED:
+        return
+    owned = locks.ownership_by_class().get(type(obj).__name__)
+    if owned:
+        for lock_attr in sorted(set(owned.values())):
+            assert_held(getattr(obj, lock_attr), label)
 
 
 def violations() -> list[str]:

@@ -18,8 +18,8 @@ that reach the pipeline's dispatch sites want different answers:
 
 Nothing here falls back to the CPU. Every decision is recorded by the
 process-wide :class:`RobustnessRecorder` and written to
-``robustness_report.json`` at the run's end. The port has no fault
-injection yet, so the report's ``chaos`` is null.
+``robustness_report.json`` at the run's end, with the armed chaos plan
+(:mod:`.faults`) and its hit and fire counts, or null.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ import time
 import torch
 
 from ont_tcrconsensus_tpu_torch.obs import trace
-from ont_tcrconsensus_tpu_torch.robustness import jobscope, watchdog
+from ont_tcrconsensus_tpu_torch.robustness import faults, jobscope, watchdog
 
 #: substrings marking a CUDA error that poisons the context: checked first,
 #: a retry on the same context can only fail again
@@ -85,8 +85,12 @@ def classify(exc: BaseException) -> str:
     """``"transient" | "oom" | "device_lost" | "fatal"`` for an exception
     from a dispatch site. Unknown exceptions are fatal: retrying a
     deterministic bug only burns the retry budget."""
-    if isinstance(exc, (torch.cuda.OutOfMemoryError, MemoryError)):
+    if isinstance(exc, faults.DeviceLostChaosError):
+        return "device_lost"
+    if isinstance(exc, (faults.OomChaosError, torch.cuda.OutOfMemoryError, MemoryError)):
         return "oom"
+    if isinstance(exc, faults.TransientChaosError):
+        return "transient"
     if isinstance(exc, watchdog.StageTimeout):
         # a watchdog-cancelled stall: rerunning the dispatch is the
         # straggler answer (its message also carries DEADLINE_EXCEEDED)
@@ -188,7 +192,7 @@ class RobustnessRecorder:
             events = list(self.events)
         report = {
             "policy": dataclasses.asdict(policy) if policy is not None else None,
-            "chaos": None,
+            "chaos": faults.describe(),
             # conservation-contract counters: a summary, not events; only
             # violations appear in sites/events
             "contracts": contracts,

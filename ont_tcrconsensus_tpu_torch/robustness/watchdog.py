@@ -329,7 +329,7 @@ class Watchdog:
 
 
 # Lock ownership for Watchdog._entries (-> _lock) is declared in the
-# JAX package's lock registry (robustness/locks.py).
+# port's lock table (robustness/locks.py), which lockcheck reads.
 
 
 # --- process-wide active watchdog (same discipline as retry) ---------------

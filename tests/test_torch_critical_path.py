@@ -1,8 +1,8 @@
 """The port's critical-path analyzer (``obs/critical_path.py``) against the
 JAX package's, on the telemetry and trace of a JAX graph-executor run (a
 tiny ``telemetry: full`` lane), on that telemetry damaged in known ways,
-and on a port run's telemetry, which has no graph section until the
-port's graph executor lands."""
+on a port run under ``executor: "imperative"``, whose telemetry has no
+graph section, and on a port run under the default graph executor."""
 
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from ont_tcrconsensus_tpu.obs import critical_path as jcp  # noqa: E402
 from ont_tcrconsensus_tpu_torch.obs import critical_path as tcp  # noqa: E402
 
 
-def _lane(root, lib) -> dict:
+def _lane(root, lib, **knobs) -> dict:
     from ont_tcrconsensus_tpu.io import fastx
 
     (root / "fastq_pass" / "barcode01").mkdir(parents=True)
@@ -26,7 +26,7 @@ def _lane(root, lib) -> dict:
     return {"reference_file": str(root / "reference.fa"),
             "fastq_pass_dir": str(root / "fastq_pass"), "minimal_length": 500,
             "read_batch_size": 32, "polish_method": "poa", "delete_tmp_files": False,
-            "telemetry": "full"}
+            "telemetry": "full", **knobs}
 
 
 @pytest.fixture(scope="module")
@@ -41,14 +41,16 @@ def graph_run(tmp_path_factory):
     lib = simulator.simulate_library(seed=41, num_regions=2, molecules_per_region=(2, 2),
                                      reads_per_molecule=(5, 6), region_len=(600, 700))
     jax_run(JConfig.from_dict(_lane(tmp / "jax", lib)))
-    trun.run_with_config(RunConfig.from_dict(_lane(tmp / "port", lib)), device="cpu")
+    trun.run_with_config(RunConfig.from_dict(_lane(tmp / "port", lib, executor="imperative")),
+                         device="cpu")
+    trun.run_with_config(RunConfig.from_dict(_lane(tmp / "port_graph", lib)), device="cpu")
 
     def load(side):
         nano = tmp / side / "fastq_pass" / "nano_tcr"
         return (json.loads((nano / "telemetry.json").read_text()),
                 json.loads((nano / "logs" / "trace.json").read_text()))
 
-    return load("jax"), load("port")
+    return load("jax"), load("port"), load("port_graph"), tmp / "port_graph"
 
 
 def _both(telemetry, trace=None):
@@ -64,7 +66,7 @@ def _both(telemetry, trace=None):
 
 
 def test_analyze_and_render_equal_jax_on_a_graph_run(graph_run):
-    (telemetry, trace), _ = graph_run
+    (telemetry, trace), *_ = graph_run
     assert "graph" in telemetry
     with_trace = _both(telemetry, trace)
     without = _both(telemetry)
@@ -100,14 +102,39 @@ def _damaged(telemetry: dict) -> list[dict]:
 
 @pytest.mark.parametrize("case", range(6))
 def test_damaged_graph_telemetry_degrades_as_in_jax(graph_run, case):
-    (telemetry, trace), _ = graph_run
+    (telemetry, trace), *_ = graph_run
     got = _both(_damaged(telemetry)[case], trace)
     # a garbage pool or dispatch row is left out of the analysis silently
     assert bool(got["problems"]) is (case != 3)
 
 
 def test_a_port_run_has_no_graph_section_yet(graph_run):
-    _, (telemetry, trace) = graph_run
+    _, (telemetry, trace), *_ = graph_run
     assert "graph" not in telemetry and "overlap_pool" in telemetry
     got = _both(telemetry, trace)
     assert got["problems"] and "no executed-graph section" in got["problems"][0]
+
+
+def test_a_port_graph_run_analyzes_as_in_jax(graph_run):
+    (jtelemetry, _), _, (telemetry, trace), _ = graph_run
+    assert sorted(telemetry["graph"]["nodes"]) == sorted(jtelemetry["graph"]["nodes"])
+    got = _both(telemetry, trace)
+    assert got["problems"] == []
+    assert sorted(got["nodes"]) == sorted(jtelemetry["graph"]["nodes"])
+    assert got["critical_path"] and got["critical_path_s"] > 0
+
+
+@pytest.mark.parametrize("flag", ["critical_path", "memory"])
+def test_report_renders_a_port_graph_run_as_the_jax_renderer(graph_run, capsys, flag):
+    """``--report --critical-path`` and ``--memory`` on a port graph run's
+    artifacts: the port's renderer prints what the JAX package's prints."""
+    from ont_tcrconsensus_tpu.obs import report as jreport
+    from ont_tcrconsensus_tpu_torch.obs import report as treport
+
+    root = str(graph_run[3] / "fastq_pass")
+    out = []
+    for mod in (treport, jreport):
+        assert mod.report_main(root, **{flag: True}) == 0
+        out.append(capsys.readouterr().out)
+    assert out[0] == out[1]
+    assert "stage graph" in out[0]

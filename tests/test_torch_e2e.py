@@ -17,7 +17,11 @@ for the files :data:`NOT_BYTE_COMPARED` names, and nothing else. The
 observation files of timings (``telemetry.json``, ``history.jsonl``, and
 ``logs/trace.json`` where written) are compared by schema and by names:
 the stage names, the dispatch sites with their dispatch and get counts,
-and the history entry's config fingerprint."""
+the graph executor's sections (graftcheck's verdict, the donation
+verdicts, the per-node memory estimate), and the history entry's config
+fingerprint. Both packages run their default executor, the graph;
+``test_torch_e2e_imperative.py`` runs these tests on the clean lane under
+``poa`` with both under ``executor: "imperative"``."""
 
 import json
 import math
@@ -48,25 +52,6 @@ NOT_BYTE_COMPARED = {
     "barcode01/logs/stage_timing.tsv": "seconds: its stage column is compared instead",
 }
 TIMING = "barcode01/logs/stage_timing.tsv"
-# The JAX package's default executor is its graph executor, which the port
-# gets in a later slice; until then the port's telemetry has the schema of a
-# JAX run under ``executor: "imperative"``. Keys only the graph executor
-# writes, and why:
-GRAPH_ONLY = {
-    "graph": "the executed graph's nodes, edges and worker pool",
-    "analysis.graftcheck": "the static graph check's verdict",
-    "transfers.donation": "the executor's donation audit of dropped edges",
-    "transfers.static_hbm_by_node": "the graph check's per-node memory estimate",
-}
-# ... and the imperative run's own key: the worker pool's split, which the
-# graph executor files under graph.pool
-IMPERATIVE_ONLY = {"overlap_pool": "graph.pool"}
-# history entry keys lifted from the graph sections above
-GRAPH_ONLY_HISTORY = {
-    "nodes": "per-node seconds of the executed graph",
-    "graftcheck": "lifted from analysis.graftcheck",
-    "donation": "the graph executor's per-edge donation audit",
-}
 # maps keyed by names (stages, sites, labels, edges): their keys are data,
 # compared by the tests that name them, and their values by schema
 NAME_MAPS = {"stages", "dispatch", "dispatch_by_stage", "compile.by_stage", "counters",
@@ -87,7 +72,7 @@ def _tree(root) -> dict[str, bytes]:
             for p in sorted(nano.rglob("*")) if p.is_file()}
 
 
-def _lane_dir(root, lib, method, lane):
+def _lane_dir(root, lib, method, lane, executor="graph"):
     root.mkdir()
     jfastx.write_fasta(root / "reference.fa", lib.reference.items())
     (root / "fastq_pass" / "barcode01").mkdir(parents=True)
@@ -100,6 +85,7 @@ def _lane_dir(root, lib, method, lane):
         "read_batch_size": 64,
         "delete_tmp_files": False,
         **({} if method == "rnn" else {"polish_method": method}),
+        **({} if executor == "graph" else {"executor": executor}),
     }
 
 
@@ -119,19 +105,38 @@ RUNS = [("clean", "poa"), ("clean", "rnn"), ("untrimmed", "poa"), ("untrimmed", 
         ("lowdepth", "rnn")]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU passes are loops of small launches: one intra-op
+    thread runs them as fast as eight, and leaves the cores to the other
+    test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", params=RUNS, ids="-".join)
 def runs(request, tmp_path_factory):
-    lane, method = request.param
-    tmp = tmp_path_factory.mktemp(f"torch_e2e_{lane}_{method}")
+    return lane_runs(request.param, tmp_path_factory)
+
+
+def lane_runs(param, tmp_path_factory):
+    """Run one lane through both packages: (lane, polish method[,
+    executor]), the graph executor by default."""
+    lane, method, *rest = param
+    executor = rest[0] if rest else "graph"
+    tmp = tmp_path_factory.mktemp(f"torch_e2e_{lane}_{method}_{executor}")
     kw = dict(LANES[lane])
     if kw.get("with_adapters"):
         kw["error_model"] = jsim.OntErrorModel()
     lib = jsim.simulate_library(**kw)
-    port_cfg = _lane_dir(tmp / "port", lib, method, lane)
+    port_cfg = _lane_dir(tmp / "port", lib, method, lane, executor)
     cfg_path = tmp / "port_config.json"
     cfg_path.write_text(json.dumps(port_cfg))
     assert cli.main([str(cfg_path), "--cpu"]) == 0
-    jax_results = jax_run(JConfig.from_dict(_lane_dir(tmp / "jax", lib, method, lane)))
+    jax_results = jax_run(JConfig.from_dict(_lane_dir(tmp / "jax", lib, method, lane,
+                                                      executor)))
     sides = ["port", "jax"]
     if lane == "lowdepth":  # the vote consensus alone, for what the polisher changed
         trun.run_with_config(RunConfig.from_dict(_lane_dir(tmp / "vote", lib, "poa", lane)),
@@ -139,7 +144,7 @@ def runs(request, tmp_path_factory):
         sides.append("vote")
     trees = {side: _tree(tmp / side) for side in sides}
     out = {side: {rel: trees[side][f"barcode01/{rel}"] for rel in ARTIFACTS} for side in sides}
-    return lib, out, jax_results, lane, trees
+    return lib, out, jax_results, lane, trees, executor
 
 
 def _config(tmp_path, **knobs):
@@ -152,12 +157,12 @@ def _config(tmp_path, **knobs):
 
 @pytest.mark.parametrize("rel", ARTIFACTS)
 def test_artifacts_byte_identical_to_jax(runs, rel):
-    _, out, _, _, _ = runs
+    _, out, *_ = runs
     assert out["port"][rel] == out["jax"][rel]
 
 
 def test_every_jax_artifact_is_written_byte_identical(runs):
-    *_, trees = runs
+    *_, trees, _ = runs
     port, jax = trees["port"], trees["jax"]
     compared = sorted(set(jax) - set(NOT_BYTE_COMPARED))
     assert "robustness_report.json" in compared
@@ -167,7 +172,7 @@ def test_every_jax_artifact_is_written_byte_identical(runs):
 
 
 def test_the_port_writes_nothing_the_jax_run_does_not(runs):
-    *_, trees = runs
+    *_, trees, _ = runs
     assert sorted(set(trees["port"]) - set(trees["jax"])) == []
 
 
@@ -196,12 +201,6 @@ def _assert_same_schema(port, jax, path=""):
                 _assert_same_schema(port["*"], jax["*"], f"{path}.*")
             return
         pk, jk = set(port), set(jax)
-        for key in list(jk):
-            if (f"{path}.{key}" if path else key) in GRAPH_ONLY:
-                jk.discard(key)
-        for key in list(pk):
-            if (f"{path}.{key}" if path else key) in IMPERATIVE_ONLY:
-                pk.discard(key)
         assert pk == jk, (path, sorted(pk ^ jk))
         for key in pk:
             _assert_same_schema(port[key], jax[key], f"{path}.{key}" if path else key)
@@ -216,25 +215,49 @@ def _obs(trees, side):
 
 
 def test_obs_files_have_the_jax_schema(runs):
-    *_, trees = runs
+    *_, trees, executor = runs
     for rel in BY_SCHEMA:
         assert (rel in trees["port"]) is (rel in trees["jax"]), rel
     assert "logs/trace.json" not in trees["port"]  # the default level is "on"
     (tel, hist), (jtel, jhist) = _obs(trees, "port"), _obs(trees, "jax")
-    assert "graph" in jtel and "graftcheck" in jtel["analysis"] and "graph" not in tel
+    graph = executor == "graph"
+    assert ("graph" in tel) is ("graph" in jtel) is graph
+    assert ("graftcheck" in tel["analysis"]) is ("overlap_pool" not in tel) is graph
     _assert_same_schema(_schema(tel), _schema(jtel))
-    assert tel["overlap_pool"].keys() == jtel["graph"]["pool"].keys()
     assert tel["telemetry"] == jtel["telemetry"] == "on"
     assert tel["analysis"]["compile_cache"]["armed"] is True
     (entry,), (jentry,) = hist, jhist
-    assert set(entry) == set(jentry) - set(GRAPH_ONLY_HISTORY)
+    assert set(entry) == set(jentry)
     _assert_same_schema(_schema({k: v for k, v in entry.items() if k != "stages"}),
-                        _schema({k: v for k, v in jentry.items()
-                                 if k not in GRAPH_ONLY_HISTORY and k != "stages"}))
+                        _schema({k: v for k, v in jentry.items() if k != "stages"}))
+
+
+def test_graph_sections_equal_jax(runs):
+    """graftcheck's verdict and per-node memory estimate, the executed
+    graph's nodes and edges, and the donation verdicts (both packages probe
+    host arrays on the CPU) are the JAX run's."""
+    *_, trees, executor = runs
+    (tel, hist), (jtel, jhist) = _obs(trees, "port"), _obs(trees, "jax")
+    if executor != "graph":
+        assert "graph" not in tel and "graftcheck" not in hist[0]
+        return
+    assert tel["analysis"]["graftcheck"] == jtel["analysis"]["graftcheck"]
+    assert hist[0]["graftcheck"] == jhist[0]["graftcheck"]
+    assert tel["transfers"]["static_hbm_by_node"] == jtel["transfers"]["static_hbm_by_node"]
+    assert tel["transfers"]["donation"] == jtel["transfers"]["donation"]
+    assert hist[0]["donation"] == jhist[0]["donation"]
+    for key in ("edges", "shardings", "side_sinks", "results"):
+        assert tel["graph"].get(key) == jtel["graph"].get(key), key
+    nodes, jnodes = tel["graph"]["nodes"], jtel["graph"]["nodes"]
+    assert sorted(nodes) == sorted(jnodes)
+    for name, node in nodes.items():
+        for key in ("runs", "skips", "inputs", "outputs", "units"):
+            assert node.get(key) == jnodes[name].get(key), (name, key)
+    assert sorted(hist[0]["nodes"]) == sorted(jhist[0]["nodes"])
 
 
 def test_obs_files_carry_the_jax_names_and_counts(runs):
-    *_, trees = runs
+    *_, trees, _ = runs
     (tel, hist), (jtel, jhist) = _obs(trees, "port"), _obs(trees, "jax")
     assert sorted(tel["stages"]) == sorted(jtel["stages"])
     assert sorted(hist[0]["stages"]) == sorted(jhist[0]["stages"])
@@ -247,16 +270,16 @@ def test_obs_files_carry_the_jax_names_and_counts(runs):
         else:
             assert d["gets"] == jd["gets"], site
     assert tel["histograms"] == jtel["histograms"]  # the polish chunks' sizes
-    assert sorted(tel["counters"]) == sorted(set(jtel["counters"]) - {"donation.audit"})
-    for name in ("assign.batches", "cluster.batched", "polish.chunks"):
-        assert tel["counters"][name] == jtel["counters"][name], name
+    assert sorted(tel["counters"]) == sorted(jtel["counters"])
+    for name in ("assign.batches", "cluster.batched", "polish.chunks", "donation.audit"):
+        assert tel["counters"].get(name) == jtel["counters"].get(name), name
     assert tel["gauges"].keys() == jtel["gauges"].keys() == {"host.rss_bytes"}
     assert tel["compile"]["count"] == 0  # no kernel is built on the CPU
     assert tel["robustness_events"] == jtel["robustness_events"] == {}
 
 
 def test_history_has_one_entry_with_the_jax_fingerprint(runs):
-    *_, trees = runs
+    *_, trees, _ = runs
     (_, hist), (_, jhist) = _obs(trees, "port"), _obs(trees, "jax")
     assert len(hist) == len(jhist) == 1
     assert hist[0]["fingerprint"] == jhist[0]["fingerprint"]
@@ -265,7 +288,7 @@ def test_history_has_one_entry_with_the_jax_fingerprint(runs):
 
 
 def test_stage_timing_carries_the_jax_stage_names(runs):
-    *_, trees = runs
+    *_, trees, _ = runs
 
     def table(side):
         rows = trees[side][TIMING].decode().splitlines()
@@ -279,7 +302,7 @@ def test_stage_timing_carries_the_jax_stage_names(runs):
 
 
 def test_counts_equal_the_truth(runs):
-    lib, out, jax_results, lane, _ = runs
+    lib, out, jax_results, lane, *_ = runs
     rows = out["port"]["counts/umi_consensus_counts.csv"].decode().splitlines()
     assert rows[0] == "TCR,Count"
     got = {k: int(v) for k, v in (r.rsplit(",", 1) for r in rows[1:])}
@@ -313,7 +336,7 @@ def test_the_card_is_the_default_and_its_absence_raises(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("knob,value", [
     ("mesh_shape", {"data": 2}), ("distributed", True),
-    ("resume", True), ("chaos", [{"site": "assign.dispatch", "kind": "transient"}]),
+    ("on_bad_record", "quarantine"), ("on_bad_record", "drop"),
 ])
 def test_knobs_of_later_slices_raise(tmp_path, knob, value):
     cfg = _config(tmp_path, **{knob: value})

@@ -50,7 +50,10 @@ def test_importing_every_port_module_loads_no_jax():
                  "qc.umi_overlap", "robustness.contracts", "robustness.jobscope",
                  "robustness.retry", "robustness.lockcheck", "robustness.watchdog",
                  "obs", "obs.metrics", "obs.trace", "obs.transfers", "obs.device",
-                 "obs.history", "obs.critical_path", "obs.report", "obs.live"):
+                 "obs.history", "obs.critical_path", "obs.report", "obs.live",
+                 "graph", "graph.ir", "graph.check", "graph.nodes", "graph.pipeline",
+                 "graph.executor", "robustness.faults", "robustness.locks",
+                 "robustness.shutdown"):
         assert f"ont_tcrconsensus_tpu_torch.{must}" in report["modules"]
 
 
@@ -127,11 +130,15 @@ for name in sys.argv[1:]:
 print(json.dumps(sorted(m for m in sys.modules if m == "torch" or m.startswith("torch."))))
 """
 
-# modules the --report path and the ledger readers reach: they must load
-# without torch, so a host whose card is wedged can still read a run
+# modules the --report path and the ledger readers reach, and the graph's
+# declaration and static check: they must load without torch, so a host
+# whose card is wedged can still read a run and check its graph
 TORCH_FREE = ("pipeline.cli", "obs.report", "obs.history", "obs.critical_path",
               "obs.transfers", "obs.metrics", "obs.trace", "obs.live",
-              "robustness.lockcheck", "robustness.watchdog", "robustness.jobscope")
+              "robustness.lockcheck", "robustness.watchdog", "robustness.jobscope",
+              "robustness.faults", "robustness.locks", "robustness.shutdown",
+              "io.layout", "graph", "graph.ir", "graph.check", "graph.nodes",
+              "graph.pipeline")
 
 
 def test_the_report_path_loads_no_torch():

@@ -535,3 +535,22 @@ def test_compile_cache_dir_picks_the_kernels_build_directory(tmp_path):
         assert _build.BUILD_DIR not in (str(tmp_path), _build.DEFAULT_BUILD_DIR)
     finally:
         _build.use_build_dir(_build.DEFAULT_BUILD_DIR)
+
+
+def test_a_cpu_run_samples_no_card_in_a_process_that_used_one(monkeypatch):
+    """The run declares its cards: a CPU run after a card run in one
+    process takes no node-boundary memory sample, as the JAX package's CPU
+    backend takes none."""
+    monkeypatch.setattr(tdevice.torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(tdevice.torch.cuda, "device_count", lambda: 1)
+    assert tdevice.run_devices() == [tdevice.torch.device("cuda", 0)]
+    reg = tmetrics.arm()
+    tdevice.set_run_devices([])
+    try:
+        assert tdevice.run_devices() == []
+        ttransfers.node_hbm_boundary("round1_polish")
+        assert "node_hbm" not in reg.summary().get("transfers", {})
+        assert "memory.reconcile" not in reg.summary()["counters"]
+    finally:
+        tdevice.set_run_devices(None)
+        tmetrics.disarm()
