@@ -119,10 +119,31 @@ of which fails the script (non-zero exit, no result line):
    raises), and, in a process of its own through the CLI, a ``preempt``
    (exit 143) and a ``kill`` (exit 137) at ``run.round1_checkpoint``, each
    completed by ``resume: true``, then a ``corrupt-artifact`` caught by
-   ``verify_resume: "full"`` (a ``resume.verify`` rerun). Each drill must
+   ``verify_resume: "full"`` (a ``resume.verify`` rerun), and last a
+   ``corrupt-input`` under ``on_bad_record: "drop"`` (``dropped`` events,
+   no quarantine file). Each drill must
    end with the truth's counts and the undisturbed run's counts CSV and
    merged FASTA; its ``robustness_report.json`` events (site,
-   classification, outcome) and the phase's seconds are printed.
+   classification, outcome) and the phase's seconds are printed;
+10. ingest validation on the card: phase 8's full lane again under
+   ``on_bad_record: "quarantine"``, ``contracts: "strict"`` and the
+   ``corrupt-input`` drill (three malformed blocks spliced between
+   records), launches counted from zero: the truth's counts, every file
+   under ``nano_tcr/`` byte-identical to phase 8's first run but the files
+   of timings and :data:`INGEST_DIFFERS`, B1 and B2 launched as often as
+   there, at least three ``quarantined`` events with canonical reasons and
+   one ``summary``, no contract violated, and ``quarantine.fastq.gz``
+   holding exactly the spliced blocks (cut from the corrupted copy at the
+   events' offsets, they leave the lane's file); its seconds and reads/s
+   beside phase 8's, and, on the host, the drill's gzip rewrite of the
+   corrupted lane, the tolerant parse of it and the strict parse of the
+   clean lane, one call each. Then ``--validate`` in processes that must not load
+   torch: exit 0 naming the lane's records on its config, exit 1 naming
+   the malformed records with the first one's offset and reason on a copy
+   whose discovered input is the corrupted file. Then the analysis verb
+   (``python -m ont_tcrconsensus_tpu_torch.qc.analysis_cli``) on phase 8's
+   first run, its summaries and ``outs/`` files printed, or, where
+   matplotlib does not import, a line saying it was not run and why.
 
 Each phase's start (seconds since the script began) is printed. Then one
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
@@ -748,6 +769,11 @@ def _run_lane(root: str, knobs: dict, device: str, timings: dict | None = None,
 # the observation files' keys and names are compared instead)
 TIMED_FILES = ("barcode01/stage_manifest.json", "barcode01/logs/stage_timing.tsv",
                "telemetry.json", "history.jsonl")
+# the files of a corrupted run under quarantine that differ from the clean
+# run's: the report (the ingest events, the chaos plan, strict contracts)
+# and the quarantine artifact; tests/test_torch_ingest_e2e.py holds this
+# list to the JAX package's clean and corrupted runs
+INGEST_DIFFERS = ("robustness_report.json", "barcode01/quarantine.fastq.gz")
 # the gauge only a run on the card has
 DEVICE_GAUGE = "device.hbm_bytes_in_use"
 # and the graph executor's node-boundary memory samples, which only a run
@@ -879,10 +905,11 @@ def small_e2e(method: str) -> dict:
             "counts_exact": True, "obs": obs}
 
 
-# --report in a subprocess: the run's exit code and whether torch was loaded
-_REPORT_PROBE = r"""
+# the CLI in a subprocess (--report, --validate): its exit code and whether
+# torch was loaded
+_CLI_PROBE = r"""
 import runpy, sys
-sys.argv = ["ont_tcrconsensus_tpu_torch", "--report", sys.argv[1]]
+sys.argv = ["ont_tcrconsensus_tpu_torch", *sys.argv[1:]]
 try:
     runpy.run_module("ont_tcrconsensus_tpu_torch", run_name="__main__")
     rc = 0
@@ -892,6 +919,13 @@ loaded = any(m == "torch" or m.startswith("torch.") for m in sys.modules)
 sys.stderr.write(f"TORCH_LOADED={loaded}\n")
 sys.exit(rc)
 """
+
+
+def _cli_probe(*args: str) -> subprocess.CompletedProcess:
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    return subprocess.run([sys.executable, "-c", _CLI_PROBE, *args], capture_output=True,
+                          text=True, env=env, cwd=ROOT, timeout=300)
 
 
 def _poll_live(polled: dict, stop) -> None:
@@ -978,10 +1012,7 @@ def observation_phase() -> dict:
     kernels_named = {k: k.encode() in raw for k in ("sw_banded_kernel", "pileup_forward_kernel")}
     if not all(kernels_named.values()):
         raise AssertionError(f"observation: the profiler trace lacks a kernel: {kernels_named}")
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = ROOT
-    rep = subprocess.run([sys.executable, "-c", _REPORT_PROBE, os.path.dirname(nano)],
-                         capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+    rep = _cli_probe("--report", os.path.dirname(nano))
     if rep.returncode != 0 or "TORCH_LOADED=False" not in rep.stderr:
         raise AssertionError(f"observation: --report rc {rep.returncode}: {rep.stderr[-2000:]}")
     report = json.loads(tree["robustness_report.json"])
@@ -1003,6 +1034,8 @@ def observation_phase() -> dict:
 # the robustness drills' config: the small lane under the cheap polish,
 # with no back-off between retries
 DRILL_KNOBS = {**SMALL_KNOBS, "polish_method": "poa", "retry_base_delay_s": 0.0}
+# three malformed blocks spliced between the library's records
+CORRUPT_INPUT = [{"site": "ingest.library_fastq", "kind": "corrupt-input"}]
 DRILL_FILES = ("counts/umi_consensus_counts.csv", "fasta/merged_consensus.fasta")
 
 
@@ -1140,6 +1173,17 @@ def robustness_phase() -> dict:
                                              "kind": "corrupt-artifact"}]},
                            "cuda", fresh=False),
            (("resume.verify", "integrity", "rerun"),))
+
+    # malformed records under on_bad_record drop: counted and reported,
+    # written nowhere
+    name = "corrupt-input under drop"
+    finish(name, _run_lane(root, {**DRILL_KNOBS, "on_bad_record": "drop",
+                                  "chaos": CORRUPT_INPUT}, "cuda"),
+           (("ingest.quarantine", "data_fault", "dropped"),
+            ("ingest.quarantine", "data_fault", "summary")))
+    if os.path.exists(os.path.join(root, "fastq_pass", "nano_tcr", "barcode01",
+                                   "quarantine.fastq.gz")):
+        raise AssertionError(f"drill {name}: a quarantine file was written")
     return {"n_reads": len(lib.reads), "seconds": time.perf_counter() - t_phase,
             "drills": drills}
 
@@ -1271,24 +1315,28 @@ def plant_calls(tel: dict) -> dict:
             "sample": sum(h["count"] for h in tel["histograms"].values())}
 
 
-# the full lane's runs: the default config (rnn polish, QC profiles on
-# the overlapped worker, telemetry on), the same without the error
-# profiles, with them on the main thread and without telemetry, and the
-# vote consensus alone
+# the full lane's knobs (its default config otherwise)
+FULL_KNOBS = {"minimal_length": 1000, "min_reads_per_cluster": 4, "read_batch_size": 1024}
+# the lanes' runs: the default config (rnn polish, QC profiles on the
+# overlapped worker, telemetry on), the same without the error profiles,
+# with them on the main thread and without telemetry, and the vote
+# consensus alone
 LANE_RUNS = {**POLISH, "rnn, error_profile_sample 0": {"error_profile_sample": 0},
              "rnn, overlap_qc false": {"overlap_qc": False},
              "rnn, executor imperative": {"executor": "imperative"},
              "rnn, telemetry off": {"telemetry": "off"}}
 
 
-def full_e2e(kernels, rounds: int) -> dict:
+def full_e2e(kernels, rounds: int):
     """The full lane under the default config, then, on the small lane,
     ``rounds`` times in turns the default config without the error
     profiles, with them on the main thread, under the imperative order, as
     it is and without telemetry, then once under ``poa``.
     Kernel launches are counted over the first run (recorded by shape for
     :func:`launch_gaps`) and over the ``poa`` run, each from zero. Each
-    default run's telemetry.json is read back and its roll-up timed."""
+    default run's telemetry.json is read back and its roll-up timed.
+    Returns the numbers and the full lane's simulated library (its first
+    run's output stays in ``build/chip_smoke/lane_full`` for phase 10)."""
     import torch
 
     from ont_tcrconsensus_tpu_torch.io import simulator
@@ -1310,9 +1358,7 @@ def full_e2e(kernels, rounds: int) -> dict:
     for lane, lib in libs.items():
         _write_lane(roots[lane], lib)
     data_s = time.perf_counter() - t0
-    lane_knobs = {"full": {"minimal_length": 1000, "min_reads_per_cluster": 4,
-                           "read_batch_size": 1024},
-                  "small": SMALL_KNOBS}
+    lane_knobs = {"full": FULL_KNOBS, "small": SMALL_KNOBS}
     methods = (["rnn"] + ["rnn, error_profile_sample 0", "rnn, overlap_qc false",
                           "rnn, executor imperative", "rnn", "rnn, telemetry off"] * rounds
                + ["poa"])
@@ -1389,7 +1435,166 @@ def full_e2e(kernels, rounds: int) -> dict:
                                      _pileup_costs, dev)}}
     if diffs:
         out["count_diffs"] = diffs
-    return out
+    return out, libs["full"]
+
+
+def ingest_phase(lib, clean: dict, kernels) -> dict:
+    """Phase 10: ingest validation on the card; see the module docstring.
+    ``clean`` is phase 8's numbers (the full lane's first run is its
+    clean run, its output still in place)."""
+    import gzip
+    import importlib.util
+
+    import torch
+
+    from ont_tcrconsensus_tpu_torch.io import fastx, validate
+    from ont_tcrconsensus_tpu_torch.robustness import faults
+
+    t_phase = time.perf_counter()
+    full_root = os.path.join(WORK, "lane_full")
+    root = os.path.join(WORK, "ingest_full")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "fastq_pass", "barcode01"))
+    shutil.copy(os.path.join(full_root, "reference.fa"), root)
+    lane_fastq = os.path.join("fastq_pass", "barcode01", "barcode01.fastq.gz")
+    shutil.copy(os.path.join(full_root, lane_fastq), os.path.join(root, lane_fastq))
+
+    # the full lane under quarantine with three malformed blocks spliced in
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    stage_s: dict[str, float] = {}
+    t0 = time.perf_counter()
+    got = _run_lane(root, {**FULL_KNOBS, "on_bad_record": "quarantine",
+                           "contracts": "strict", "chaos": CORRUPT_INPUT},
+                    "cuda", timings=stage_s)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    if got.get("barcode01") != lib.true_counts:
+        raise AssertionError(f"ingest: counts under quarantine {got.get('barcode01')} != the "
+                             "truth")
+    if launches != clean["launches"]["rnn"]:
+        raise AssertionError(f"ingest: launches under quarantine {launches} != the clean "
+                             f"run's {clean['launches']['rnn']}")
+    tree, clean_tree = _artifacts(root), _artifacts(full_root)
+    skip = set(TIMED_FILES) | set(INGEST_DIFFERS)
+    only = sorted((set(tree) ^ set(clean_tree)) - skip)
+    differ = sorted(rel for rel in set(tree) & set(clean_tree) - skip
+                    if tree[rel] != clean_tree[rel])
+    if only or differ:
+        raise AssertionError(f"ingest: files of the quarantine run differ from the clean "
+                             f"run's: only on one side {only}, differing {differ}")
+    report = json.loads(tree["robustness_report.json"])
+    events = [e for e in report["events"] if e["site"] == "ingest.quarantine"]
+    bad = [e for e in events if e["outcome"] == "quarantined"]
+    summary = [e for e in events if e["outcome"] == "summary"]
+    reasons = {validate.R_GZIP, validate.R_NOT_FASTX, validate.R_BAD_HEADER,
+               validate.R_MISSING_PLUS, validate.R_LEN_MISMATCH, validate.R_BAD_QUAL,
+               validate.R_TRUNCATED}
+    if (len(bad) < 3 or len(summary) != 1 or len(events) != len(bad) + 1
+            or any(e["detail"]["reason"] not in reasons for e in bad)):
+        raise AssertionError(f"ingest: the report's ingest events are wrong: {events}")
+    contracts = report["contracts"]
+    if contracts["mode"] != "strict" or contracts["violated"]:
+        raise AssertionError(f"ingest: contracts {contracts}")
+    # the quarantine file holds exactly the spliced blocks: cut at the
+    # events' offsets from the corrupted copy, they leave the clean lane
+    quarantined = gzip.decompress(tree["barcode01/quarantine.fastq.gz"])
+    with open(os.path.join(root, "fastq_pass", "barcode01",
+                           "barcode01.chaos-corrupt.gz"), "rb") as fh:
+        corrupted = gzip.decompress(fh.read())
+    with open(os.path.join(root, lane_fastq), "rb") as fh:
+        original = gzip.decompress(fh.read())
+    spans = [(e["detail"]["offset"], e["detail"]["offset"] + e["detail"]["bytes"])
+             for e in bad]
+    blocks = [corrupted[a:b] for a, b in spans]
+    rest = b"".join(corrupted[a:b] for a, b in zip([0] + [e for _, e in spans],
+                                                    [s for s, _ in spans] + [None]))
+    if (b"".join(blocks) != quarantined or rest != original
+            or any(b not in faults._CORRUPT_BLOCKS for b in blocks)):
+        raise AssertionError("ingest: quarantine.fastq.gz does not hold exactly the "
+                             f"spliced blocks: {[b[:40] for b in blocks]}")
+    # what the run's round1_fused_assign spends on the host beside the
+    # clean run's: the drill's rewrite of the corrupted copy (the graph
+    # node times it) and the tolerant parse against the strict one
+    host_s = {}
+    t0 = time.perf_counter()
+    gzip.compress(corrupted)
+    host_s["drill_recompress"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    validate.parse_path_tolerant(os.path.join(root, "fastq_pass", "barcode01",
+                                              "barcode01.chaos-corrupt.gz"))
+    host_s["tolerant_parse"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sum(1 for _ in fastx.read_fastx(os.path.join(root, lane_fastq)))
+    host_s["strict_parse"] = time.perf_counter() - t0
+
+    # --validate in processes of their own: the full lane's config, and a
+    # copy of the lane with the corrupted file under a name input
+    # discovery finds
+    cfgs = {}
+    for name, lane_root in (("clean", full_root), ("spliced", os.path.join(WORK, "ingest_v"))):
+        if name == "spliced":
+            shutil.rmtree(lane_root, ignore_errors=True)
+            os.makedirs(os.path.join(lane_root, "fastq_pass", "barcode01"))
+            shutil.copy(os.path.join(full_root, "reference.fa"), lane_root)
+            with gzip.open(os.path.join(lane_root, lane_fastq), "wb") as fh:
+                fh.write(corrupted)
+        cfgs[name] = os.path.join(lane_root, "validate_config.json")
+        with open(cfgs[name], "w") as fh:
+            json.dump({"reference_file": os.path.join(lane_root, "reference.fa"),
+                       "fastq_pass_dir": os.path.join(lane_root, "fastq_pass"),
+                       **FULL_KNOBS}, fh)
+    checks = {}
+    for name, want_rc in (("clean", 0), ("spliced", 1)):
+        t0 = time.perf_counter()
+        proc = _cli_probe(cfgs[name], "--validate")
+        checks[name] = {"rc": proc.returncode, "s": time.perf_counter() - t0,
+                        "torch_loaded": "TORCH_LOADED=False" not in proc.stderr,
+                        "line": (proc.stdout.strip().splitlines() or [""])[-1],
+                        "problems": [ln for ln in proc.stdout.splitlines()
+                                     if ln.startswith("PROBLEM")]}
+        if proc.returncode != want_rc or checks[name]["torch_loaded"]:
+            raise AssertionError(f"ingest: --validate ({name}) rc {proc.returncode}, want "
+                                 f"{want_rc}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    first = bad[0]["detail"]
+    if checks["clean"]["line"] != (f"validate: OK (1 input file(s), {len(lib.reads)} "
+                                   "records)"):
+        raise AssertionError(f"ingest: --validate on the clean lane: {checks['clean']}")
+    want = (f"{len(bad)} malformed record(s); first at byte offset {first['offset']}: "
+            f"{first['reason']}")
+    if not any(want in p for p in checks["spliced"]["problems"]):
+        raise AssertionError(f"ingest: --validate on the spliced lane does not name "
+                             f"{want!r}: {checks['spliced']}")
+
+    # the analysis verb on the full lane's first run
+    analysis = {"run": importlib.util.find_spec("matplotlib") is not None}
+    if analysis["run"]:
+        nano = os.path.join(full_root, "fastq_pass", "nano_tcr")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "ont_tcrconsensus_tpu_torch.qc.analysis_cli", nano,
+             os.path.join(full_root, "reference.fa")],
+            capture_output=True, text=True, cwd=ROOT, timeout=600,
+            env={**{k: v for k, v in os.environ.items() if k != "PYTHONPATH"},
+                 "PYTHONPATH": ROOT, "MPLCONFIGDIR": os.path.join(WORK, "matplotlib")})
+        if proc.returncode != 0:
+            raise AssertionError(f"ingest: the analysis verb failed: {proc.stderr[-2000:]}")
+        summaries = json.loads(proc.stdout)
+        analysis.update(s=time.perf_counter() - t0, summary=summaries,
+                        outs=sorted(os.listdir(os.path.join(nano, "barcode01", "outs"))))
+    else:
+        analysis["why"] = "matplotlib does not import on this host"
+    return {"n_reads": len(lib.reads), "run_s": run_s, "reads_per_s": len(lib.reads) / run_s,
+            "clean_s": clean["seconds"][0], "clean_reads_per_s": clean["reads_per_s"][0],
+            "launches": launches, "stage_s": stage_s, "host_s": host_s,
+            "files_compared": len(set(tree) & set(clean_tree) - skip),
+            "events": [(e["outcome"], e["detail"].get("reason"), e["detail"].get("offset"))
+                       for e in events],
+            "quarantine_bytes": len(quarantined), "contracts_checked": contracts["checked"],
+            "validate": checks, "analysis": analysis,
+            "seconds": time.perf_counter() - t_phase}
 
 
 # ---------------------------------------------------------------------------
@@ -1537,7 +1742,8 @@ def main(argv=None) -> int:
     # overlapped, under the imperative order and without telemetry, then the
     # poa path), and the plants' cost
     kernels = (sw_kernel.align_banded_cuda, pileup_kernel.forward_planes_cuda)
-    full = report["full_e2e"] = full_e2e(kernels, max(args.lane_runs, 0))
+    full, full_lib = full_e2e(kernels, max(args.lane_runs, 0))
+    report["full_e2e"] = full
     plants = report["plant_cost_us"] = plant_cost(dev)
     print(f"full e2e: full lane {full['n_reads']} reads, small lane {full['small_n_reads']} "
           "reads; "
@@ -1644,8 +1850,39 @@ def main(argv=None) -> int:
           f"{rob['seconds']:.1f} s", flush=True)
     _dump(args.out, report)
 
-    phase("10 kernels line")
-    # 10. kernels line
+    phase("10 ingest")
+    # 10. ingest validation on the card: the full lane under quarantine,
+    # --validate, the analysis verb
+    ing = report["ingest"] = ingest_phase(full_lib, full, kernels)
+    print(f"ingest: full lane ({ing['n_reads']} reads) under quarantine, contracts strict, "
+          f"three blocks spliced: {ing['run_s']:.2f} s ({ing['reads_per_s']:.1f} reads/s; the "
+          f"clean run of phase 8 {ing['clean_s']:.2f} s, {ing['clean_reads_per_s']:.1f} "
+          f"reads/s); counts exact; {ing['files_compared']} files byte-identical to the clean "
+          f"run's; launches {ing['launches']} (the clean run's); events "
+          + ", ".join(f"{o} {r!r} at {off}" for o, r, off in ing["events"])
+          + f"; quarantine.fastq.gz holds exactly the spliced blocks ({ing['quarantine_bytes']} "
+          f"B); contracts strict, none violated ({ing['contracts_checked']})", flush=True)
+    print("ingest stages (s): " + ", ".join(f"{k} {v:.2f}" for k, v in ing["stage_s"].items()),
+          flush=True)
+    print("ingest on the host (s): " + ", ".join(f"{k} {v:.2f}" for k, v in ing["host_s"].items())
+          + " (the drill's gzip rewrite of the corrupted lane, the tolerant parse of it, the "
+          "strict parse of the clean lane)", flush=True)
+    for name, v in ing["validate"].items():
+        print(f"ingest --validate ({name} lane): exit {v['rc']} in {v['s']:.2f} s, torch not "
+              f"loaded; {v['line']}" + "".join(f"; {p}" for p in v["problems"]), flush=True)
+    an = ing["analysis"]
+    if an["run"]:
+        print(f"ingest analysis verb ({an['s']:.2f} s): summaries " + "; ".join(
+              f"{lib_key}: " + ", ".join(f"{k} {v}" for k, v in summ.items())
+              for lib_key, summ in an["summary"].items())
+              + f"; outs/ {', '.join(an['outs'])}", flush=True)
+    else:
+        print(f"ingest analysis verb: not run: {an['why']}", flush=True)
+    print(f"ingest: {ing['seconds']:.1f} s", flush=True)
+    _dump(args.out, report)
+
+    phase("11 kernels line")
+    # 11. kernels line
     entries = []
     for k, key, name, src, replaces in (
         (sw_kernel.align_banded_cuda, "sw", "sw_banded",

@@ -40,7 +40,7 @@ def _log(*parts: object) -> None:
 
 def round1_fused_assign(ctx, inputs: dict) -> dict:
     """One fused pass per batch (trim -> EE -> align -> UMI locate),
-    transient-retried."""
+    transient-retried, with ingest quarantine when configured."""
     from ont_tcrconsensus_tpu_torch.pipeline import run as run_mod
     from ont_tcrconsensus_tpu_torch.pipeline import stages
     from ont_tcrconsensus_tpu_torch.robustness import faults, retry
@@ -49,20 +49,28 @@ def round1_fused_assign(ctx, inputs: dict) -> dict:
     library = lay.library
     _log("Preprocessing, aligning and UMI-tagging nanopore reads:", library)
     fastq = faults.mutate_input("ingest.library_fastq", inputs["library_fastq"])
-    store, astats = retry.call_with_retry(
-        "assign.round1",
-        lambda: stages.run_assign(
-            fastq, ctx.engine,
-            max_ee_rate=cfg.max_ee_rate_base,
-            min_len=cfg.minimal_length,
-            minimal_region_overlap=cfg.minimal_region_overlap,
-            max_softclip_5_end=cfg.max_softclip_5_end,
-            max_softclip_3_end=cfg.max_softclip_3_end,
-            batch_size=ctx.read_batch,
-            max_read_length=cfg.max_read_length,
-            subsample=cfg.dorado_trim_subsample_fastq,
-        ),
-    )
+    guard = run_mod.ingest_guard(cfg, lay, fastq)
+    try:
+        store, astats = retry.call_with_retry(
+            "assign.round1",
+            lambda: stages.run_assign(
+                fastq, ctx.engine,
+                max_ee_rate=cfg.max_ee_rate_base,
+                min_len=cfg.minimal_length,
+                minimal_region_overlap=cfg.minimal_region_overlap,
+                max_softclip_5_end=cfg.max_softclip_5_end,
+                max_softclip_3_end=cfg.max_softclip_3_end,
+                batch_size=ctx.read_batch,
+                max_read_length=cfg.max_read_length,
+                subsample=cfg.dorado_trim_subsample_fastq,
+                guard=guard,
+            ),
+            reset=guard.reset if guard is not None else None,
+        )
+    finally:
+        # finalize even when the library fails: the quarantine gzip must
+        # gain its trailer and the ingest events must reach the report
+        run_mod.finalize_ingest_guard(guard, library)
     run_mod._write_assign_logs(astats, lay)
     return {"read_store": store, "align_stats": astats}
 

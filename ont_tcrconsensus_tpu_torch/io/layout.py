@@ -102,6 +102,13 @@ class LibraryLayout:
         return self._sub("counts")
 
     @property
+    def quarantine_path(self) -> str:
+        """Per-library quarantine artifact (on_bad_record=quarantine): the
+        raw bytes of every malformed input region, gzip-compressed, with
+        machine-readable reasons in robustness_report.json."""
+        return self._sub("quarantine.fastq.gz")
+
+    @property
     def manifest_path(self) -> str:
         return self._sub("stage_manifest.json")
 

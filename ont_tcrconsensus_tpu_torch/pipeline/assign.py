@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ont_tcrconsensus_tpu_torch.device import resolve_device
-from ont_tcrconsensus_tpu_torch.io import bucketing, fastx
+from ont_tcrconsensus_tpu_torch.io import bucketing, fastx, validate
 from ont_tcrconsensus_tpu_torch.obs import device as obs_device
 from ont_tcrconsensus_tpu_torch.obs import metrics as obs_metrics
 from ont_tcrconsensus_tpu_torch.ops import ee_filter, encode, fuzzy_match, sketch, sw_kernel
@@ -567,6 +567,7 @@ def run_assign(
     collect_qc: list | None = None,
     subsample: int | None = None,
     dispatch=None,
+    guard=None,
 ) -> tuple[ReadStore, AlignStats]:
     """Stream a fastx file or record iterable through the fused pass.
 
@@ -583,6 +584,12 @@ def run_assign(
     readback under the same site (the wait and the copy), the JAX package's
     split. The ingest, partition and store conservation contracts are
     checked at the end.
+
+    ``guard`` (an :class:`..io.validate.IngestGuard`) switches a path
+    source to the tolerant parser: malformed records and regions go to the
+    guard (quarantine or drop, per its policy) instead of raising, and
+    parsing resynchronizes at the next record. Without a guard a malformed
+    record raises, as before.
     """
     panel = engine.panel
     stats = AlignStats()
@@ -693,7 +700,8 @@ def run_assign(
     else:
         if isinstance(source, (str, bytes)) or hasattr(source, "__fspath__"):
             source_desc = source
-            source = fastx.read_fastx(source)
+            source = (fastx.read_fastx(source) if guard is None
+                      else validate.iter_records_tolerant(source, guard))
         records = iter(source)
 
         def limited():

@@ -7,9 +7,10 @@ on the CPU. The variable only ever selects the CPU: without it and without
 is the JAX package's (same keys, same checks). A run stopped by
 SIGTERM/SIGINT (or a chaos ``preempt``) exits 143 with every committed
 checkpoint intact; ``resume: true`` continues it.
-``--report <workdir>`` renders a finished run's artifacts without loading
-torch, so it works on a host whose card is wedged; ``--live-port`` arms
-the live plane for the run.
+``--report <workdir>`` renders a finished run's artifacts and
+``--validate`` checks a run's config, graph, inputs and existing stage
+manifests, both without loading torch, so they work on a host whose card
+is wedged; ``--live-port`` arms the live plane for the run.
 """
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ def main(argv: list[str] | None = None) -> int:
         "reads files only and never imports torch",
     )
     parser.add_argument("--json", action="store_true",
-                        help="With --report: the machine-readable dump instead of the text")
+                        help="With --report or --validate: the machine-readable dump "
+                        "instead of the text (the same exit codes)")
     parser.add_argument(
         "--critical-path", action="store_true",
         help="With --report: the critical path through the executed stage graph "
@@ -55,17 +57,25 @@ def main(argv: list[str] | None = None) -> int:
         "/metrics and /progress on 127.0.0.1:PORT and the crash flight recorder; "
         "0 binds an ephemeral port",
     )
+    parser.add_argument(
+        "--validate", action="store_true",
+        help="Dry run: parse the config, scan every input file with the tolerant "
+        "parser (record counts and sizes, no device work, no torch import), run the "
+        "graftcheck analysis of the declared stage graph, audit an existing workdir's "
+        "stage manifests (torn or v1 manifests, full sha256 of completed artifacts), "
+        "print a validation report and exit non-zero on any problem",
+    )
     args = parser.parse_args(sys.argv[1:] if argv is None else argv)
 
-    if args.json and not args.report:
-        parser.error("--json is a --report option")
+    if args.json and not (args.report or args.validate):
+        parser.error("--json is a --report/--validate option")
     if args.critical_path and not args.report:
         parser.error("--critical-path is a --report option")
     if args.memory and not args.report:
         parser.error("--memory is a --report option")
-    if args.live_port is not None and args.report:
+    if args.live_port is not None and (args.report or args.validate):
         parser.error("--live-port is a run option (it arms a live endpoint for the "
-                     "run's duration; --report exits at once)")
+                     "run's duration; --report/--validate exit at once)")
 
     if args.report:
         # never loads torch: works on a host whose card is wedged
@@ -75,6 +85,12 @@ def main(argv: list[str] | None = None) -> int:
             args.json_config_file, as_json=args.json,
             critical_path=args.critical_path, memory=args.memory,
         )
+
+    if args.validate:
+        # never loads torch either
+        from ont_tcrconsensus_tpu_torch.io import validate as validate_mod
+
+        return validate_mod.validate_inputs(args.json_config_file, as_json=args.json)
 
     from ont_tcrconsensus_tpu_torch.pipeline.run import run_pipeline
     from ont_tcrconsensus_tpu_torch.robustness import shutdown

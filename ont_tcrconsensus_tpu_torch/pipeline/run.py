@@ -32,7 +32,10 @@ is skipped and reported, and its round is not checkpointed;
 SIGTERM/SIGINT stop the run at the next stage boundary with
 :class:`..robustness.shutdown.Preempted`; ``resume=True`` continues from the
 stage manifest after verifying the checkpointed artifacts
-(``verify_resume``).
+(``verify_resume``). Malformed input records fail their library under
+``on_bad_record: "fail"`` (the default); under ``"quarantine"`` they go to
+the library's ``quarantine.fastq.gz``, under ``"drop"`` nowhere, and both
+report them in ``robustness_report.json`` (:mod:`..io.validate`).
 
 The observation layer (:mod:`..obs`) is armed around the run as in the JAX
 package: ``telemetry`` ``on`` (the default) writes ``telemetry.json`` and
@@ -75,6 +78,7 @@ from ont_tcrconsensus_tpu_torch.graph import check as graph_check
 from ont_tcrconsensus_tpu_torch.graph import executor as graph_exec
 from ont_tcrconsensus_tpu_torch.graph import pipeline as graph_pipeline
 from ont_tcrconsensus_tpu_torch.io import bucketing, fastx, layout
+from ont_tcrconsensus_tpu_torch.io import validate as validate_mod
 from ont_tcrconsensus_tpu_torch.obs import device as obs_device
 from ont_tcrconsensus_tpu_torch.obs import history as obs_history
 from ont_tcrconsensus_tpu_torch.obs import live as obs_live
@@ -105,13 +109,34 @@ DEFAULT_BLAST_ID_BAR = 0.99
 _NOT_YET = (
     ("mesh_shape", bool, "mesh_shape needs the multi-GPU mesh slice of the port"),
     ("distributed", bool, "distributed needs the multi-GPU mesh slice of the port"),
-    ("on_bad_record", lambda v: v != "fail",
-     "on_bad_record quarantine/drop needs the ingest validation slice of the port"),
 )
 
 
 def _log(*parts):
     print(*parts, file=sys.stderr)
+
+
+def ingest_guard(cfg: RunConfig, lay, fastq) -> validate_mod.IngestGuard | None:
+    """The library's ingest guard under ``on_bad_record`` quarantine or
+    drop (None under ``fail``): created after the input's chaos mutation,
+    so it names the file the pass reads."""
+    if cfg.on_bad_record == "fail":
+        return None
+    return validate_mod.IngestGuard(cfg.on_bad_record, source=os.fspath(fastq),
+                                    quarantine_path=lay.quarantine_path)
+
+
+def finalize_ingest_guard(guard, library: str) -> None:
+    """Close the quarantine artifact and push the ingest events to the
+    run's report; called in a ``finally``, so a failed library still gets
+    both."""
+    if guard is None:
+        return
+    qsummary = guard.finalize(retry.recorder())
+    if qsummary["n_bad"]:
+        verb = "quarantined" if guard.policy == "quarantine" else "dropped"
+        _log(f"ingest: {qsummary['n_bad']} bad record(s) in "
+             f"{library} {verb} ({qsummary['by_reason']})")
 
 
 def check_supported(cfg: RunConfig) -> None:
@@ -671,22 +696,30 @@ def _run_library_impl(fastq, lay, ctx: _RunContext, timer: StageTimer,
     # chaos site for file-level data faults: a mutated sibling copy of the
     # input is read instead (the original is never touched)
     fastq = faults.mutate_input("ingest.library_fastq", fastq)
-    # watchdog guard over per-batch heartbeats (assign.py): a hung dispatch
-    # cancels into the transient retry below
-    with timer.stage("round1_fused_assign"), watchdog.guard("round1_fused_assign"):
-        # the pass is idempotent (it streams the fastq into a fresh store),
-        # so a transient fault re-runs it whole
-        store, astats = retry.call_with_retry("assign.round1", lambda: stages.run_assign(
-            fastq, ctx.engine,
-            max_ee_rate=cfg.max_ee_rate_base,
-            min_len=cfg.minimal_length,
-            minimal_region_overlap=cfg.minimal_region_overlap,
-            max_softclip_5_end=cfg.max_softclip_5_end,
-            max_softclip_3_end=cfg.max_softclip_3_end,
-            batch_size=ctx.read_batch,
-            max_read_length=cfg.max_read_length,
-            subsample=cfg.dorado_trim_subsample_fastq,
-        ))
+    # under on_bad_record quarantine/drop the damage goes to the guard while
+    # the clean records flow through untouched
+    guard = ingest_guard(cfg, lay, fastq)
+    try:
+        # watchdog guard over per-batch heartbeats (assign.py): a hung
+        # dispatch cancels into the transient retry below
+        with timer.stage("round1_fused_assign"), watchdog.guard("round1_fused_assign"):
+            # the pass is idempotent (it streams the fastq into a fresh
+            # store), so a transient fault re-runs it whole; the guard
+            # resets with it, so a retry cannot count a bad record twice
+            store, astats = retry.call_with_retry("assign.round1", lambda: stages.run_assign(
+                fastq, ctx.engine,
+                max_ee_rate=cfg.max_ee_rate_base,
+                min_len=cfg.minimal_length,
+                minimal_region_overlap=cfg.minimal_region_overlap,
+                max_softclip_5_end=cfg.max_softclip_5_end,
+                max_softclip_3_end=cfg.max_softclip_3_end,
+                batch_size=ctx.read_batch,
+                max_read_length=cfg.max_read_length,
+                subsample=cfg.dorado_trim_subsample_fastq,
+                guard=guard,
+            ), reset=guard.reset if guard is not None else None)
+    finally:
+        finalize_ingest_guard(guard, library)
     _write_assign_logs(astats, lay)
 
     pending: list = []

@@ -336,7 +336,6 @@ def test_the_card_is_the_default_and_its_absence_raises(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("knob,value", [
     ("mesh_shape", {"data": 2}), ("distributed", True),
-    ("on_bad_record", "quarantine"), ("on_bad_record", "drop"),
 ])
 def test_knobs_of_later_slices_raise(tmp_path, knob, value):
     cfg = _config(tmp_path, **{knob: value})

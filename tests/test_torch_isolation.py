@@ -53,7 +53,7 @@ def test_importing_every_port_module_loads_no_jax():
                  "obs.history", "obs.critical_path", "obs.report", "obs.live",
                  "graph", "graph.ir", "graph.check", "graph.nodes", "graph.pipeline",
                  "graph.executor", "robustness.faults", "robustness.locks",
-                 "robustness.shutdown"):
+                 "robustness.shutdown", "io.validate", "qc.analysis", "qc.analysis_cli"):
         assert f"ont_tcrconsensus_tpu_torch.{must}" in report["modules"]
 
 
@@ -130,15 +130,17 @@ for name in sys.argv[1:]:
 print(json.dumps(sorted(m for m in sys.modules if m == "torch" or m.startswith("torch."))))
 """
 
-# modules the --report path and the ledger readers reach, and the graph's
-# declaration and static check: they must load without torch, so a host
-# whose card is wedged can still read a run and check its graph
+# modules the --report and --validate paths and the ledger readers reach,
+# the graph's declaration and static check, and the analysis verb: they
+# must load without torch, so a host whose card is wedged can still check
+# a run's inputs, read a run and analyse it
 TORCH_FREE = ("pipeline.cli", "obs.report", "obs.history", "obs.critical_path",
               "obs.transfers", "obs.metrics", "obs.trace", "obs.live",
               "robustness.lockcheck", "robustness.watchdog", "robustness.jobscope",
               "robustness.faults", "robustness.locks", "robustness.shutdown",
               "io.layout", "graph", "graph.ir", "graph.check", "graph.nodes",
-              "graph.pipeline")
+              "graph.pipeline", "io.validate", "io.fastx", "pipeline.config",
+              "ops._build", "qc.analysis", "qc.analysis_cli")
 
 
 def test_the_report_path_loads_no_torch():
