@@ -143,7 +143,32 @@ of which fails the script (non-zero exit, no result line):
    whose discovered input is the corrupted file. Then the analysis verb
    (``python -m ont_tcrconsensus_tpu_torch.qc.analysis_cli``) on phase 8's
    first run, its summaries and ``outs/`` files printed, or, where
-   matplotlib does not import, a line saying it was not run and why.
+   matplotlib does not import, a line saying it was not run and why;
+11. the data mesh (``parallel/mesh.py``, ``parallel/distributed.py``):
+   phase 8's full lane under the default config plus ``mesh_shape:
+   {"data": torch.cuda.device_count()}`` (data=1 on a one-card host,
+   every card on a larger one), launches counted from zero and by slice:
+   the truth's counts, every file under ``nano_tcr/`` byte-identical to
+   phase 8's first run but the files of timings (and, at data > 1,
+   :data:`MESH_DIFFERS`), every kernel launched on every slice,
+   ``mesh_slice_busy`` for every slice and ``mesh_config`` in
+   ``history.jsonl``; its seconds and reads/s beside phase 8's. Then B1 at
+   B=2048, L=2048, W=128 and B2 at N=1024, L=2048, W=64 split over a
+   ``data=2`` mesh of two slices of ONE card (``cuda:0`` twice), each bit
+   for bit the unsplit launch, both timed (CUDA-event medians of 5). Then
+   the small lane under ``poa`` at ``data=2`` over those two slices of
+   the card (``install_slice_devices``): undisturbed (every file the
+   unsharded run's but :data:`MESH_DIFFERS`), ``mesh.device_lost`` (one
+   ``mesh.degraded`` event at ``round1_polish``, data 2 to 1, the lost
+   slice gauged 0), ``mesh.slice_oom`` (``oom_shrink``, no degradation)
+   and a transient ``mesh.dispatch`` (``retried``), each ending with the
+   unsharded run's counts CSV and merged FASTA. Last, two CLI processes
+   with ``TCR_CONSENSUS_DISTRIBUTED=1`` (one gloo group over localhost,
+   both on ``cuda:0``) on a two-library copy of the small lane under
+   ``distributed: true``: both exit 0, each owns one library, each
+   library's files equal one process's run of both, and the per-process
+   files (``robustness_report_p<i>.json``, ...) are there; each process's
+   seconds are printed.
 
 Each phase's start (seconds since the script began) is printed. Then one
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
@@ -1598,6 +1623,251 @@ def ingest_phase(lib, clean: dict, kernels) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the data mesh and multi-process distribution
+
+# files the mesh moves at a data axis above 1: round 1's fast path picks
+# the reads it aligns per slice, so the reads its error profile samples
+# carry other spans (tests/test_torch_mesh_e2e.py holds this to the JAX
+# package, whose sharded and unsharded runs differ in it the same way)
+MESH_DIFFERS = ("barcode01/logs/barcode01_align_error_profile.log",)
+PER_PROCESS = ("robustness_report_p{}.json", "telemetry_p{}.json", "history_p{}.jsonl",
+               "stack_dumps_p{}.log")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _same_files(tree: dict, other: dict, label: str, but=()) -> int:
+    """Every file of ``other`` under nano_tcr/ in ``tree`` byte for byte,
+    but the files of timings and ``but``; the number compared."""
+    if sorted(tree) != sorted(other):
+        raise AssertionError(f"{label}: files differ: {sorted(set(tree) ^ set(other))}")
+    skip = set(TIMED_FILES) | set(but)
+    differ = [rel for rel in sorted(tree) if rel not in skip and tree[rel] != other[rel]]
+    if differ:
+        raise AssertionError(f"{label}: files differ byte for byte: {differ}")
+    return len(set(tree) - skip)
+
+
+def _sharded_kernels(dev, mesh_mod) -> dict:
+    """B1 and B2 at main-path shapes split over a data=2 mesh of two slices
+    of ONE card, against the unsplit launch: bit for bit."""
+    import dataclasses
+
+    import torch
+
+    from ont_tcrconsensus_tpu_torch.io import dp_cases
+    from ont_tcrconsensus_tpu_torch.ops import pileup_kernel, sw_kernel
+
+    def sw_fields(*a, band_width):
+        return dataclasses.astuple(sw_kernel.align_banded_cuda(*a, band_width=band_width))
+
+    m = mesh_mod.make_mesh({"data": 2}, devices=[dev, dev])
+    d1, d2 = mesh_mod.P("data"), mesh_mod.P("data", None)
+    out = {}
+    for key, (B, L, W), fn, specs, out_specs in (
+        ("sw", (2048, 2048, 128), sw_fields, (d2, d1, d2, d1, d1), (d1,) * 7),
+        ("pileup", (1024, 2048, 64), pileup_kernel.forward_planes_cuda, (d2, d1, d2, d1),
+         (d2, d2)),
+    ):
+        args = [torch.from_numpy(x).to(dev) for x in
+                dp_cases.dp_batch(B, L, W, 40, offsets=key == "sw")][:len(specs)]
+        whole = fn(*args, band_width=W)
+        sharded = mesh_mod.shard_map_compat(
+            lambda *a, fn=fn, W=W: tuple(fn(*a, band_width=W)), m, in_specs=specs,
+            out_specs=out_specs)
+        split = sharded(*args)
+        for i, (a, b) in enumerate(zip(whole, split)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"mesh: {key} output {i} split over two slices differs "
+                                     "from the unsplit launch")
+        out[key] = {"B": B, "L": L, "W": W, "max_abs_err": 0,
+                    "whole_ms": _time_ms(lambda: fn(*args, band_width=W), 5),
+                    "split_ms": _time_ms(lambda: sharded(*args), 5)}
+    return out
+
+
+def _mesh_drills(lib, kernels, mesh_mod) -> dict:
+    """The small lane at data=2 over two slices of the card: undisturbed
+    (launches counted from zero, in all and by slice), then a lost slice,
+    one slice out of memory and a transient dispatch fault; each ends with
+    the unsharded run's counts CSV and merged FASTA."""
+    root = os.path.join(WORK, "mesh_drills")
+    _write_lane(root, lib)
+    if _run_lane(root, DRILL_KNOBS, "cuda").get("barcode01") != lib.true_counts:
+        raise AssertionError("mesh drills: the unsharded run's counts differ from the truth")
+    unsharded, want = _artifacts(root), _drill_files(root)
+    mesh2 = {**DRILL_KNOBS, "mesh_shape": {"data": 2}}
+    out = {}
+    mesh_mod.install_slice_devices(["cuda:0", "cuda:0"])
+    try:
+        for name, plan in (
+            ("no fault", None),
+            ("mesh.device_lost", [{"site": "mesh.device_lost", "kind": "device-lost"}]),
+            ("mesh.slice_oom", [{"site": "mesh.slice_oom", "kind": "oom"}]),
+            ("mesh.dispatch transient", [{"site": "mesh.dispatch", "kind": "transient"}]),
+        ):
+            for k in kernels:
+                k.launches = 0
+                k.by_slice.clear()
+            t0 = time.perf_counter()
+            got = _run_lane(root, {**mesh2, **({"chaos": plan} if plan else {})}, "cuda")
+            seconds = time.perf_counter() - t0
+            launches = {k.__name__: (k.launches, dict(k.by_slice)) for k in kernels}
+            if got.get("barcode01") != lib.true_counts or _drill_files(root) != want:
+                raise AssertionError(f"mesh drill {name}: the counts CSV or the merged FASTA "
+                                     "differs from the unsharded run's")
+            events = _drill_events(root)
+            with open(os.path.join(root, "fastq_pass", "nano_tcr", "telemetry.json")) as fh:
+                tel = json.load(fh)
+            with open(os.path.join(root, "fastq_pass", "nano_tcr", "robustness_report.json")) as fh:
+                detail = [e.get("detail") for e in json.load(fh)["events"]
+                          if e["site"] == "mesh.degraded"]
+            busy = tel.get("mesh_slice_busy")
+            if name == "no fault":
+                _same_files(_artifacts(root), unsharded, "mesh drill no fault", MESH_DIFFERS)
+                ok = (events == [] and busy == {"cuda:0": 1.0, "cuda:1": 1.0}
+                      and all(sorted(by) == ["cuda:0", "cuda:1"] for _, by in launches.values()))
+            elif name == "mesh.device_lost":
+                ok = (detail == [{"node": "round1_polish", "data_from": 2, "data_to": 1}]
+                      and ("polish.dispatch", "device_lost", "escalated") in events
+                      and sorted(busy.values()) == [0.0, 1.0]
+                      and tel["counters"].get("mesh.degraded") == 1)
+            elif name == "mesh.slice_oom":
+                ok = (("polish.dispatch", "oom", "oom_shrink") in events and not detail)
+            else:
+                ok = (any(e[2] == "retried" for e in events) and not detail)
+            if not ok:
+                raise AssertionError(f"mesh drill {name}: events {events}, degraded {detail}, "
+                                     f"slice gauges {busy}")
+            out[name] = {"events": events, "mesh_slice_busy": busy, "seconds": seconds,
+                         "launches": launches}
+    finally:
+        mesh_mod.install_slice_devices(None)
+    return out
+
+
+def _two_processes(lib) -> dict:
+    """Two CLI processes on the card, one gloo group, one library each,
+    against one process running both libraries."""
+    roots = {name: os.path.join(WORK, f"dist_{name}") for name in ("single", "multi")}
+    for root in roots.values():
+        _write_lane(root, lib)
+        os.makedirs(os.path.join(root, "fastq_pass", "barcode02"))
+        shutil.copy(os.path.join(root, "fastq_pass", "barcode01", "barcode01.fastq.gz"),
+                    os.path.join(root, "fastq_pass", "barcode02", "barcode02.fastq.gz"))
+    want = {"barcode01": lib.true_counts, "barcode02": lib.true_counts}
+    t0 = time.perf_counter()
+    if _run_lane(roots["single"], DRILL_KNOBS, "cuda") != want:
+        raise AssertionError("two processes: the one-process run's counts differ from the truth")
+    single_s = time.perf_counter() - t0
+    cfg = os.path.join(roots["multi"], "dist_config.json")
+    with open(cfg, "w") as fh:
+        json.dump({"reference_file": os.path.join(roots["multi"], "reference.fa"),
+                   "fastq_pass_dir": os.path.join(roots["multi"], "fastq_pass"),
+                   "delete_tmp_files": False, "distributed": True, **DRILL_KNOBS}, fh)
+    port = _free_port()
+    base = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "TCR_CHAOS")}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "ont_tcrconsensus_tpu_torch", cfg], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**base, "PYTHONPATH": ROOT, "TCR_CONSENSUS_DISTRIBUTED": "1",
+             "MASTER_ADDR": "localhost", "MASTER_PORT": str(port), "RANK": str(rank),
+             "WORLD_SIZE": "2"}) for rank in range(2)]
+    results = []
+    try:
+        for rank, p in enumerate(procs):
+            _, err = p.communicate(timeout=600)
+            results.append({"rc": p.returncode, "s": time.perf_counter() - t0,
+                            "owns": [ln for ln in err.splitlines() if " owns " in ln],
+                            "err": err[-2000:]})
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, r in enumerate(results):
+        if r["rc"] != 0 or r["owns"] != [f"Process {rank}/2 owns 1 libraries"]:
+            raise AssertionError(f"two processes: process {rank} exit {r['rc']}, "
+                                 f"{r['owns']}: {r['err']}")
+    multi, single = _artifacts(roots["multi"]), _artifacts(roots["single"])
+    per_lib = {rel: b for rel, b in single.items() if "/" in rel}
+    _same_files({rel: b for rel, b in multi.items() if "/" in rel}, per_lib,
+                "two processes: the libraries' files",
+                [rel.replace("barcode01", "barcode02") for rel in TIMED_FILES])
+    top = sorted(rel for rel in multi if "/" not in rel)
+    need = {f.format(i) for f in PER_PROCESS for i in (0, 1)}
+    one_process = {"robustness_report.json", "telemetry.json", "history.jsonl"}
+    if not need <= set(top) or one_process & set(top):
+        raise AssertionError(f"two processes: per-process files {top}")
+    return {"single_s": single_s, "process_s": [r["s"] for r in results],
+            "owns": [r["owns"][0] for r in results], "files": top,
+            "library_files_compared": len(per_lib)}
+
+
+def mesh_phase(full_lib, full: dict, kernels) -> dict:
+    """Phase 11: the data mesh and multi-process distribution on the card;
+    see the module docstring. ``full`` is phase 8's numbers (its first
+    run's output still in place)."""
+    import torch
+
+    from ont_tcrconsensus_tpu_torch.parallel import mesh as mesh_mod
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    n_cards = torch.cuda.device_count()
+    full_root = os.path.join(WORK, "lane_full")
+    root = os.path.join(WORK, "mesh_full")
+    lane_fastq = os.path.join("fastq_pass", "barcode01", "barcode01.fastq.gz")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "fastq_pass", "barcode01"))
+    shutil.copy(os.path.join(full_root, "reference.fa"), root)
+    shutil.copy(os.path.join(full_root, lane_fastq), os.path.join(root, lane_fastq))
+
+    # the main path under the mesh, launches counted from zero
+    for k in kernels:
+        k.launches = 0
+        k.by_slice.clear()
+    stage_s: dict[str, float] = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = _run_lane(root, {**FULL_KNOBS, "mesh_shape": {"data": n_cards}}, "cuda",
+                    timings=stage_s)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    by_slice = {k.__name__: dict(k.by_slice) for k in kernels}
+    if got.get("barcode01") != full_lib.true_counts:
+        raise AssertionError(f"mesh: full lane counts differ from the truth: {got}")
+    labels = [f"cuda:{i}" for i in range(n_cards)]
+    if not all(launches.values()) or any(sorted(s) != labels for s in by_slice.values()):
+        raise AssertionError(f"mesh: a kernel did not launch on every slice: {by_slice}")
+    clean = {rel: b for rel, b in _artifacts(full_root).items()
+             if not rel.startswith("barcode01/outs/")}  # phase 10's analysis verb
+    compared = _same_files(_artifacts(root), clean, "mesh full lane",
+                           MESH_DIFFERS if n_cards > 1 else ())
+    with open(os.path.join(root, "fastq_pass", "nano_tcr", "telemetry.json")) as fh:
+        busy = json.load(fh).get("mesh_slice_busy")
+    with open(os.path.join(root, "fastq_pass", "nano_tcr", "history.jsonl")) as fh:
+        mesh_config = json.loads(fh.readline()).get("mesh_config")
+    if busy != {lbl: 1.0 for lbl in labels} or mesh_config != f"data={n_cards}":
+        raise AssertionError(f"mesh: slice gauges {busy}, history mesh_config {mesh_config}")
+    out = {"cards": n_cards, "n_reads": len(full_lib.reads), "run_s": run_s,
+           "reads_per_s": len(full_lib.reads) / run_s, "clean_s": full["seconds"][0],
+           "clean_reads_per_s": full["reads_per_s"][0], "launches": launches,
+           "launches_by_slice": by_slice, "files_compared": compared, "stage_s": stage_s,
+           "mesh_slice_busy": busy, "mesh_config": mesh_config}
+    out["sharded_kernels"] = _sharded_kernels(dev, mesh_mod)
+    out["drills"] = _mesh_drills(_small_library(), kernels, mesh_mod)
+    out["processes"] = _two_processes(_small_library())
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
 
 
 def main(argv=None) -> int:
@@ -1881,8 +2151,40 @@ def main(argv=None) -> int:
     print(f"ingest: {ing['seconds']:.1f} s", flush=True)
     _dump(args.out, report)
 
-    phase("11 kernels line")
-    # 11. kernels line
+    phase("11 mesh")
+    # 11. the data mesh: the full lane at data = the host's cards, the
+    # kernels split over two slices of one card, the mesh drills, two
+    # processes
+    ms = report["mesh"] = mesh_phase(full_lib, full, kernels)
+    print(f"mesh: full lane ({ms['n_reads']} reads) at data={ms['cards']} (this host's cards): "
+          f"{ms['run_s']:.2f} s ({ms['reads_per_s']:.1f} reads/s; unsharded run 0 of phase 8 "
+          f"{ms['clean_s']:.2f} s, {ms['clean_reads_per_s']:.1f} reads/s); counts exact; "
+          f"{ms['files_compared']} files byte-identical to phase 8's run 0; launches "
+          f"{ms['launches']}, by slice {ms['launches_by_slice']} (B1's self-homology "
+          f"launches run unsplit, as in JAX); slice gauges "
+          f"{ms['mesh_slice_busy']}; history mesh_config {ms['mesh_config']}", flush=True)
+    print("mesh stages (s): " + ", ".join(f"{k} {v:.2f}" for k, v in ms["stage_s"].items()),
+          flush=True)
+    for key, r in ms["sharded_kernels"].items():
+        print(f"mesh {key} (B={r['B']} L={r['L']} W={r['W']}) split over a data=2 mesh of two "
+              f"slices of ONE card (cuda:0 twice, not two cards): bit-equal to the unsplit "
+              f"launch; unsplit {r['whole_ms']:.3f} ms, split {r['split_ms']:.3f} ms", flush=True)
+    for name, d in ms["drills"].items():
+        print(f"mesh drill {name} (small lane, data=2 over two slices of ONE card, poa): "
+              f"{d['seconds']:.2f} s, the unsharded run's counts CSV and merged FASTA; events "
+              + (", ".join("/".join(e) for e in d["events"]) or "none")
+              + f"; slice gauges {d['mesh_slice_busy']}; launches (all, by slice) "
+              f"{d['launches']}", flush=True)
+    pr = ms["processes"]
+    print(f"mesh two processes (one gloo group, both on cuda:0): exit 0 each, "
+          f"{'; '.join(pr['owns'])}; {pr['library_files_compared']} library files equal to "
+          f"one process's run ({pr['single_s']:.2f} s); per-process files {pr['files']}; "
+          f"seconds " + ", ".join(f"{s:.2f}" for s in pr["process_s"]), flush=True)
+    print(f"mesh: {ms['seconds']:.1f} s", flush=True)
+    _dump(args.out, report)
+
+    phase("12 kernels line")
+    # 12. kernels line
     entries = []
     for k, key, name, src, replaces in (
         (sw_kernel.align_banded_cuda, "sw", "sw_banded",

@@ -77,12 +77,15 @@ def cluster_umis(
     pair_batch: int = 65536,
     pad_width: int = 128,
     device: str | torch.device | None = None,
+    mesh=None,
 ) -> UmiClusters:
     """Cluster combined-UMI strings; returns per-input labels.
 
     Deterministic for a fixed input list. Centroid ids are dense, ordered by
     creation (vsearch writes clusters in the same creation order). The
-    identity passes run on ``device`` (the card when None).
+    identity passes run on ``device`` (the card when None); ``mesh``
+    splits their distance batches over its data slices (``device`` is the
+    first slice's).
     """
     device = resolve_device(device)
     N = len(umis)
@@ -103,18 +106,18 @@ def cluster_umis(
         # computes the full identity matrix — exact (no shortlist, so no
         # merge-repair pass) and ~6x fewer dispatches, which dominates cost
         # at this size
-        neigh_idx, neigh_ident = _full_identities(codes, lens, device=device)
+        neigh_idx, neigh_ident = _full_identities(codes, lens, device=device, mesh=mesh)
         ulabels, centroids = _greedy_assign(order, neigh_idx, neigh_ident, identity_threshold)
     else:
         neigh_idx, neigh_ident = _neighbor_identities(
             codes, lens, shortlist_k=shortlist_k, kmer_k=kmer_k,
-            pair_batch=pair_batch, device=device,
+            pair_batch=pair_batch, device=device, mesh=mesh,
         )
         ulabels, centroids = _greedy_assign(order, neigh_idx, neigh_ident, identity_threshold)
         ulabels, centroids = _merge_close_centroids(
             ulabels, centroids, codes, lens, identity_threshold,
             shortlist_k=shortlist_k, kmer_k=kmer_k, pair_batch=pair_batch,
-            device=device,
+            device=device, mesh=mesh,
         )
 
     return _finish(ulabels, centroids, inverse, N)
@@ -128,6 +131,7 @@ def cluster_umis_grouped(
     pair_batch: int = 65536,
     pad_width: int = 128,
     device: str | torch.device | None = None,
+    mesh=None,
 ) -> list[UmiClusters]:
     """Cluster MANY independent UMI sets with a handful of device dispatches.
 
@@ -177,11 +181,11 @@ def cluster_umis_grouped(
         if U == 1:
             return np.zeros((1, 0), np.int32), np.zeros((1, 0), np.float32)
         if U <= _FULL_MATRIX_MAX:
-            neigh, ident = _full_identities(codes, lens, device=device)
+            neigh, ident = _full_identities(codes, lens, device=device, mesh=mesh)
         else:
             neigh, ident = _neighbor_identities(
                 codes, lens, shortlist_k=shortlist_k, kmer_k=kmer_k,
-                pair_batch=pair_batch, device=device,
+                pair_batch=pair_batch, device=device, mesh=mesh,
             )
         ident = np.where(gid[neigh] == gid[:, None], ident, -1.0)
         return neigh, ident
@@ -254,7 +258,7 @@ _PAIR_CHUNK = 8192  # fixed device-dispatch shape for the exact-distance pass
 _FULL_MATRIX_MAX = 256
 
 
-def _full_identities(codes, lens, device):
+def _full_identities(codes, lens, device, mesh=None):
     """All-vs-all identities in one device pass (U <= _FULL_MATRIX_MAX).
 
     Returns (neigh (U, U-1), ident (U, U-1)): every other unique as a
@@ -273,7 +277,8 @@ def _full_identities(codes, lens, device):
     # the blocking readback is the pass's device wait: timed under
     # umi.distance (credited to an enclosing cluster.batched_dispatch)
     d = obs_device.timed_get(
-        "umi.distance", edit_distance.many_vs_many_dovetail(t_codes, t_lens, t_codes, t_lens),
+        "umi.distance",
+        edit_distance.many_vs_many_dovetail_auto(t_codes, t_lens, t_codes, t_lens, mesh=mesh),
     ).astype(np.float32)[:U, :U]
     longest = np.maximum(lens[:U, None], lens[None, :U]).astype(np.float32)
     ident = 1.0 - d / np.maximum(longest, 1.0)
@@ -287,7 +292,7 @@ def _pow2_ceil(n: int, lo: int = 16) -> int:
     return pow2_ceil(n, lo)
 
 
-def _neighbor_identities(codes, lens, shortlist_k, kmer_k, pair_batch, device):
+def _neighbor_identities(codes, lens, shortlist_k, kmer_k, pair_batch, device, mesh=None):
     """(U, K) nearest-unique shortlist + exact identities, device-computed.
 
     U is padded with zero-length rows and the pair list to ``_PAIR_CHUNK``
@@ -335,8 +340,9 @@ def _neighbor_identities(codes, lens, shortlist_k, kmer_k, pair_batch, device):
     ident = np.zeros(n_padded, dtype=np.float32)
     for s in range(0, n_padded, chunk):
         sl = slice(s, s + chunk)
-        d = obs_device.timed_get("umi.distance", edit_distance.pairwise_dovetail(
+        d = obs_device.timed_get("umi.distance", edit_distance.pairwise_dovetail_auto(
             t_codes[t_qi[sl]], t_lens[t_qi[sl]], t_codes[t_ti[sl]], t_lens[t_ti[sl]],
+            mesh=mesh,
         )).astype(np.float32)
         longest = np.maximum(lens[qi[sl]], lens[ti[sl]]).astype(np.float32)
         ident[sl] = np.where(longest > 0, 1.0 - d / np.maximum(longest, 1.0), 0.0)
@@ -347,7 +353,7 @@ def _neighbor_identities(codes, lens, shortlist_k, kmer_k, pair_batch, device):
 
 
 def _merge_close_centroids(labels, centroids, codes, lens, threshold,
-                           shortlist_k, kmer_k, pair_batch, device):
+                           shortlist_k, kmer_k, pair_batch, device, mesh=None):
     """Repair shortlist misses: no centroid may sit within the identity
     threshold of an earlier-created one.
 
@@ -364,11 +370,11 @@ def _merge_close_centroids(labels, centroids, codes, lens, threshold,
         return labels, centroids
     ccodes, clens = codes[centroids], lens[centroids]
     if C <= _FULL_MATRIX_MAX:
-        neigh, ident = _full_identities(ccodes, clens, device=device)
+        neigh, ident = _full_identities(ccodes, clens, device=device, mesh=mesh)
     else:
         neigh, ident = _neighbor_identities(
             ccodes, clens, shortlist_k=shortlist_k, kmer_k=kmer_k,
-            pair_batch=pair_batch, device=device,
+            pair_batch=pair_batch, device=device, mesh=mesh,
         )
     return _merge_from_ident(labels, centroids, neigh, ident, threshold)
 

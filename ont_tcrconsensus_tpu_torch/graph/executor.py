@@ -114,10 +114,12 @@ class GraphExecutor:
                           if obs_metrics.armed() else set())
 
         # sharded execution: when the context's engine carries a device
-        # mesh, the reshard-pairing proof is a hard gate: a graph whose
-        # declared shardings disagree across any node is refused outright
-        # instead of being resharded behind its back.
-        self._mesh_setup()
+        # mesh, the declared Edge.sharding specs become the plan, paired
+        # in/out axes per node, derived once here and published per node
+        # as ``ctx.node_shardings``.  The reshard-pairing proof is a hard
+        # gate: a graph whose declared shardings disagree across any node
+        # is refused outright instead of being resharded behind its back.
+        self._shard_plan = self._mesh_setup()
 
         skip, resume_node = self._resume_scan()
         values = dict(inputs)
@@ -152,7 +154,8 @@ class GraphExecutor:
             if node.checkpoint:
                 self._commit_pending(values, refs)
             audit = self._donation_probe(node, values, refs)
-            outputs = self._run_node(node, node_inputs, units)
+            self._set_node_shardings(node)
+            outputs = self._run_node_degradable(node, node_inputs, units)
             if audit:
                 out_probe = obs_transfers.buffer_probe(outputs)
                 for e, probe in audit.items():
@@ -208,11 +211,9 @@ class GraphExecutor:
                 and e not in spec.results)
         }
 
-    def _mesh_setup(self) -> None:
-        """Gate a mesh-armed run.  The port's engines carry no mesh until
-        its multi-GPU mesh slice lands, so this returns ``None``; a
-        mesh-carrying engine is gated on the reshard proof and then
-        refused."""
+    def _mesh_setup(self):
+        """The per-node sharding plan when the run is mesh-armed, else
+        ``None``."""
         mesh = getattr(getattr(self.ctx, "engine", None), "mesh", None)
         if mesh is None:
             return None
@@ -222,8 +223,56 @@ class GraphExecutor:
                 f"graph {self.spec.name!r} cannot run sharded: "
                 + "; ".join(f.format() for f in bad)
             )
-        raise NotImplementedError(
-            "sharded graph execution needs the multi-GPU mesh slice of the port")
+        from ont_tcrconsensus_tpu_torch.parallel import mesh as mesh_mod
+
+        return mesh_mod.node_sharding_plan(self.spec, mesh)
+
+    def _set_node_shardings(self, node: Node) -> None:
+        """Publish the node's paired in/out sharding axes on the context
+        (``ctx.node_shardings``) before its body runs: producers place
+        outputs with exactly the consumer's declared in-spec, so stage
+        boundaries never reshard. Best effort: a context that rejects
+        attribute assignment runs without it."""
+        if self._shard_plan is None:
+            return
+        try:
+            self.ctx.node_shardings = self._shard_plan.get(node.name)
+        except Exception:
+            pass
+
+    def _run_node_degradable(self, node: Node, inputs: dict, units: int) -> dict:
+        """:meth:`_run_node` plus the degraded-mesh survival loop.
+
+        A ``device_lost`` escaping a node body means a mesh slice died
+        mid-dispatch: no same-mesh retry can succeed.  When the context
+        offers a ``remesh`` hook (pipeline/run.py installs one on sharded
+        runs), the hook moves the engines onto the survivors, rescales the
+        memory budget and the read batch, and this loop re-runs the WHOLE
+        node on the degraded mesh (node bodies are pure up to their
+        ``commit``, which only runs on success).  Each degradation is a
+        ``mesh.degraded`` event in the robustness report and a telemetry
+        count; when the data axis cannot shrink further, the fault
+        propagates and the run dies honestly.
+        """
+        while True:
+            try:
+                return self._run_node(node, inputs, units)
+            except Exception as exc:
+                if retry.classify(exc) != "device_lost":
+                    raise
+                remesh = getattr(self.ctx, "remesh", None)
+                detail = remesh(node.name, exc) if remesh is not None else None
+                if detail is None:
+                    raise
+                retry.recorder().record(
+                    "mesh.degraded", classification="device_lost", outcome="degraded",
+                    error=repr(exc), detail={"node": node.name, **detail})
+                obs_metrics.counter_add("mesh.degraded")
+                obs_metrics.mesh_degraded_add("mesh.device_lost")
+                self._set_node_shardings(node)
+                _log(f"WARNING: mesh slice lost in node {node.name!r} ({exc!r}); "
+                     f"re-dispatching on degraded mesh "
+                     f"data={detail.get('data_from')}→{detail.get('data_to')}")
 
     def _run_node(self, node: Node, inputs: dict, units: int) -> dict:
         ctx = self.ctx

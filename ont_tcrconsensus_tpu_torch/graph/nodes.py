@@ -158,7 +158,8 @@ def round1_umi_cluster(ctx, inputs: dict) -> dict:
     from ont_tcrconsensus_tpu_torch.pipeline import stages
 
     records_by_group = inputs["records_by_group"]
-    select = stages.umi_cluster_selector(ctx.cfg, records_by_group, 1, ctx.device)
+    select = stages.umi_cluster_selector(ctx.cfg, records_by_group, 1, ctx.device,
+                                         mesh=ctx.engine.mesh)
     selected_by_group: list[tuple[str, list]] = []
     for group_name, umis in records_by_group:
         try:
@@ -191,6 +192,7 @@ def round1_polish(ctx, inputs: dict) -> dict:
         cluster_batch=ctx.cfg.cluster_batch_size,
         keep_codes=True,
         device=ctx.device,
+        mesh=ctx.engine.mesh,
     )
     return {"r1_polished": (by_group, polish_failed)}
 
@@ -380,7 +382,8 @@ def round2_umi_cluster(ctx, inputs: dict) -> dict:
     from ont_tcrconsensus_tpu_torch.pipeline import stages
 
     region_records = inputs["region_records"]
-    select = stages.umi_cluster_selector(ctx.cfg, region_records, 2, ctx.device)
+    select = stages.umi_cluster_selector(ctx.cfg, region_records, 2, ctx.device,
+                                         mesh=ctx.engine_notrim.mesh)
     selected_by_region: list[tuple[str, list, list]] = []
     for region, umis in region_records:
         try:

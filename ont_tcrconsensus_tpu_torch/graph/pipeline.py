@@ -55,6 +55,14 @@ class LibraryContext:
     budget: Any = None
     failed_groups: list = dataclasses.field(default_factory=list)
     failed_regions: list = dataclasses.field(default_factory=list)
+    # sharded-execution hooks (filled by pipeline/run.py on mesh-armed
+    # runs): the executor publishes each node's paired in/out sharding
+    # axes here before the body runs, and calls ``remesh(node, exc)`` when
+    # a device_lost escapes a node; the hook moves both engines onto the
+    # surviving slices, rescales the budget and the read batch, and
+    # returns the degradation detail (None when the data axis is 1)
+    node_shardings: Any = None
+    remesh: Any = None
 
 
 def build_library_graph(cfg: RunConfig) -> GraphSpec:

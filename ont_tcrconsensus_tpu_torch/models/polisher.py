@@ -152,11 +152,14 @@ def make_pipeline_polisher(params, band_width: int | None = None,
     when None).
 
     Returns f(sub (C,S,W), lens (C,S), drafts (C,W), dlens (C,),
-    pileup=None, band_width=None, quals=None, strands=None) -> (polished
-    (C,W), polished_lens (C,)), numpy. ``pileup`` is the consensus rounds'
+    pileup=None, band_width=None, quals=None, strands=None, mesh=None) ->
+    (polished (C,W), polished_lens (C,)), numpy. ``pileup`` is the consensus rounds'
     kept final pileup (``consensus_clusters_batch(keep_final_pileup=True)``);
     when None it is recomputed against the drafts at ``band_width`` (the
-    stage's band, so reused and recomputed pileups share one scale).
+    stage's band, so reused and recomputed pileups share one scale);
+    ``mesh`` splits that recomputed pileup over its data slices, and the
+    network then runs on the gathered columns on ``device`` (the first
+    slice's).
 
     ``min_polish_depth``: clusters with fewer live subreads keep their vote
     consensus. ``low_depth_params``: weights for clusters of exactly
@@ -191,7 +194,7 @@ def make_pipeline_polisher(params, band_width: int | None = None,
         return _predictions(net, feats, base_at)
 
     @torch.inference_mode()
-    def polish_once(sub, lens, drafts, dlens, pileup, band_width, quals, strands):
+    def polish_once(sub, lens, drafts, dlens, pileup, band_width, quals, strands, mesh):
         drafts = np.asarray(drafts)
         dlens = np.asarray(dlens)
         live = (np.asarray(lens) > 0).sum(axis=1)
@@ -214,7 +217,7 @@ def make_pipeline_polisher(params, band_width: int | None = None,
                 torch.from_numpy(np.ascontiguousarray(lens)).to(device),
                 drafts_t, torch.from_numpy(np.ascontiguousarray(dlens)).to(device),
                 band_width=default_band if band_width is None else band_width,
-                out_len=drafts.shape[1],
+                out_len=drafts.shape[1], mesh=mesh,
             )
             pileup = (base_at, ins_cnt, ins_base, pos_at)
         pred, conf, depth, ins_pred, ins_conf = serve(
@@ -233,10 +236,10 @@ def make_pipeline_polisher(params, band_width: int | None = None,
                        min_confidence, min_polish_depth)
 
     def polish(sub, lens, drafts, dlens, pileup=None, band_width=None, quals=None,
-               strands=None):
+               strands=None, mesh=None):
         for _ in range(max(int(iterations), 1)):
             drafts, dlens = polish_once(sub, lens, drafts, dlens, pileup, band_width,
-                                        quals, strands)
+                                        quals, strands, mesh)
             pileup = None  # later passes re-pile against the new draft
         return drafts, dlens
 

@@ -98,7 +98,8 @@ OBS_SITES = frozenset({
     "transfer.d2h",
     "donation.audit",
     "memory.reconcile",
-    # --- sharded execution (the multi-GPU slice) ---
+    # --- sharded execution (parallel/mesh.py mark_mesh_slices, the
+    # executor's degraded-mesh loop) ---
     "mesh.slice_busy",
     "mesh.degraded",
 })

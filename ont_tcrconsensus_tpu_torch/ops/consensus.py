@@ -29,9 +29,11 @@ import numpy as np
 import torch
 
 from ont_tcrconsensus_tpu_torch.device import resolve_device
+from ont_tcrconsensus_tpu_torch.io import bucketing
 from ont_tcrconsensus_tpu_torch.obs import device as obs_device
 from ont_tcrconsensus_tpu_torch.ops import pileup
 from ont_tcrconsensus_tpu_torch.ops.encode import PAD_CODE
+from ont_tcrconsensus_tpu_torch.parallel import mesh as mesh_mod
 
 # the polish path's band width (same-molecule subreads drift only by their
 # own indels)
@@ -119,7 +121,7 @@ def _extend_ends_batch(drafts, dlens, subreads, subread_lens, spans, aligned_dle
 def consensus_clusters_batch(subreads: np.ndarray, subread_lens: np.ndarray,
                              rounds: int = 4, band_width: int = POLISH_BAND_WIDTH,
                              keep_final_pileup: bool = False, keep_pos: bool = True,
-                             device: str | torch.device | None = None):
+                             device: str | torch.device | None = None, mesh=None):
     """Consensus of C same-shape clusters on ``device`` (the card when
     None); returns (drafts (C, W) uint8, draft_lens (C,) int32), numpy,
     and with ``keep_final_pileup`` a third item, the final pileup.
@@ -136,9 +138,30 @@ def consensus_clusters_batch(subreads: np.ndarray, subread_lens: np.ndarray,
     ``keep_pos=False`` returns ``pos_at`` None (only the v4 features read
     it). The pileup is None when the rounds ran out with any cluster still
     changing.
+
+    ``mesh`` splits each round's pileup lanes and the vote's cluster axis
+    over the mesh's data slices (:mod:`..parallel.mesh`); ``device`` is
+    the first slice's, where the pileup gathers. The mesh is dropped when
+    C does not divide the data-axis size. A round under a mesh runs the
+    still-changing clusters padded to a power of two (at least the
+    data-axis size; padding repeats cluster 0 and is never read), or all
+    C clusters when the axis is not a power of two or the padding would
+    reach C, as in the JAX package; each cluster's draft is the same
+    either way.
     """
     device = resolve_device(device)
     C, S, W = subreads.shape
+    if mesh is not None and C % mesh_mod.mesh_data_size(mesh) != 0:
+        mesh = None
+    n_data = mesh_mod.mesh_data_size(mesh) if mesh is not None else 1
+    # compaction needs power-of-two sub-batches to divide the data axis
+    can_compact = (n_data & (n_data - 1)) == 0
+    vote = vote_columns_batch
+    if mesh is not None:
+        d2, d3 = mesh_mod.P("data", None), mesh_mod.P("data", None, None)
+        vote = mesh_mod.shard_map_compat(vote_columns_batch, mesh,
+                                         in_specs=(d3, d3, d3, d2, mesh_mod.P("data")),
+                                         out_specs=(d2, mesh_mod.P("data")))
     subread_lens = np.asarray(subread_lens)
     real = subread_lens > 0
     nreal = real.sum(axis=1)
@@ -160,21 +183,33 @@ def consensus_clusters_batch(subreads: np.ndarray, subread_lens: np.ndarray,
     for _ in range(rounds):
         if len(active) == 0:
             break
-        a_idx = torch.from_numpy(active).to(device)
+        # the round's clusters: ``idx``, whose positions ``sel`` hold the
+        # active ones (the rest is mesh padding or, in a full round,
+        # clusters that already converged)
+        if mesh is None:
+            idx, sel = active, np.arange(len(active))
+        else:
+            Ca = max(bucketing.pow2_ceil(len(active)), n_data) if can_compact else C
+            if Ca >= C:
+                idx, sel = np.arange(C), active
+            else:
+                idx = np.concatenate([active, np.zeros(Ca - len(active), np.int64)])
+                sel = np.arange(len(active))
+        a_idx = torch.from_numpy(idx).to(device)
         sub_a, lens_a = d_sub[a_idx], d_lens[a_idx]
-        drafts_a, dlens_a = drafts[active], dlens[active]
+        drafts_a, dlens_a = drafts[idx], dlens[idx]
         t_drafts = torch.from_numpy(drafts_a).to(device)
         t_dlens = torch.from_numpy(dlens_a).to(device)
         base_at, ins_cnt, ins_base, pos_at, spans = pileup.pileup_columns_batch_auto(
-            sub_a, lens_a, t_drafts, t_dlens, band_width=band_width, out_len=W,
+            sub_a, lens_a, t_drafts, t_dlens, band_width=band_width, out_len=W, mesh=mesh,
         )
-        new_drafts, new_lens = vote_columns_batch(base_at, ins_cnt, ins_base, t_drafts, t_dlens)
+        new_drafts, new_lens = vote(base_at, ins_cnt, ins_base, t_drafts, t_dlens)
         # one coalesced readback a round; its wait credits the enclosing
         # dispatch frame (polish.dispatch)
         new_drafts, new_lens, spans = obs_device.timed_get(
             "consensus.get", (new_drafts[:, :W], new_lens, spans))
-        new_drafts = new_drafts.copy()
-        new_lens = new_lens.astype(np.int32)
+        new_drafts, new_lens, spans = new_drafts[sel], new_lens[sel].astype(np.int32), spans[sel]
+        drafts_a, dlens_a = drafts_a[sel], dlens_a[sel]
         if (new_lens > W).any():
             raise ValueError("consensus grew past the padded width")
         new_drafts, new_lens = _extend_ends_batch(
@@ -184,7 +219,7 @@ def consensus_clusters_batch(subreads: np.ndarray, subread_lens: np.ndarray,
         drafts[active] = new_drafts
         dlens[active] = new_lens
         if keep_final_pileup and stable.any():
-            local = torch.from_numpy(np.where(stable)[0]).to(device)
+            local = torch.from_numpy(sel[stable]).to(device)
             planes = (base_at, ins_cnt, ins_base) + ((pos_at,) if with_pos else ())
             pile_parts.append((active[stable], tuple(p[local] for p in planes)))
         active = active[~stable]

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ont_tcrconsensus_tpu_torch.parallel import mesh as mesh_mod
+
 _BIG = 1 << 20
 
 
@@ -54,3 +56,30 @@ def many_vs_many_dovetail(queries, q_lens, targets, t_lens, k_end: int = 8) -> t
         targets.repeat(Q, 1), t_lens.repeat(Q), k_end=k_end,
     )
     return d.reshape(Q, T)
+
+
+def pairwise_dovetail_auto(a, a_lens, b, b_lens, k_end: int = 8, mesh=None) -> torch.Tensor:
+    """:func:`pairwise_dovetail`, its pair axis split over ``mesh``'s data
+    slices when the pair count divides the data-axis size (the UMI
+    distance chunks)."""
+    if mesh is not None and a.shape[0] % mesh_mod.mesh_data_size(mesh) == 0:
+        d1, d2 = mesh_mod.P("data"), mesh_mod.P("data", None)
+        return mesh_mod.shard_map_compat(
+            lambda *x: pairwise_dovetail(*x, k_end=k_end), mesh,
+            in_specs=(d2, d1, d2, d1), out_specs=d1,
+        )(a, a_lens, b, b_lens)
+    return pairwise_dovetail(a, a_lens, b, b_lens, k_end)
+
+
+def many_vs_many_dovetail_auto(queries, q_lens, targets, t_lens, k_end: int = 8,
+                               mesh=None) -> torch.Tensor:
+    """:func:`many_vs_many_dovetail`, its query axis split over ``mesh``'s
+    data slices (targets on every slice) when the query count divides the
+    data-axis size."""
+    if mesh is not None and queries.shape[0] % mesh_mod.mesh_data_size(mesh) == 0:
+        d1, d2, rep = mesh_mod.P("data"), mesh_mod.P("data", None), mesh_mod.P()
+        return mesh_mod.shard_map_compat(
+            lambda *x: many_vs_many_dovetail(*x, k_end=k_end), mesh,
+            in_specs=(d2, d1, rep, rep), out_specs=d2,
+        )(queries, q_lens, targets, t_lens)
+    return many_vs_many_dovetail(queries, q_lens, targets, t_lens, k_end)

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from ont_tcrconsensus_tpu_torch.ops import pileup_kernel
+from ont_tcrconsensus_tpu_torch.parallel import mesh as mesh_mod
 from ont_tcrconsensus_tpu_torch.ops.sw_align import (
     GAP_EXT,
     GAP_OPEN,
@@ -131,7 +132,14 @@ def forward_auto(reads, read_lens, refs, ref_lens, band_width: int):
 
 
 def _traceback_batch(best, planes, reads, band_width: int, out_len: int):
-    """Scan-log traceback over flat lanes (offsets 0).
+    """Scan-log traceback over flat lanes (offsets 0): :func:`_traceback_steps`
+    run to its end."""
+    return mesh_mod.lockstep([_traceback_steps(best, planes, reads, band_width, out_len)])[0]
+
+
+def _traceback_steps(best, planes, reads, band_width: int, out_len: int):
+    """Scan-log traceback over flat lanes (offsets 0), a generator that
+    yields after each step's launches and returns the columns.
 
     Each step gathers ONE packed plane cell per lane, keeps 7 scalars of
     per-lane state and logs the move (op, read index, draft column); the
@@ -145,7 +153,8 @@ def _traceback_batch(best, planes, reads, band_width: int, out_len: int):
       traceback step, a scatter-max of ``t * 4 + base``.
 
     Dropped entries land in an extra column ``out_len`` that is sliced off
-    (the JAX version's ``mode="drop"``).
+    (the JAX version's ``mode="drop"``). Steps past a lane's end emit
+    nothing, so how late the walk stops never changes the columns.
     """
     N, L = reads.shape
     W = band_width
@@ -211,6 +220,7 @@ def _traceback_batch(best, planes, reads, band_width: int, out_len: int):
         mode = torch.where(live, nmode, mode)
         pending = torch.where(live, new_pending, pending)
         done = ndone
+        yield
 
     base_at = torch.full((N, out_len + 1), UNCOVERED, dtype=torch.uint8, device=dev)
     pos_at = torch.full((N, out_len + 1), -1, dtype=i32, device=dev)
@@ -241,8 +251,18 @@ def _traceback_batch(best, planes, reads, band_width: int, out_len: int):
     return base_at, ins_cnt, ins_base, pos_at, spans
 
 
+def _forward_traceback(reads, rlens, refs, reflens, band_width: int, out_len: int):
+    """One slice's pileup program, a generator for :func:`..parallel.mesh.lockstep`:
+    the forward (kernel B2 on the card), a yield so every slice launches
+    its forward before any slice waits, then the traceback's steps."""
+    best, planes = forward_auto(reads, rlens, refs, reflens, band_width)
+    yield
+    return (yield from _traceback_steps(best, planes, reads, band_width, out_len))
+
+
 def pileup_columns_batch_auto(subreads, subread_lens, drafts, draft_lens,
-                              band_width: int = 128, out_len: int | None = None):
+                              band_width: int = 128, out_len: int | None = None,
+                              mesh=None):
     """Align each subread to its cluster's draft and emit per-position
     columns — forward (kernel B2 on the card) + scan-log traceback.
 
@@ -250,6 +270,12 @@ def pileup_columns_batch_auto(subreads, subread_lens, drafts, draft_lens,
     (C, Ld) uint8; draft_lens (C,). Returns (base_at, ins_cnt, ins_base,
     pos_at — each (C, S, out_len) — and spans (C, S, 4) int32
     ``[read_start, read_end, ref_start, ref_end)``).
+
+    ``mesh`` splits the flat lane axis (C*S) over the mesh's data slices
+    when it divides the data-axis size (callers pad the cluster axis):
+    every slice runs the forward and the traceback on its lanes, the
+    traceback steps in turns over the slices, and the columns gather on
+    the first slice's device.
     """
     if out_len is None:
         out_len = drafts.shape[-1]
@@ -258,8 +284,15 @@ def pileup_columns_batch_auto(subreads, subread_lens, drafts, draft_lens,
     rlens = subread_lens.reshape(C * S).to(torch.int32)
     refs = drafts.repeat_interleave(S, dim=0)
     reflens = draft_lens.to(torch.int32).repeat_interleave(S)
-    best, planes = forward_auto(reads, rlens, refs, reflens, band_width)
-    cols = _traceback_batch(best, planes, reads, band_width, out_len)
+    if mesh is not None and (C * S) % mesh_mod.mesh_data_size(mesh) == 0:
+        d1, d2 = mesh_mod.P("data"), mesh_mod.P("data", None)
+        cols = mesh_mod.shard_map_compat(
+            lambda *a: _forward_traceback(*a, band_width, out_len), mesh,
+            in_specs=(d2, d1, d2, d1), out_specs=(d2, d2, d2, d2, d2),
+        )(reads, rlens, refs, reflens)
+    else:
+        cols = mesh_mod.lockstep([_forward_traceback(reads, rlens, refs, reflens,
+                                                     band_width, out_len)])[0]
     base_at, ins_cnt, ins_base, pos_at, spans = cols
     return (
         base_at.reshape(C, S, out_len),

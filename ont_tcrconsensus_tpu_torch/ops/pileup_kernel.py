@@ -14,6 +14,7 @@ import torch
 
 from ont_tcrconsensus_tpu_torch.ops import _build
 from ont_tcrconsensus_tpu_torch.ops.sw_align import GAP_EXT, GAP_OPEN, MATCH, MISMATCH
+from ont_tcrconsensus_tpu_torch.parallel import mesh as mesh_mod
 
 BAND_WIDTHS = (64, 128)
 
@@ -45,7 +46,9 @@ def forward_planes_cuda(reads, read_lens, refs, ref_lens, band_width: int):
             )
         _build.check("pileup_forward", rc)
         forward_planes_cuda.launches += 1
+        mesh_mod.count_slice_launch(forward_planes_cuda.by_slice)
     return best, planes
 
 
 forward_planes_cuda.launches = 0
+forward_planes_cuda.by_slice = {}  # slice label -> launches inside sharded calls

@@ -20,6 +20,7 @@ from ont_tcrconsensus_tpu_torch.ops.sw_align import (
     MISMATCH,
     AlignResult,
 )
+from ont_tcrconsensus_tpu_torch.parallel import mesh as mesh_mod
 from ont_tcrconsensus_tpu_torch.pipeline.config import SW_BAND_WIDTHS as BAND_WIDTHS
 
 
@@ -71,7 +72,9 @@ def align_banded_cuda(
             )
         _build.check("sw_banded", rc)
         align_banded_cuda.launches += 1
+        mesh_mod.count_slice_launch(align_banded_cuda.by_slice)
     return AlignResult(*out.unbind(1))
 
 
 align_banded_cuda.launches = 0
+align_banded_cuda.by_slice = {}  # slice label -> launches inside sharded calls

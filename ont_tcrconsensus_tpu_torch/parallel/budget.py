@@ -86,3 +86,20 @@ class BudgetModel:
                                  keep_final_pileup, keep_pos)
         hi = min(256, max(1, self.MAX_POLISH_LANES // max(s_bucket, 1)))
         return _pow2_floor(self.budget_bytes // per, 1, hi)
+
+
+def degraded_budget(budget: BudgetModel, n_surviving: int,
+                    n_total: int) -> BudgetModel:
+    """The budget for a mesh that lost slices mid-run.
+
+    The model's batch sizes are GLOBAL (each slice sees batch/n_data
+    rows), so a budget sized for ``n_total`` slices over-commits the
+    survivors by exactly the lost fraction: ``hbm_gb`` scales by
+    ``n_surviving / n_total`` and every derived batch shrinks with it,
+    keeping each slice's load constant through the degradation. Each call
+    scales the CURRENT budget by the CURRENT survival fraction.
+    """
+    if n_surviving >= n_total:
+        return budget
+    frac = max(n_surviving, 1) / max(n_total, 1)
+    return dataclasses.replace(budget, hbm_gb=budget.hbm_gb * frac)

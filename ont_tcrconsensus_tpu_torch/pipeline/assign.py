@@ -18,6 +18,7 @@ references only.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from collections import defaultdict
 
 import numpy as np
@@ -29,6 +30,7 @@ from ont_tcrconsensus_tpu_torch.obs import device as obs_device
 from ont_tcrconsensus_tpu_torch.obs import metrics as obs_metrics
 from ont_tcrconsensus_tpu_torch.ops import ee_filter, encode, fuzzy_match, sketch, sw_kernel
 from ont_tcrconsensus_tpu_torch.ops.sw_align import PAD_SENTINEL
+from ont_tcrconsensus_tpu_torch.parallel import mesh as mesh_mod
 from ont_tcrconsensus_tpu_torch.robustness import contracts, faults, watchdog
 
 MIN_SCORE = 100  # SW score gate for a "primary alignment" equivalent
@@ -41,6 +43,9 @@ SW_LEN_SLACK_MIN = 16    # nt floor for very short panels
 _NEED_BIG = 1.0e3        # flag weights dominating the margin term
 
 _UMI_KEYS = ("d5", "s5", "e5", "d3", "s3", "e3", "start3")
+# the per-read outputs of both passes
+_OUT_KEYS = ("lens", "t_start", "ee_ok", "is_rev", "ridx", "score", "blast_id",
+             "ref_start", "ref_end", "read_start", "read_end", "sw_done") + _UMI_KEYS
 
 
 def _f32(x: float, device) -> torch.Tensor:
@@ -460,7 +465,14 @@ class AlignStats:
 
 class AssignEngine:
     """Device constants for the read passes of one run, on ``device`` (the
-    card when None)."""
+    card when None).
+
+    ``mesh`` (optional) splits every batch's rows over the mesh's data
+    slices (:mod:`..parallel.mesh`): each slice runs the single-card pass
+    on its rows, the panel and pattern constants replicated to its device
+    once for the life of the mesh; ``device`` is the first slice's. A
+    batch whose rows do not divide the data-axis size runs unsplit there.
+    """
 
     def __init__(
         self,
@@ -476,6 +488,7 @@ class AssignEngine:
         trim_window: int = 150,
         fast_denom: int = 4,
         device: str | torch.device | None = None,
+        mesh=None,
     ):
         self.panel = panel
         self.top_k = top_k
@@ -485,6 +498,9 @@ class AssignEngine:
         self.trim_window = trim_window
         self.fast_denom = fast_denom
         self.device = resolve_device(device)
+        self.mesh = mesh
+        # per-mesh state: the constants placed on every slice (Placed)
+        self._sharded_cache: dict[str, object] = {}
 
         def stack_masks(masks: list[np.ndarray]):
             stacked, lens_ = encode.pad_batch(masks, pad_value=0, multiple=1)
@@ -509,8 +525,27 @@ class AssignEngine:
             dtype=torch.int32, device=self.device,
         )
 
+    def set_mesh(self, mesh) -> None:
+        """Move the engine onto another mesh mid-run (the degraded-mesh
+        re-run): every replica placed on the old mesh's slices is
+        dropped, and the next dispatch places the constants on the new
+        ones."""
+        self.mesh = mesh
+        self._sharded_cache.clear()
+
     def _upload(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _sharded(self, rows: int) -> bool:
+        """Whether a batch of ``rows`` splits over the mesh's data slices."""
+        return self.mesh is not None and rows % mesh_mod.mesh_data_size(self.mesh) == 0
+
+    def _replicas(self, name: str, tensors: tuple) -> tuple:
+        """``tensors`` placed on every slice of the mesh, once per mesh."""
+        if name not in self._sharded_cache:
+            self._sharded_cache[name] = tuple(mesh_mod.replicate(self.mesh, t)
+                                              for t in tensors)
+        return self._sharded_cache[name]
 
     def run_batch(self, batch: bucketing.ReadBatch, max_ee_rate: float, min_len: int,
                   overlap_frac: float | None = None) -> dict[str, np.ndarray]:
@@ -524,18 +559,25 @@ class AssignEngine:
         ``overlap_frac`` (round 1) arms the SW fast path."""
         fast = overlap_frac is not None and self.fast_denom > 0 and self.top_k == 2
         p = self.panel
-        return _fused_pass(
-            self._upload(batch.codes),
-            self._upload(batch.quals) if batch.quals is not None else None,
-            self._upload(batch.lengths),
-            p.d_codes, p.d_lens, p.d_profiles,
-            self.umi_masks, self.umi_mask_lens,
-            self.primer_stack, self.primer_stack_lens, self.primer_max_dists,
-            max_ee_rate, min_len, overlap_frac if overlap_frac is not None else 0.0,
-            top_k=self.top_k, band_width=self.band_width, a5=self.a5, a3=self.a3,
-            trim_window=self.trim_window, n_primers=self.n_primers,
+        consts = (p.d_codes, p.d_lens, p.d_profiles, self.umi_masks, self.umi_mask_lens,
+                  self.primer_stack, self.primer_stack_lens, self.primer_max_dists)
+        fn = functools.partial(
+            _fused_pass, top_k=self.top_k, band_width=self.band_width, a5=self.a5,
+            a3=self.a3, trim_window=self.trim_window, n_primers=self.n_primers,
             sw_subset_denom=self.fast_denom if fast else 0,
         )
+        args = (self._upload(batch.codes),
+                self._upload(batch.quals) if batch.quals is not None else None,
+                self._upload(batch.lengths))
+        scalars = (max_ee_rate, min_len, overlap_frac if overlap_frac is not None else 0.0)
+        if self._sharded(len(batch.codes)):
+            faults.inject("mesh.dispatch")
+            d1, d2, rep = mesh_mod.P("data"), mesh_mod.P("data", None), mesh_mod.P()
+            return mesh_mod.shard_map_compat(
+                fn, self.mesh, in_specs=(d2, d2, d1) + (rep,) * 11,
+                out_specs={k: d1 for k in _OUT_KEYS},
+            )(*args, *self._replicas("fused", consts), *scalars)
+        return fn(*args, *consts, *scalars)
 
     def run_batch_targeted(self, batch: bucketing.ReadBatch, cand_idx: np.ndarray,
                            min_len: int) -> dict[str, np.ndarray]:
@@ -546,11 +588,19 @@ class AssignEngine:
                                  min_len: int) -> dict[str, torch.Tensor]:
         """Round-2 pass on one batch, its outputs left on the device."""
         p = self.panel
-        return _targeted_pass(
-            self._upload(batch.codes), self._upload(batch.lengths), self._upload(cand_idx),
-            p.d_codes, p.d_lens, self.umi_masks, self.umi_mask_lens, min_len,
-            band_width=self.band_width, a5=self.a5, a3=self.a3,
-        )
+        consts = (p.d_codes, p.d_lens, self.umi_masks, self.umi_mask_lens)
+        fn = functools.partial(_targeted_pass, band_width=self.band_width, a5=self.a5,
+                               a3=self.a3)
+        args = (self._upload(batch.codes), self._upload(batch.lengths),
+                self._upload(cand_idx))
+        if self._sharded(len(batch.codes)):
+            faults.inject("mesh.dispatch")
+            d1, d2, rep = mesh_mod.P("data"), mesh_mod.P("data", None), mesh_mod.P()
+            return mesh_mod.shard_map_compat(
+                fn, self.mesh, in_specs=(d2, d1, d2) + (rep,) * 5,
+                out_specs={k: d1 for k in _OUT_KEYS},
+            )(*args, *self._replicas("targeted", consts), min_len)
+        return fn(*args, *consts, min_len)
 
 
 def run_assign(

@@ -4,7 +4,9 @@ Runs the pipeline on the CUDA card; ``--cpu``, or the environment
 variable ``TCR_CONSENSUS_FORCE_CPU`` (as in the JAX package's CLI), puts it
 on the CPU. The variable only ever selects the CPU: without it and without
 ``--cpu`` a host with no card raises, it never falls back. The run config
-is the JAX package's (same keys, same checks). A run stopped by
+is the JAX package's (same keys, same checks). A non-empty
+``TCR_CONSENSUS_DISTRIBUTED`` brings up the process group of a
+``distributed`` run from torchrun's variables first. A run stopped by
 SIGTERM/SIGINT (or a chaos ``preempt``) exits 143 with every committed
 checkpoint intact; ``resume: true`` continues it.
 ``--report <workdir>`` renders a finished run's artifacts and
@@ -91,6 +93,14 @@ def main(argv: list[str] | None = None) -> int:
         from ont_tcrconsensus_tpu_torch.io import validate as validate_mod
 
         return validate_mod.validate_inputs(args.json_config_file, as_json=args.json)
+
+    if os.environ.get("TCR_CONSENSUS_DISTRIBUTED"):
+        # the gloo process group from torchrun's MASTER_ADDR, MASTER_PORT,
+        # RANK and WORLD_SIZE, before the pipeline is imported; a failed
+        # bring-up raises
+        from ont_tcrconsensus_tpu_torch.parallel import distributed
+
+        distributed.initialize(required=True)
 
     from ont_tcrconsensus_tpu_torch.pipeline.run import run_pipeline
     from ont_tcrconsensus_tpu_torch.robustness import shutdown

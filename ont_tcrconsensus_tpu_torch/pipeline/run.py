@@ -1,4 +1,4 @@
-"""The end-to-end two-round UMI consensus pipeline, on one device.
+"""The end-to-end two-round UMI consensus pipeline.
 
 The counterpart of the JAX package's ``pipeline/run.py`` one-shot run:
 
@@ -52,6 +52,19 @@ Every device pass runs on ``device``: CUDA unless the caller asks for the
 CPU, and a CUDA request without a card raises. Nothing falls back to the
 CPU, and nothing falls back from the graph executor to the imperative
 order: a retry runs again on the same device and executor.
+
+``mesh_shape`` (e.g. ``{"data": 2}``) splits every device batch (the
+read passes, the UMI distances, the polish lanes) over the slices of a
+data mesh (:mod:`..parallel.mesh`): the host's cards, or the slices
+installed for the job; ``read_batch_size`` must divide the data axis.
+Under the graph executor a lost slice re-runs its node on the surviving
+slices (``mesh.degraded`` in the robustness report). ``distributed``
+brings up a gloo process group (:mod:`..parallel.distributed`): each
+process runs its round-robin share of the libraries, process 0 writes the
+run-level files, every process writes ``robustness_report_p<i>.json``,
+``telemetry_p<i>.json``, ``history_p<i>.jsonl`` and, on failures,
+``failed_libraries_p<i>.log``, and every process returns the gathered
+counts of all libraries.
 """
 
 from __future__ import annotations
@@ -88,6 +101,8 @@ from ont_tcrconsensus_tpu_torch.obs import trace as obs_trace
 from ont_tcrconsensus_tpu_torch.obs import transfers as obs_transfers
 from ont_tcrconsensus_tpu_torch.ops import _build
 from ont_tcrconsensus_tpu_torch.parallel import budget as budget_mod
+from ont_tcrconsensus_tpu_torch.parallel import distributed as dist
+from ont_tcrconsensus_tpu_torch.parallel import mesh as mesh_mod
 from ont_tcrconsensus_tpu_torch.pipeline import overlap, stages
 from ont_tcrconsensus_tpu_torch.pipeline.assign import AssignEngine, ReferencePanel
 from ont_tcrconsensus_tpu_torch.pipeline.config import RunConfig
@@ -104,12 +119,6 @@ from ont_tcrconsensus_tpu_torch.robustness import (
 
 # fallback precision bar when no reference pair survives the homology filter
 DEFAULT_BLAST_ID_BAR = 0.99
-
-# knobs that change results and that later slices of the port implement
-_NOT_YET = (
-    ("mesh_shape", bool, "mesh_shape needs the multi-GPU mesh slice of the port"),
-    ("distributed", bool, "distributed needs the multi-GPU mesh slice of the port"),
-)
 
 
 def _log(*parts):
@@ -139,11 +148,39 @@ def finalize_ingest_guard(guard, library: str) -> None:
              f"{library} {verb} ({qsummary['by_reason']})")
 
 
-def check_supported(cfg: RunConfig) -> None:
-    """Raise NotImplementedError for knobs this slice does not implement."""
-    for name, active, why in _NOT_YET:
-        if active(getattr(cfg, name)):
-            raise NotImplementedError(why)
+def make_mesh_from_config(cfg: RunConfig, device=None):
+    """The data mesh named by ``cfg.mesh_shape`` for a run on ``device``
+    (None: no mesh)."""
+    if not cfg.mesh_shape:
+        return None
+    mesh = mesh_mod.make_mesh(dict(cfg.mesh_shape), device=device)
+    if "data" not in mesh.axis_names:
+        raise ValueError(f"mesh_shape {cfg.mesh_shape} needs a 'data' axis")
+    n_data = mesh_mod.mesh_data_size(mesh)
+    if cfg.read_batch_size is not None and cfg.read_batch_size % n_data:
+        raise ValueError(
+            f"read_batch_size={cfg.read_batch_size} must divide by the "
+            f"data axis size {n_data}"
+        )
+    return mesh
+
+
+def resolve_batching(cfg: RunConfig, num_refs: int, device, mesh=None):
+    """(read_batch_size, BudgetModel) from the one memory knob (the card's
+    memory when ``hbm_budget_gb`` is unset); explicit config values
+    override the derived sizes. With a mesh the batch is a multiple of the
+    data axis (each slice sees batch/n_data rows)."""
+    budget = budget_mod.BudgetModel(
+        cfg.hbm_budget_gb if cfg.hbm_budget_gb is not None
+        else budget_mod.detect_hbm_gb(device)
+    )
+    read_batch = cfg.read_batch_size or budget.read_batch(
+        cfg.max_read_length, num_refs=max(num_refs, 1), band_width=cfg.sw_band_width,
+    )
+    if mesh is not None:
+        n_data = mesh_mod.mesh_data_size(mesh)
+        read_batch = max(read_batch - read_batch % n_data, n_data)
+    return read_batch, budget
 
 
 @dataclasses.dataclass
@@ -253,7 +290,6 @@ def run_with_config(cfg: RunConfig, device: str | torch.device | None = None,
     package's ``jax.profiler`` capture. The trace grows with the launches
     (a full-size lane makes millions), so it is meant for small lanes.
     """
-    check_supported(cfg)
     dev = resolve_device(device)
     run_timer = StageTimer(dev)
     try:
@@ -369,16 +405,30 @@ def _run_with_config_body(cfg: RunConfig, dev: torch.device, run_timer: StageTim
     recorder.reset()
     contracts.set_mode(cfg.contracts)
     contracts.reset()
+    if cfg.distributed:
+        # a no-op when already up (the CLI brings it up first); required:
+        # a failed bring-up must abort, not run N racing single-process runs
+        dist.initialize(required=True)
+    n_proc, proc_id = dist.process_count(), dist.process_index()
     polisher = _rnn_polisher(cfg, dev) if cfg.polish_method == "rnn" else None
     reference = fastx.read_fasta_dict(cfg.reference_file)
     nano_dir = os.path.join(cfg.fastq_pass_dir, "nano_tcr")
-    if os.path.exists(nano_dir) and not cfg.resume:
+    # every process checks before any creates the dir (the first barrier
+    # orders the check before the mkdir), so a stale dir aborts them all
+    exists = os.path.exists(nano_dir)
+    dist.barrier("nano_dir_check")
+    if exists and not cfg.resume:
         raise FileExistsError(f"{nano_dir} exists; set resume=true to continue or remove it")
-    os.makedirs(nano_dir, exist_ok=True)
-    sigquit_log.register(nano_dir, 0)
+    if proc_id == 0:
+        os.makedirs(nano_dir, exist_ok=True)
+    dist.barrier("nano_dir_init")  # the dir exists before any process goes on
+    sigquit_log.register(nano_dir, proc_id)
     # crash and SIGUSR1 flight-recorder flushes land in the output tree
     # (a no-op when the live plane is disarmed)
-    obs_live.set_flush_path(os.path.join(nano_dir, "logs", "flight_recorder.json"))
+    obs_live.set_flush_path(os.path.join(
+        nano_dir, "logs",
+        "flight_recorder.json" if n_proc == 1 else f"flight_recorder_p{proc_id}.json",
+    ))
 
     # PHASE A: reference self-homology
     _log("Mapping reference self homology")
@@ -389,7 +439,8 @@ def _run_with_config_body(cfg: RunConfig, dev: torch.device, run_timer: StageTim
     if dev.type == "cuda":
         torch.cuda.current_stream(dev).synchronize()
     run_timer.add("self_homology", time.perf_counter() - t0)
-    _write_homology_artifacts(homology, nano_dir)
+    if proc_id == 0:  # run-level files: one writer across processes
+        _write_homology_artifacts(homology, nano_dir)
     blast_id_threshold = cfg.blast_id_threshold
     overlap_consensus = cfg.minimal_region_overlap_consensus
     if blast_id_threshold is None:
@@ -402,14 +453,11 @@ def _run_with_config_body(cfg: RunConfig, dev: torch.device, run_timer: StageTim
         return {}
 
     panel = ReferencePanel.build(reference, homology.region_cluster, device=dev)
-    budget = budget_mod.BudgetModel(
-        cfg.hbm_budget_gb if cfg.hbm_budget_gb is not None
-        else budget_mod.detect_hbm_gb(dev)
-    )
-    read_batch = cfg.read_batch_size or budget.read_batch(
-        cfg.max_read_length, num_refs=max(len(panel.names), 1),
-        band_width=cfg.sw_band_width,
-    )
+    mesh = make_mesh_from_config(cfg, dev)
+    if mesh is not None:
+        _log("Sharding device batches over mesh:", dict(cfg.mesh_shape),
+             [str(s.device) for s in mesh.devices.flat])
+    read_batch, budget = resolve_batching(cfg, len(panel.names), dev, mesh)
     _log(f"Device batching: read_batch={read_batch}, budget={budget.hbm_gb:.1f} GB on {dev}")
     ctx = _RunContext(
         cfg=cfg, device=dev, panel=panel,
@@ -418,13 +466,13 @@ def _run_with_config_body(cfg: RunConfig, dev: torch.device, run_timer: StageTim
             primer_max_dist_frac=cfg.primer_max_dist_frac,
             a5=cfg.max_softclip_5_end, a3=cfg.max_softclip_3_end,
             trim_window=cfg.trim_window, band_width=cfg.sw_band_width,
-            fast_denom=4 if cfg.round1_fast_assign else 0, device=dev,
+            fast_denom=4 if cfg.round1_fast_assign else 0, device=dev, mesh=mesh,
         ),
         # round 2 aligns already-trimmed consensus sequences: no primer search
         engine_notrim=AssignEngine(
             panel, cfg.umi_fwd, cfg.umi_rev, primers=[],
             a5=cfg.max_softclip_5_end, a3=cfg.max_softclip_3_end,
-            band_width=cfg.sw_band_width, device=dev,
+            band_width=cfg.sw_band_width, device=dev, mesh=mesh,
         ),
         blast_id_threshold=blast_id_threshold, overlap_consensus=overlap_consensus,
         read_batch=read_batch, budget=budget, polisher=polisher,
@@ -435,6 +483,10 @@ def _run_with_config_body(cfg: RunConfig, dev: torch.device, run_timer: StageTim
         fastq_list = sorted(glob.glob(os.path.join(cfg.fastq_pass_dir, "*.fastq*")))
     if not fastq_list:
         raise FileNotFoundError(f"no fastq files under {cfg.fastq_pass_dir}")
+    if n_proc > 1:
+        # each process owns a round-robin share of the libraries
+        fastq_list = dist.shard_libraries(fastq_list)
+        _log(f"Process {proc_id}/{n_proc} owns {len(fastq_list)} libraries")
     # /progress denominators and ETA priors: per-node seconds from the
     # run's own ledger and the cross-run one, for this config fingerprint
     # (the ledger is read only when the plane is armed)
@@ -492,8 +544,10 @@ def _run_with_config_body(cfg: RunConfig, dev: torch.device, run_timer: StageTim
         coord.uninstall()
         shutdown.deactivate(coord)
         try:
-            recorder.write(os.path.join(nano_dir, "robustness_report.json"),
-                           policy=policy, contracts=contracts.summary())
+            recorder.write(os.path.join(
+                nano_dir, "robustness_report.json" if n_proc == 1
+                else f"robustness_report_p{proc_id}.json",
+            ), policy=policy, contracts=contracts.summary())
         except OSError as exc:  # report trouble must never mask the run's fate
             _log(f"WARNING: could not write robustness report: {exc!r}")
         if cfg.telemetry != "off":
@@ -501,18 +555,29 @@ def _run_with_config_body(cfg: RunConfig, dev: torch.device, run_timer: StageTim
             # preempted paths too: memory peaks, telemetry.json (+
             # logs/trace.json at "full"), then the run's ledger entry
             # (which never fails the run)
+            suffix = "" if n_proc == 1 else f"_p{proc_id}"
             try:
                 obs_device.finalize_memory(obs_device.run_devices())
-                obs_report.write_run_telemetry(nano_dir, cfg.telemetry)
+                obs_report.write_run_telemetry(nano_dir, cfg.telemetry, suffix=suffix)
             except OSError as exc:
                 _log(f"WARNING: could not write telemetry artifacts: {exc!r}")
-            obs_history.record_run(nano_dir, cfg, backend=dev.type)
+            obs_history.record_run(nano_dir, cfg, suffix=suffix, backend=dev.type)
     if failed_libraries:
-        with open(os.path.join(nano_dir, "failed_libraries_p0.log"), "w") as fh:
+        with open(os.path.join(nano_dir, f"failed_libraries_p{proc_id}.log"), "w") as fh:
             for library, err in failed_libraries:
                 fh.write(f"{library}\t{err}\n")
     if preempted is not None:
+        # the peers get the same signal; no process parks in the gather
         raise preempted
+    if n_proc > 1:
+        # counts AND failures from every process, so a failed library on
+        # one process fails the run on all of them
+        merged: dict[str, dict[str, int]] = {}
+        all_failed: list[tuple[str, str]] = []
+        for part in dist.allgather_object({"results": results, "failed": failed_libraries}):
+            merged.update(part["results"])
+            all_failed.extend(tuple(f) for f in part["failed"])
+        results, failed_libraries = merged, all_failed
     if failed_libraries:
         raise RuntimeError(
             f"{len(failed_libraries)} library(ies) failed: "
@@ -599,6 +664,8 @@ def _run_library_graph(fastq, lay, ctx: _RunContext, timer: StageTimer,
         overlap_consensus=ctx.overlap_consensus, polisher=ctx.polisher,
         read_batch=ctx.read_batch, budget=ctx.budget,
     )
+    if ctx.engine.mesh is not None:
+        lctx.remesh = _make_remesh(lctx)
     spec = graph_pipeline.build_library_graph(ctx.cfg)
     try:
         # graftcheck's static verdict rides telemetry.json and the history
@@ -612,6 +679,34 @@ def _run_library_graph(fastq, lay, ctx: _RunContext, timer: StageTimer,
         _log(f"WARNING: graftcheck analysis failed: {exc!r}")
     executor = graph_exec.GraphExecutor(spec, lctx, side_exec=qc_exec)
     return executor.run({"library_fastq": fastq})["region_counts"]
+
+
+def _make_remesh(lctx):
+    """The degraded-mesh hook the graph executor calls when a
+    ``device_lost`` escapes a node body: both engines move onto the
+    surviving slices (:func:`..parallel.mesh.degrade_mesh`; ``set_mesh``
+    drops every replica placed on the old slices), the library's memory
+    budget scales by the survival fraction (``degraded_budget``) and its
+    read batch re-quantizes to the new data axis. Returns the
+    degradation's detail, or None when the data axis is already 1."""
+
+    def remesh(node_name, exc):
+        old = lctx.engine.mesh
+        degraded = mesh_mod.degrade_mesh(old)
+        if degraded is None:
+            return None
+        old_n, new_n = mesh_mod.mesh_data_size(old), mesh_mod.mesh_data_size(degraded)
+        for eng in (lctx.engine, lctx.engine_notrim):
+            if eng.mesh is not None:
+                eng.set_mesh(degraded)
+        if lctx.budget is not None:
+            lctx.budget = budget_mod.degraded_budget(lctx.budget, new_n, old_n)
+        if lctx.read_batch:
+            rb = lctx.read_batch
+            lctx.read_batch = max(rb - rb % new_n, new_n)
+        return {"data_from": old_n, "data_to": new_n}
+
+    return remesh
 
 
 def _side_stage(pending: list, qc_exec, timer: StageTimer, name: str, fn, *args,
@@ -766,7 +861,8 @@ def _run_library_impl(fastq, lay, ctx: _RunContext, timer: StageTimer,
             failed_groups.append((group_name, repr(exc)))
             _log(f"WARNING: {group_name} failed and is skipped: {exc!r}")
 
-    select = stages.umi_cluster_selector(cfg, records_by_group, 1, dev, timer)
+    select = stages.umi_cluster_selector(cfg, records_by_group, 1, dev, timer,
+                                         mesh=ctx.engine.mesh)
     for group_name, umis in records_by_group:
         try:
             selected, stat_rows = select(group_name, umis)
@@ -788,7 +884,7 @@ def _run_library_impl(fastq, lay, ctx: _RunContext, timer: StageTimer,
         by_group, polish_failed = stages.polish_clusters_all(
             selected_by_group, store, max_read_length=cfg.max_read_length,
             polisher=ctx.polisher, budget=ctx.budget, cluster_batch=cfg.cluster_batch_size,
-            device=dev,
+            device=dev, mesh=ctx.engine.mesh,
         )
     merged_consensus: list[tuple[str, str]] = []
     for group_name, selected in selected_by_group:
@@ -942,7 +1038,8 @@ def _run_round2(lay, ctx: _RunContext, merged_consensus, timer: StageTimer,
             failed_regions.append((region, repr(exc)))
             _log(f"WARNING: round-2 region {region} failed and is skipped: {exc!r}")
 
-    select = stages.umi_cluster_selector(cfg, region_records, 2, ctx.device, timer)
+    select = stages.umi_cluster_selector(cfg, region_records, 2, ctx.device, timer,
+                                         mesh=ctx.engine_notrim.mesh)
     for region, umis in region_records:
         try:
             selected, stat_rows = select(region, umis)

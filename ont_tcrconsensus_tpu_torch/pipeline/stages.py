@@ -27,6 +27,7 @@ from ont_tcrconsensus_tpu_torch.obs import device as obs_device
 from ont_tcrconsensus_tpu_torch.obs import metrics as obs_metrics
 from ont_tcrconsensus_tpu_torch.ops import consensus as consensus_mod
 from ont_tcrconsensus_tpu_torch.ops import edit_distance, encode, sketch
+from ont_tcrconsensus_tpu_torch.parallel import mesh as mesh_mod
 # run_assign is re-exported: both executors call it as ``stages.run_assign``
 from ont_tcrconsensus_tpu_torch.pipeline.assign import ReadStore, ReferencePanel, run_assign  # noqa: F401
 from ont_tcrconsensus_tpu_torch.robustness import contracts, faults, retry, watchdog
@@ -156,11 +157,13 @@ def cluster_and_select_grouped(
     max_reads_per_cluster: int,
     balance_strands: bool,
     device: str | torch.device | None = None,
+    mesh=None,
 ) -> dict[str, tuple[list[SelectedCluster], list[dict]]]:
     """Cluster every group's combined UMIs in one batched pass (cross-group
     identities masked), select subreads per group, then heal sub-threshold
     fragments with one batched rescue pass, on ``device`` (the card when
-    None). Returns {group: (selected, stat_rows)}."""
+    None; ``mesh`` splits the distance batches over its data slices).
+    Returns {group: (selected, stat_rows)}."""
     device = resolve_device(device)
     eligibles = [
         (name, [r for r in records if min_umi_length <= len(r.combined) <= max_umi_length])
@@ -173,7 +176,8 @@ def cluster_and_select_grouped(
     # distance readbacks in cluster/umi.py) are credited here, the rest is
     # the pass's host time
     with obs_device.dispatch("cluster.batched_dispatch"):
-        clusters_list = umi_mod.cluster_umis_grouped(groups, identity, device=device)
+        clusters_list = umi_mod.cluster_umis_grouped(groups, identity, device=device,
+                                                     mesh=mesh)
     out: dict[str, tuple[list[SelectedCluster], list[dict]]] = {}
     rescue_work: list[tuple] = []
     first_pass: dict[str, tuple] = {}
@@ -188,7 +192,8 @@ def cluster_and_select_grouped(
         first_pass[name] = (recs, clusters, selected, stat_rows)
         if min_reads_per_cluster > 1:
             rescue_work.append((name, recs, clusters, members, taken))
-    roots_by = _rescue_grouped(rescue_work, identity, device) if rescue_work else {}
+    roots_by = (_rescue_grouped(rescue_work, identity, device, mesh=mesh)
+                if rescue_work else {})
     for name, (recs, clusters, selected, stat_rows) in first_pass.items():
         watchdog.heartbeat("cluster.group_select")
         roots = roots_by.get(name)
@@ -216,6 +221,7 @@ def cluster_and_select(
     max_reads_per_cluster: int,
     balance_strands: bool,
     device: str | torch.device | None = None,
+    mesh=None,
 ) -> tuple[list[SelectedCluster], list[dict]]:
     """One group's clustering, subread selection and rescue: the per-group
     fallback after the batched pass (:func:`cluster_and_select_grouped`)
@@ -225,14 +231,15 @@ def cluster_and_select(
     eligible = [r for r in umi_records if min_umi_length <= len(r.combined) <= max_umi_length]
     if not eligible:
         return [], []
-    clusters = umi_mod.cluster_umis([r.combined for r in eligible], identity, device=device)
+    clusters = umi_mod.cluster_umis([r.combined for r in eligible], identity, device=device,
+                                    mesh=mesh)
     members = _group_members(eligible, clusters.labels)
     selected, stat_rows, taken = _run_selection(
         members, min_reads_per_cluster, max_reads_per_cluster, balance_strands,
     )
     if min_reads_per_cluster > 1:
         roots = _rescue_grouped([(None, eligible, clusters, members, taken)], identity,
-                                device)[None]
+                                device, mesh=mesh)[None]
         if roots is not None:
             selected, stat_rows, _ = _run_selection(
                 _group_members(eligible, clusters.labels, roots),
@@ -246,7 +253,7 @@ def cluster_and_select(
 
 
 def umi_cluster_selector(cfg, named_records: list[tuple[str, list[UmiRecord]]],
-                         round_no: int, device, timer=None):
+                         round_no: int, device, timer=None, mesh=None):
     """Round ``round_no``'s UMI clustering of every group: one batched pass
     (:func:`cluster_and_select_grouped`, chaos site and retry site
     ``cluster.batched_round{round_no}``) whose failure after its retries is
@@ -256,7 +263,8 @@ def umi_cluster_selector(cfg, named_records: list[tuple[str, list[UmiRecord]]],
     its peers; the caller guards each group. ``timer`` (the imperative
     order) times the batched pass and each fallback under
     ``round{round_no}_umi_cluster`` and guards the batched pass; a graph
-    node already runs inside both."""
+    node already runs inside both. ``mesh`` splits every distance batch
+    over its data slices."""
     site, stage = f"cluster.batched_round{round_no}", f"round{round_no}_umi_cluster"
     knobs = dict(
         identity=cfg.vsearch_identity if round_no == 1 else cfg.vsearch_identity_consensus,
@@ -266,6 +274,7 @@ def umi_cluster_selector(cfg, named_records: list[tuple[str, list[UmiRecord]]],
         max_reads_per_cluster=cfg.max_reads_per_cluster,
         balance_strands=cfg.balance_strands if round_no == 1 else False,
         device=device,
+        mesh=mesh,
     )
 
     def timed():
@@ -307,7 +316,7 @@ def umi_cluster_selector(cfg, named_records: list[tuple[str, list[UmiRecord]]],
 RESCUE_K_END = 16
 
 
-def _rescue_identities(codes, lens, sub_global, gid, rescue_k_end, device):
+def _rescue_identities(codes, lens, sub_global, gid, rescue_k_end, device, mesh=None):
     """(n_sub, K+1) candidate centroid indices + relaxed-end identities:
     k-mer shortlist over ALL centroid rows, then exact dovetail distances
     with ``rescue_k_end`` free ends. Self, padded and (with ``gid``)
@@ -338,8 +347,9 @@ def _rescue_identities(codes, lens, sub_global, gid, rescue_k_end, device):
         ti = np.concatenate([ti, np.zeros(pad, np.int32)])
     t_qi = torch.from_numpy(qi.astype(np.int64)).to(device)
     t_ti = torch.from_numpy(ti.astype(np.int64)).to(device)
-    d = edit_distance.pairwise_dovetail(
+    d = edit_distance.pairwise_dovetail_auto(
         t_codes[t_qi], t_lens[t_qi], t_codes[t_ti], t_lens[t_ti], k_end=rescue_k_end,
+        mesh=mesh,
     ).cpu().numpy().astype(np.float32)[:n_pairs]
     longest = np.maximum(lens[qi[:n_pairs]], lens[ti[:n_pairs]]).astype(np.float32)
     ident = np.where(longest > 0, 1.0 - d / np.maximum(longest, 1.0), -1.0)
@@ -395,7 +405,7 @@ def _rescue_subs(members: dict, taken: set) -> list[int]:
 
 
 def _rescue_grouped(work: list[tuple], identity: float, device,
-                    rescue_k_end: int = RESCUE_K_END) -> dict:
+                    rescue_k_end: int = RESCUE_K_END, mesh=None) -> dict:
     """Second-chance pass for clusters that failed min_reads_per_cluster,
     batched over groups: each sub-threshold cluster's centroid UMI merges
     into its single best match at >= the same identity (ties: smaller
@@ -424,7 +434,7 @@ def _rescue_grouped(work: list[tuple], identity: float, device,
     codes, lens = encode.encode_batch(cent_all, pad_to=128)
     cand, ident = _rescue_identities(
         codes, lens, np.asarray(subs_global, np.int32), np.asarray(gids, np.int32),
-        rescue_k_end, device=device,
+        rescue_k_end, device=device, mesh=mesh,
     )
     row = 0
     for key, subs, n_c, s, taken in per_group:
@@ -523,6 +533,7 @@ def polish_clusters_all(
     budget=None,
     keep_codes: bool = False,
     device: str | torch.device | None = None,
+    mesh=None,
 ) -> tuple[dict[str, list[tuple[str, str]]], dict[str, str]]:
     """Consensus for every selected cluster of every group, batched together,
     on ``device`` (the card when None).
@@ -543,6 +554,13 @@ def polish_clusters_all(
     ``<group>_cluster<id>_<n_subreads>``. ``keep_codes=True`` gives each
     consensus as its 1-d uint8 code vector (the graph executor's
     device-resident hand-off) instead of a string.
+
+    ``mesh`` splits every chunk's cluster and lane axes over the mesh's
+    data slices (chunks padded to at least the data-axis size; ``device``
+    is the first slice's). Before each chunk under a mesh, the chaos sites
+    ``mesh.device_lost`` (a slice dies: escalated, for the graph executor
+    to re-run the node on the survivors) and ``mesh.slice_oom`` (one
+    slice runs out of memory: the usual shrink and requeue) fire.
 
     Returns ``(consensus_by_group, failed_groups)``: per-group (header,
     seq) lists in cluster-id order, and {group: error} for the groups hit by
@@ -607,6 +625,8 @@ def polish_clusters_all(
             prepared[(s_bucket, width)].append((group_name, cl, codes, lens, quals, strands))
 
     keep_pos = bool(getattr(polisher, "wants_v4", False))
+    # the cluster axis splits over the data slices: chunks must divide it
+    n_data = mesh_mod.mesh_data_size(mesh) if mesh is not None else None
     for (s_bucket, width), items in sorted(prepared.items()):
         # long-amplicon buckets double the band: indel drift grows with length
         eff_band = band_width if width <= 2048 else max(band_width, 128)
@@ -619,6 +639,8 @@ def polish_clusters_all(
         else:
             cb = 16
         cb = min(cb, bucketing.pow2_ceil(len(items)))
+        if n_data is not None:
+            cb = max(cb, n_data)
         worklist: list[tuple[list, int, int]] = [(items, cb, 0)]
         while worklist:
             run_items, cb_run, shrink = worklist.pop(0)
@@ -627,7 +649,7 @@ def polish_clusters_all(
                 seqs = _dispatch_polish_retried(
                     chunk, cb_run, s_bucket, width, shrink, rounds=rounds, eff_band=eff_band,
                     keep_pos=keep_pos, polisher=polisher, budget=budget,
-                    keep_codes=keep_codes, device=device,
+                    keep_codes=keep_codes, device=device, mesh=mesh,
                 )
                 if isinstance(seqs, int):
                     # out of memory: requeue the failing chunk AND the
@@ -653,7 +675,7 @@ def polish_clusters_all(
 
 
 def _dispatch_polish_retried(chunk, cb_run, s_bucket, width, shrink, *, rounds, eff_band,
-                             keep_pos, polisher, budget, keep_codes, device):
+                             keep_pos, polisher, budget, keep_codes, device, mesh):
     """Dispatch one chunk under the retry policy: the chunk's sequences;
     the smaller cluster batch to requeue at after an out-of-memory error
     (an int); or, for a failure the chunk cannot recover from, the
@@ -667,6 +689,11 @@ def _dispatch_polish_retried(chunk, cb_run, s_bucket, width, shrink, *, rounds, 
             # fires only when a dispatch stops progressing
             watchdog.heartbeat("polish.chunk")
             faults.inject("polish.dispatch")
+            if mesh is not None:
+                # mesh-only faults: a slice dying mid-node and one slice
+                # running out of memory
+                faults.inject("mesh.device_lost")
+                faults.inject("mesh.slice_oom")
             packed = _pack_polish_chunk(chunk, cb_run, s_bucket, width)
             # the dispatch split of the dominant stage: the readbacks in
             # ops/consensus and the polisher credit their waits to this
@@ -675,7 +702,7 @@ def _dispatch_polish_retried(chunk, cb_run, s_bucket, width, shrink, *, rounds, 
                 seqs = _dispatch_polish_packed(
                     packed, len(chunk), rounds=rounds, eff_band=eff_band,
                     keep_pos=keep_pos, polisher=polisher, keep_codes=keep_codes,
-                    device=device,
+                    device=device, mesh=mesh,
                 )
         except Exception as exc:
             pol, rec = retry.policy(), retry.recorder()
@@ -696,6 +723,8 @@ def _dispatch_polish_retried(chunk, cb_run, s_bucket, width, shrink, *, rounds, 
                     budget, shrink, s_bucket, width, eff_band,
                     keep_final=polisher is not None, keep_pos=keep_pos, cb_run=cb_run,
                 )
+                if mesh is not None:
+                    new_cb = max(new_cb, mesh_mod.mesh_data_size(mesh))
                 if new_cb < cb_run:
                     rec.record("polish.dispatch", classification="oom", outcome="oom_shrink",
                                attempt=attempt, error=repr(exc),
@@ -738,18 +767,18 @@ def _pack_polish_chunk(chunk, cb, s_bucket, width):
 
 
 def _dispatch_polish_packed(packed, C, *, rounds, eff_band, keep_pos, polisher,
-                            keep_codes, device) -> list:
+                            keep_codes, device, mesh=None) -> list:
     """Consensus (and polish) of one packed (cb, S, W) tile; the C real
     clusters' sequences in chunk order (strings, or 1-d uint8 code vectors
     under ``keep_codes``)."""
     sub, lens, quals, strands = packed
     drafts, dlens, *rest = consensus_mod.consensus_clusters_batch(
         sub, lens, rounds=rounds, band_width=eff_band,
-        keep_final_pileup=polisher is not None, keep_pos=keep_pos, device=device,
+        keep_final_pileup=polisher is not None, keep_pos=keep_pos, device=device, mesh=mesh,
     )
     if polisher is not None:
         drafts, dlens = polisher(sub, lens, drafts, dlens, pileup=rest[0],
-                                 band_width=eff_band, quals=quals, strands=strands)
+                                 band_width=eff_band, quals=quals, strands=strands, mesh=mesh)
     if keep_codes:
         drafts, dlens = np.asarray(drafts), np.asarray(dlens)
         return [drafts[c, : int(dlens[c])].astype(np.uint8, copy=True) for c in range(C)]

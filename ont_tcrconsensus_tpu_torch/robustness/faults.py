@@ -24,12 +24,21 @@ site                       planted at
 ``resume.verify``          a completed artifact before resume verifies it
 ``graph.node``             every critical-path node body under the graph
                            executor (graph/executor.py)
+``mesh.dispatch``          the sharded dispatch boundary: shard placement
+                           (parallel/mesh.py, ``shard_batch``) and the
+                           engines' sharded passes (pipeline/assign.py); a
+                           ``transient`` rides the bounded-retry ladder
+``mesh.device_lost``       before each polish chunk under a mesh
+                           (pipeline/stages.py): a ``device-lost`` escalates
+                           to the graph executor's degraded-mesh re-run
+``mesh.slice_oom``         the same place: an ``oom`` takes the chunk's
+                           shrink-and-requeue path, the mesh kept whole
 ========================== ==================================================
 
-The JAX package's ``serve.*`` and ``mesh.*`` sites stay in
-:data:`KNOWN_SITES`, so one chaos plan arms both packages, but the port
-plants them in the serve and multi-GPU mesh slices: arming one here raises
-``NotImplementedError`` naming that slice (:data:`UNPLANTED`).
+The JAX package's ``serve.*`` sites stay in :data:`KNOWN_SITES`, so one
+chaos plan arms both packages, but the port plants them in its serve
+slice: arming one here raises ``NotImplementedError`` naming that slice
+(:data:`UNPLANTED`).
 
 Kinds: ``transient`` (:class:`TransientChaosError`, classified retryable),
 ``oom`` (:class:`OomChaosError`: shrink and retry), ``device-lost``
@@ -116,7 +125,6 @@ KNOWN_SITES = frozenset({
 #: slice that brings each family
 UNPLANTED = {
     "serve.": "the serve daemon slice of the port",
-    "mesh.": "the multi-GPU mesh slice of the port",
 }
 
 KILL_EXIT_CODE = 137

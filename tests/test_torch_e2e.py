@@ -332,12 +332,3 @@ def test_the_card_is_the_default_and_its_absence_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         trun.run_with_config(cfg, device="cuda")
     assert not (tmp_path / "nano_tcr").exists()  # nothing ran
-
-
-@pytest.mark.parametrize("knob,value", [
-    ("mesh_shape", {"data": 2}), ("distributed", True),
-])
-def test_knobs_of_later_slices_raise(tmp_path, knob, value):
-    cfg = _config(tmp_path, **{knob: value})
-    with pytest.raises(NotImplementedError):
-        trun.run_with_config(cfg, device="cpu")

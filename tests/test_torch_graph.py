@@ -116,8 +116,7 @@ def test_context_carries_the_jax_fields_and_the_device():
 
     port = {f.name for f in dataclasses.fields(tpipeline.LibraryContext)}
     jax = {f.name for f in dataclasses.fields(jpipeline.LibraryContext)}
-    # the sharded-execution hooks come with the port's mesh slice
-    assert port == (jax - {"node_shardings", "remesh"}) | {"device"}
+    assert port == jax | {"device"}
 
 
 # -- builder validation -------------------------------------------------------
@@ -398,11 +397,17 @@ def test_contract_errors_and_the_mesh_gate_as_in_jax():
         with pytest.raises(RuntimeError, match="cannot run sharded"):
             side.executor.GraphExecutor(spec, ctx).run({"src": 1})
         assert side.executor.GraphExecutor(spec, _ctx(side)).run({"src": 5}) == {"res": 5}
-    # a consistent graph under a mesh: the port has no mesh slice yet
-    spec = _diamond(tir).build()
-    with pytest.raises(NotImplementedError, match="mesh slice"):
-        texecutor.GraphExecutor(spec, _ctx(PORT, engine=SimpleNamespace(mesh=object()))).run(
-            {"src": 1})
+    # a consistent graph under a mesh runs, with each node's sharding plan
+    # published on the context as in JAX
+    got = []
+    for side in SIDES:
+        seen = []
+        spec = _diamond(side.ir).build()
+        spec.nodes[N_FINISH].fn = lambda ctx, i, seen=seen: (
+            seen.append(ctx.node_shardings) or {"out": i["y"] * 10})
+        ctx = _ctx(side, engine=SimpleNamespace(mesh=object()))
+        got.append((side.executor.GraphExecutor(spec, ctx).run({"src": 1}), seen))
+    assert got[0] == got[1] == ({"out": 30}, [None])
 
 
 def test_a_lost_device_without_a_remesh_hook_propagates():

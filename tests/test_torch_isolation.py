@@ -53,7 +53,8 @@ def test_importing_every_port_module_loads_no_jax():
                  "obs.history", "obs.critical_path", "obs.report", "obs.live",
                  "graph", "graph.ir", "graph.check", "graph.nodes", "graph.pipeline",
                  "graph.executor", "robustness.faults", "robustness.locks",
-                 "robustness.shutdown", "io.validate", "qc.analysis", "qc.analysis_cli"):
+                 "robustness.shutdown", "io.validate", "qc.analysis", "qc.analysis_cli",
+                 "parallel.budget", "parallel.mesh", "parallel.distributed"):
         assert f"ont_tcrconsensus_tpu_torch.{must}" in report["modules"]
 
 
