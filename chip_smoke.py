@@ -34,8 +34,9 @@ of which fails the script (non-zero exit, no result line):
    error profile's device path on ``cuda`` (plain PyTorch: the JAX
    package's XLA scans, no Pallas kernel) and its numpy fill: every cs
    string equal. The device path's seconds (host clock to a synchronized
-   card, two calls) and, from one call traced by ``torch.profiler``, its
-   device events (kernel launches and copies) and busy time;
+   card, two calls) and, from one call on the first 128 reads traced by
+   ``torch.profiler``, its device events (kernel launches and copies) and
+   busy time;
 6. small e2e: the tests' 4-region lane under ``rnn`` (the default) and
    under ``poa``, each on ``cuda`` and on ``cpu`` (plain versions), both
    through the default graph executor: every file under ``nano_tcr/``
@@ -145,19 +146,22 @@ of which fails the script (non-zero exit, no result line):
    first run, its summaries and ``outs/`` files printed, or, where
    matplotlib does not import, a line saying it was not run and why;
 11. the data mesh (``parallel/mesh.py``, ``parallel/distributed.py``):
-   phase 8's full lane under the default config plus ``mesh_shape:
+   phase 6's small lane under the default config plus ``mesh_shape:
    {"data": torch.cuda.device_count()}`` (data=1 on a one-card host,
-   every card on a larger one), launches counted from zero and by slice:
-   the truth's counts, every file under ``nano_tcr/`` byte-identical to
-   phase 8's first run but the files of timings (and, at data > 1,
-   :data:`MESH_DIFFERS`), every kernel launched on every slice,
-   ``mesh_slice_busy`` for every slice and ``mesh_config`` in
-   ``history.jsonl``; its seconds and reads/s beside phase 8's. Then B1 at
+   every card on a larger one; the full lane's second run is phase 12's
+   served job, which keeps the script inside its time limit), launches
+   counted from zero and by slice: the truth's counts, every file under
+   ``nano_tcr/`` byte-identical to phase 6's cuda run but the files of
+   timings (and, at data > 1, :data:`MESH_DIFFERS`), every kernel
+   launched on every slice, ``mesh_slice_busy`` for every slice and
+   ``mesh_config`` in ``history.jsonl``; its seconds and reads/s beside
+   phase 6's. Then B1 at
    B=2048, L=2048, W=128 and B2 at N=1024, L=2048, W=64 split over a
    ``data=2`` mesh of two slices of ONE card (``cuda:0`` twice), each bit
    for bit the unsplit launch, both timed (CUDA-event medians of 5). Then
-   the small lane under ``poa`` at ``data=2`` over those two slices of
-   the card (``install_slice_devices``): undisturbed (every file the
+   the small lane under ``poa`` without the QC error profiles at
+   ``data=2`` over those two slices of the card (``install_slice_devices``):
+   undisturbed (every file the
    unsharded run's but :data:`MESH_DIFFERS`), ``mesh.device_lost`` (one
    ``mesh.degraded`` event at ``round1_polish``, data 2 to 1, the lost
    slice gauged 0), ``mesh.slice_oom`` (``oom_shrink``, no degradation)
@@ -168,7 +172,34 @@ of which fails the script (non-zero exit, no result line):
    ``distributed: true``: both exit 0, each owns one library, each
    library's files equal one process's run of both, and the per-process
    files (``robustness_report_p<i>.json``, ...) are there; each process's
-   seconds are printed.
+   seconds are printed;
+12. the warm-serving daemon (``serve/``): a ``Daemon`` in this process on
+   a thread, on ``cuda``, phase 8's full-lane config (the default config)
+   as its template, prewarm on: the prewarm report (each warm-up launch's
+   bucket, seconds and B1/B2 launches; the kernel build/load seconds) and
+   ``warmup_s``. Then phase 8's full lane as job 1 over real HTTP
+   (``POST /jobs``), launches counted from zero: done with the truth's
+   counts, every file under ``nano_tcr/`` byte-identical to phase 8's run
+   0 but the files of timings, which must match by schema and names
+   (telemetry keys, stage names, manifest stages, the run entry of
+   ``history.jsonl``), B1 and B2 launched as often as there, 0 kernel
+   builds in its ``telemetry.json``; its seconds and reads/s beside run
+   0's, its ``wait_s`` and ``dispatch_first_stage_s``, and its peak
+   memory beside the admission estimate's byte figures. The small lane
+   as job 2: every file phase 6's cuda run's; the two ``source: "serve"``
+   ledger entries, ``warmup_s`` on the first only. Drills on the small
+   lane under ``poa`` without the QC profiles: a transient
+   ``serve.job_run`` retried to done, a fatal one poisoned in
+   ``serve_poison.json``, a ``serve.daemon_loop`` crash journaling the
+   popped job and flushing ``serve_crash:RuntimeError``, and a ``python -m
+   ont_tcrconsensus_tpu_torch serve ... --port 0`` process sent SIGTERM
+   mid-job: exit 143, the job journaled with ``resume: true``, completed
+   by a restarted daemon to phase 9's undisturbed counts CSV and merged
+   FASTA (its cold start to ``serve_info.json`` and ``warmup_s`` printed).
+   Last a packed pair (``serve_workers: 2`` over ``devices=["cuda:0",
+   "cuda:0"]``) of two tenants of the drills' knobs: resident at once on
+   disjoint slices, each writing the transient drill's served job's files,
+   their seconds beside that job's.
 
 Each phase's start (seconds since the script began) is printed. Then one
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
@@ -185,6 +216,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -711,13 +743,17 @@ def polisher_parity(seed: int, C: int = 64, S: int = 16, L: int = 2048, W: int =
 # the QC error profile
 
 
+TRACED_READS = 128  # phase 5's traced call
+
+
 def error_profile_phase(seed: int = 5, n: int = 512) -> dict:
     """The error profile's cs strings of ``n`` simulated reads (1.4-2.3 kb
     regions, the systematic ONT error model) against their reference
     spans: the device path on the card against the numpy fill, every
     string equal. Times: the device path twice (host clock to a
-    synchronized card) and the numpy fill once; then one device call traced
-    for its device events and busy time."""
+    synchronized card) and the numpy fill once; then one device call on the
+    first :data:`TRACED_READS` reads traced for its device events and busy
+    time."""
     import torch
 
     from ont_tcrconsensus_tpu_torch.io import simulator
@@ -750,11 +786,13 @@ def error_profile_phase(seed: int = 5, n: int = 512) -> dict:
             raise AssertionError(f"error profile: read {bad}'s cs string differs between "
                                  f"the device path and numpy: {got[bad][:80]!r} vs "
                                  f"{want[bad][:80]!r}")
-    traced = _device_ms(lambda: error_profile.banded_cs_batch_device(queries, spans,
-                                                                     device="cuda"))
+    # the trace's post-processing grows with its events: one call on the
+    # first TRACED_READS reads keeps the phase inside the time limit
+    traced = _device_ms(lambda: error_profile.banded_cs_batch_device(
+        queries[:TRACED_READS], spans[:TRACED_READS], device="cuda"))
     lens = [len(q) for q in queries]
     return {"n_reads": n, "read_len": [min(lens), max(lens)], "device_s": device_s,
-            "numpy_s": numpy_s, "device_events": traced["events"],
+            "numpy_s": numpy_s, "traced_reads": TRACED_READS, "device_events": traced["events"],
             "device_busy_ms": traced["device_ms"], "strings_equal": True}
 
 
@@ -781,13 +819,16 @@ def _run_lane(root: str, knobs: dict, device: str, timings: dict | None = None,
 
     if fresh:
         shutil.rmtree(os.path.join(root, "fastq_pass", "nano_tcr"), ignore_errors=True)
-    cfg = RunConfig.from_dict({
-        "reference_file": os.path.join(root, "reference.fa"),
-        "fastq_pass_dir": os.path.join(root, "fastq_pass"),
-        "delete_tmp_files": False,
-        **knobs,
-    })
-    return run_with_config(cfg, device=device, timings=timings)
+    return run_with_config(RunConfig.from_dict(_lane_raw(root, knobs)), device=device,
+                           timings=timings)
+
+
+def _lane_raw(root: str, knobs: dict) -> dict:
+    """The run config of the lane at ``root``: a one-shot run's, a
+    daemon's template or a served job's overrides."""
+    return {"reference_file": os.path.join(root, "reference.fa"),
+            "fastq_pass_dir": os.path.join(root, "fastq_pass"),
+            "delete_tmp_files": False, **knobs}
 
 
 # files of a run that hold times, not results (the stage table's names and
@@ -876,9 +917,10 @@ SMALL_KNOBS = {"minimal_length": 600, "min_reads_per_cluster": 4, "read_batch_si
 POLISH = {"rnn": {}, "poa": {"polish_method": "poa"}}
 
 
-def small_e2e(method: str) -> dict:
+def small_e2e(method: str, trees: dict | None = None) -> dict:
+    """``trees``, when given, receives the cuda run's files under
+    ``method`` (phase 12 holds a served job to them)."""
     import torch
-
 
     lib = _small_library()
     root = os.path.join(WORK, "small")
@@ -924,6 +966,8 @@ def small_e2e(method: str) -> dict:
         if got.get("barcode01") != lib.true_counts:
             raise AssertionError(f"small e2e ({method}) on {dev}: counts "
                                  f"{got.get('barcode01')} != truth {lib.true_counts}")
+    if trees is not None:
+        trees[method] = art_cuda
     return {"polish": method, "n_reads": len(lib.reads), "cuda_s": cuda_s, "cpu_s": cpu_s,
             "imperative_s": imperative_s,
             "files_compared": len(art_cuda) - len(TIMED_FILES), "artifacts_identical": True,
@@ -1692,6 +1736,11 @@ def _sharded_kernels(dev, mesh_mod) -> dict:
     return out
 
 
+# the mesh drills' runs: phase 9's drill knobs without the QC error
+# profiles (no profile is sharded; they kept the script inside its limit)
+MESH_DRILL_KNOBS = {**DRILL_KNOBS, "error_profile_sample": 0}
+
+
 def _mesh_drills(lib, kernels, mesh_mod) -> dict:
     """The small lane at data=2 over two slices of the card: undisturbed
     (launches counted from zero, in all and by slice), then a lost slice,
@@ -1699,10 +1748,10 @@ def _mesh_drills(lib, kernels, mesh_mod) -> dict:
     the unsharded run's counts CSV and merged FASTA."""
     root = os.path.join(WORK, "mesh_drills")
     _write_lane(root, lib)
-    if _run_lane(root, DRILL_KNOBS, "cuda").get("barcode01") != lib.true_counts:
+    if _run_lane(root, MESH_DRILL_KNOBS, "cuda").get("barcode01") != lib.true_counts:
         raise AssertionError("mesh drills: the unsharded run's counts differ from the truth")
     unsharded, want = _artifacts(root), _drill_files(root)
-    mesh2 = {**DRILL_KNOBS, "mesh_shape": {"data": 2}}
+    mesh2 = {**MESH_DRILL_KNOBS, "mesh_shape": {"data": 2}}
     out = {}
     mesh_mod.install_slice_devices(["cuda:0", "cuda:0"])
     try:
@@ -1811,10 +1860,13 @@ def _two_processes(lib) -> dict:
             "library_files_compared": len(per_lib)}
 
 
-def mesh_phase(full_lib, full: dict, kernels) -> dict:
+def mesh_phase(small: dict, small_tree: dict, kernels) -> dict:
     """Phase 11: the data mesh and multi-process distribution on the card;
-    see the module docstring. ``full`` is phase 8's numbers (its first
-    run's output still in place)."""
+    see the module docstring. ``small`` is phase 6's numbers of the small
+    lane under ``rnn``, ``small_tree`` that run's files on cuda (the
+    served full lane of phase 12 is the second run of the full lane, so
+    the mesh run takes the small lane and the script stays inside its
+    time limit)."""
     import torch
 
     from ont_tcrconsensus_tpu_torch.parallel import mesh as mesh_mod
@@ -1822,13 +1874,9 @@ def mesh_phase(full_lib, full: dict, kernels) -> dict:
     t_phase = time.perf_counter()
     dev = torch.device("cuda", 0)
     n_cards = torch.cuda.device_count()
-    full_root = os.path.join(WORK, "lane_full")
-    root = os.path.join(WORK, "mesh_full")
-    lane_fastq = os.path.join("fastq_pass", "barcode01", "barcode01.fastq.gz")
-    shutil.rmtree(root, ignore_errors=True)
-    os.makedirs(os.path.join(root, "fastq_pass", "barcode01"))
-    shutil.copy(os.path.join(full_root, "reference.fa"), root)
-    shutil.copy(os.path.join(full_root, lane_fastq), os.path.join(root, lane_fastq))
+    lib = _small_library()
+    root = os.path.join(WORK, "mesh_small")
+    _write_lane(root, lib)
 
     # the main path under the mesh, launches counted from zero
     for k in kernels:
@@ -1837,20 +1885,18 @@ def mesh_phase(full_lib, full: dict, kernels) -> dict:
     stage_s: dict[str, float] = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    got = _run_lane(root, {**FULL_KNOBS, "mesh_shape": {"data": n_cards}}, "cuda",
+    got = _run_lane(root, {**SMALL_KNOBS, "mesh_shape": {"data": n_cards}}, "cuda",
                     timings=stage_s)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
     by_slice = {k.__name__: dict(k.by_slice) for k in kernels}
-    if got.get("barcode01") != full_lib.true_counts:
-        raise AssertionError(f"mesh: full lane counts differ from the truth: {got}")
+    if got.get("barcode01") != lib.true_counts:
+        raise AssertionError(f"mesh: small lane counts differ from the truth: {got}")
     labels = [f"cuda:{i}" for i in range(n_cards)]
     if not all(launches.values()) or any(sorted(s) != labels for s in by_slice.values()):
         raise AssertionError(f"mesh: a kernel did not launch on every slice: {by_slice}")
-    clean = {rel: b for rel, b in _artifacts(full_root).items()
-             if not rel.startswith("barcode01/outs/")}  # phase 10's analysis verb
-    compared = _same_files(_artifacts(root), clean, "mesh full lane",
+    compared = _same_files(_artifacts(root), small_tree, "mesh small lane",
                            MESH_DIFFERS if n_cards > 1 else ())
     with open(os.path.join(root, "fastq_pass", "nano_tcr", "telemetry.json")) as fh:
         busy = json.load(fh).get("mesh_slice_busy")
@@ -1858,14 +1904,427 @@ def mesh_phase(full_lib, full: dict, kernels) -> dict:
         mesh_config = json.loads(fh.readline()).get("mesh_config")
     if busy != {lbl: 1.0 for lbl in labels} or mesh_config != f"data={n_cards}":
         raise AssertionError(f"mesh: slice gauges {busy}, history mesh_config {mesh_config}")
-    out = {"cards": n_cards, "n_reads": len(full_lib.reads), "run_s": run_s,
-           "reads_per_s": len(full_lib.reads) / run_s, "clean_s": full["seconds"][0],
-           "clean_reads_per_s": full["reads_per_s"][0], "launches": launches,
+    out = {"cards": n_cards, "n_reads": len(lib.reads), "run_s": run_s,
+           "reads_per_s": len(lib.reads) / run_s, "clean_s": small["cuda_s"],
+           "clean_reads_per_s": len(lib.reads) / small["cuda_s"], "launches": launches,
            "launches_by_slice": by_slice, "files_compared": compared, "stage_s": stage_s,
            "mesh_slice_busy": busy, "mesh_config": mesh_config}
     out["sharded_kernels"] = _sharded_kernels(dev, mesh_mod)
     out["drills"] = _mesh_drills(_small_library(), kernels, mesh_mod)
     out["processes"] = _two_processes(_small_library())
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the warm-serving daemon
+
+
+def _http_json(method: str, url: str, obj=None) -> tuple[int, dict]:
+    import urllib.error
+    import urllib.request
+
+    data = None if obj is None else json.dumps(obj).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            return resp.status, json.loads(resp.read().decode() or "null")
+    except urllib.error.HTTPError as err:
+        body = err.read().decode()
+        return err.code, (json.loads(body) if body.startswith("{") else {"body": body})
+
+
+def _wait_until(predicate, timeout: float, what: str, poll: float = 0.1):
+    deadline = time.monotonic() + timeout
+    while not predicate():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"serve: timed out after {timeout:.0f} s waiting for {what}")
+        time.sleep(poll)
+
+
+def _start_daemon(daemon):
+    """Run ``daemon.serve_forever`` on a thread; returns (thread, outcome
+    list: the exit code or the exception it raised)."""
+    import threading
+
+    outcome: list = []
+
+    def target():
+        try:
+            outcome.append(daemon.serve_forever())
+        except Exception as exc:  # the loop-crash drill's error, for the caller
+            outcome.append(exc)
+
+    thread = threading.Thread(target=target, name="chip-smoke-serve", daemon=True)
+    thread.start()
+    return thread, outcome
+
+
+def _stop_daemon(daemon, thread, outcome, want=0) -> None:
+    daemon.request_stop()
+    thread.join(120)
+    if thread.is_alive() or outcome != [want]:
+        raise AssertionError(f"serve: the daemon did not stop with {want}: {outcome}")
+
+
+def _jobs_url() -> str:
+    from ont_tcrconsensus_tpu_torch.obs import live as obs_live
+
+    _wait_until(lambda: obs_live.server() is not None, 60, "the live plane")
+    return f"http://127.0.0.1:{obs_live.server().port}/jobs"
+
+
+def _submit_and_wait(url: str, raw: dict, timeout: float = 600,
+                     final=("done", "failed", "poisoned")) -> dict:
+    status, snap = _http_json("POST", url, raw)
+    if status != 202:
+        raise AssertionError(f"serve: POST /jobs answered {status}: {snap}")
+    job_url = f"{url}/{snap['id']}"
+    _wait_until(lambda: _http_json("GET", job_url)[1].get("state") in final, timeout,
+                f"{snap['id']}", poll=0.25)
+    return _http_json("GET", job_url)[1]
+
+
+# what a served job's telemetry may hold beyond a one-shot run's: the live
+# plane's request counter (the jobs routes are polled while it runs) and
+# the daemon's dispatch-to-first-stage latency, both in the job's registry
+# (the JAX daemon's jobs have the same)
+SERVE_PLANE_NAMES = {"counters": {"live.requests"}, "histograms": {"serve.first_stage_s"}}
+
+
+def _top_keys(value: dict) -> dict:
+    """A JSON object's keys two levels deep (the schema of the files of
+    timings: their values are timings)."""
+    return {k: sorted(v) if isinstance(v, dict) else type(v).__name__ for k, v in value.items()}
+
+
+def _timed_schema(tree: dict, other: dict, label: str) -> None:
+    """The files of timings of two runs of one lane by schema and names:
+    telemetry.json's keys, the stage table's stage names, the manifest's
+    stages, and the run entry of history.jsonl (a served job's history
+    also holds its ``source: "serve"`` entry)."""
+    tel = [json.loads(t["telemetry.json"]) for t in (tree, other)]
+    hist = [[json.loads(ln) for ln in t["history.jsonl"].decode().splitlines()]
+            for t in (tree, other)]
+    stages = [sorted(json.loads(t[TIMED_FILES[0]]).get("stages", {})) for t in (tree, other)]
+    problems = []
+    keys = [_top_keys(t) for t in tel]
+    for section, names in SERVE_PLANE_NAMES.items():
+        extra = set(keys[0].get(section, ())) - set(keys[1].get(section, ()))
+        if extra <= names:  # what the daemon's own plane planted during the job
+            keys[0][section] = sorted(set(keys[0][section]) - extra)
+    if keys[0] != keys[1]:
+        problems.append("telemetry.json keys")
+    if _stage_names(tree) != _stage_names(other):
+        problems.append("stage_timing.tsv stage names")
+    if stages[0] != stages[1]:
+        problems.append("stage_manifest.json stages")
+    runs = [[e for e in h if e["source"] == "run"] for h in hist]
+    if (len(runs[0]) != 1 or len(runs[1]) != 1 or set(runs[0][0]) != set(runs[1][0])
+            or runs[0][0]["fingerprint"] != runs[1][0]["fingerprint"]):
+        problems.append("history.jsonl run entries")
+    if problems:
+        raise AssertionError(f"{label}: the files of timings differ in {problems}")
+
+
+def _admission_bytes(cfg, budget) -> dict:
+    """The byte figures the admission estimate weighs (serve/queue.py's
+    arithmetic): the read pass at the job's read batch and one polish tile."""
+    from ont_tcrconsensus_tpu_torch.io import bucketing
+
+    width = bucketing.bucket_width(cfg.max_read_length) or cfg.max_read_length
+    s_bucket = bucketing.pow2_ceil(max(cfg.max_reads_per_cluster, 1))
+    return {"read_pass": budget.read_bytes(width, band_width=cfg.sw_band_width)
+            * (cfg.read_batch_size or 128),
+            "polish_tile": budget.cluster_bytes(s_bucket, width),
+            "working_budget": budget.budget_bytes}
+
+
+# the serve drills' jobs: phase 9's drill knobs without the QC error
+# profiles, which the drills' counts CSV and merged FASTA do not read
+SERVE_DRILL_KNOBS = {**DRILL_KNOBS, "error_profile_sample": 0}
+
+
+def _serve_drills(lib, want: dict) -> tuple[dict, dict]:
+    """The ladder, the loop crash and the SIGTERM drain on the small lane
+    (``poa``, no QC profile), each in a daemon of its own: in process for
+    the first three, then a ``serve`` process of its own, completed in
+    process. ``want`` is phase 9's undisturbed counts CSV and merged
+    FASTA. Returns the drills' numbers, and the transient drill's served
+    job (its files and seconds), the packed pair's serial reference."""
+    from ont_tcrconsensus_tpu_torch.robustness import faults
+    from ont_tcrconsensus_tpu_torch.serve import daemon as daemon_mod
+    from ont_tcrconsensus_tpu_torch.serve import queue as queue_mod
+
+    out, serial = {}, {}
+    for name, plan, final in (
+        ("transient at serve.job_run", [{"site": "serve.job_run", "kind": "transient"}], "done"),
+        ("fatal at serve.job_run", [{"site": "serve.job_run", "kind": "error"}], "poisoned"),
+    ):
+        root = os.path.join(WORK, "serve_drill")
+        _write_lane(root, lib)
+        state = os.path.join(WORK, "serve_drill_state")
+        shutil.rmtree(state, ignore_errors=True)
+        faults.arm(plan)  # the daemon-scope plan: TCR_CHAOS is not set here
+        daemon = daemon_mod.Daemon(_lane_raw(root, SERVE_DRILL_KNOBS), port=0, state_dir=state,
+                                   do_prewarm=False, device="cuda")
+        thread, outcome = _start_daemon(daemon)
+        t0 = time.perf_counter()
+        snap = _submit_and_wait(_jobs_url(), _lane_raw(root, SERVE_DRILL_KNOBS))
+        job = daemon.queue.job(snap["id"])
+        _stop_daemon(daemon, thread, outcome)
+        d = {"state": snap["state"], "attempts": job.attempts, "error": snap["error"],
+             "seconds": time.perf_counter() - t0}
+        if snap["state"] != final or job.attempts != 1:
+            raise AssertionError(f"serve drill {name}: {d}")
+        if final == "done":
+            if _drill_files(root) != want:
+                raise AssertionError(f"serve drill {name}: the counts CSV or the merged FASTA "
+                                     "differs from the undisturbed run's")
+            serial = {"tree": _artifacts(root), "job_s": snap["finished_t"] - snap["started_t"]}
+        else:
+            poison = queue_mod.load_poison(state)
+            d["poison"] = [(e["id"], e["classification"]) for e in poison]
+            if d["poison"] != [(snap["id"], "fatal")]:
+                raise AssertionError(f"serve drill {name}: poison file {poison}")
+        out[name] = d
+
+    # the accept loop crashes between pop and dispatch: the popped job is
+    # journaled and the flight recorder flushed under the exception's type
+    name = "serve.daemon_loop crash"
+    state = os.path.join(WORK, "serve_crash_state")
+    shutil.rmtree(state, ignore_errors=True)
+    faults.arm([{"site": "serve.daemon_loop", "kind": "error",
+                 "message": "induced serve-loop crash"}])
+    root = os.path.join(WORK, "serve_drill")
+    daemon = daemon_mod.Daemon(_lane_raw(root, SERVE_DRILL_KNOBS), port=0, state_dir=state,
+                               do_prewarm=False, device="cuda")
+    thread, outcome = _start_daemon(daemon)
+    status, snap = _http_json("POST", _jobs_url(), _lane_raw(root, SERVE_DRILL_KNOBS))
+    thread.join(120)
+    with open(queue_mod.journal_path(state)) as fh:
+        journal = [(j["id"], j["state"]) for j in json.load(fh)["jobs"]]
+    with open(os.path.join(state, "logs", "flight_recorder.json")) as fh:
+        reason = json.load(fh)["reason"]
+    crash = outcome[0] if outcome else None
+    out[name] = {"raised": repr(crash), "journal": journal, "flight_recorder": reason}
+    if (status != 202 or not isinstance(crash, RuntimeError)
+            or journal != [(snap["id"], "requeued")] or reason != "serve_crash:RuntimeError"):
+        raise AssertionError(f"serve drill {name}: {out[name]}")
+
+    # a serve process on the card gets SIGTERM mid-job: exit 143 and the
+    # journal; a restarted daemon completes the job
+    name = "SIGTERM to a serve process, then restart"
+    root = os.path.join(WORK, "serve_sigterm")
+    _write_lane(root, lib)
+    state = os.path.join(WORK, "serve_sigterm_state")
+    shutil.rmtree(state, ignore_errors=True)
+    template = os.path.join(root, "serve_template.json")
+    with open(template, "w") as fh:
+        json.dump(_lane_raw(root, SERVE_DRILL_KNOBS), fh)
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "TCR_CHAOS")}
+    env["PYTHONPATH"] = ROOT
+    log_path = os.path.join(WORK, "serve_sigterm.log")
+    info = os.path.join(state, daemon_mod.SERVE_INFO_BASENAME)
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "ont_tcrconsensus_tpu_torch", "serve", template,
+             "--port", "0", "--state-dir", state], cwd=ROOT, env=env, stdout=log,
+            stderr=subprocess.STDOUT)
+    d: dict = {}
+    try:
+        _wait_until(lambda: os.path.exists(info) or proc.poll() is not None, 300,
+                    "serve_info.json", poll=0.05)
+        d["cold_start_to_serve_info_s"] = time.perf_counter() - t0
+        with open(info) as fh:
+            url = f"http://127.0.0.1:{json.load(fh)['port']}/jobs"
+        status, snap = _http_json("POST", url, _lane_raw(root, SERVE_DRILL_KNOBS))
+        if status != 202:
+            raise AssertionError(f"serve drill {name}: POST /jobs answered {status}: {snap}")
+        job_url = f"{url}/{snap['id']}"
+        _wait_until(lambda: _http_json("GET", job_url)[1].get("first_stage_s") is not None,
+                    300, "the job's first stage", poll=0.05)
+        listing = _http_json("GET", url)[1]
+        d["warmup_s"] = listing["warmup_s"]
+        d["prewarm_s"] = (listing.get("prewarm") or {}).get("seconds")
+        d["first_stage_s"] = _http_json("GET", job_url)[1]["first_stage_s"]
+        proc.send_signal(signal.SIGTERM)
+        d["rc"] = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(log_path) as fh:
+        log_tail = fh.read()[-3000:]
+    with open(queue_mod.journal_path(state)) as fh:
+        d["journal"] = [(j["id"], j["state"], j["raw"].get("resume"))
+                        for j in json.load(fh)["jobs"]]
+    if d["rc"] != 143 or d["journal"] != [(snap["id"], "requeued", True)]:
+        raise AssertionError(f"serve drill {name}: {d}: {log_tail}")
+    daemon = daemon_mod.Daemon(_lane_raw(root, SERVE_DRILL_KNOBS), port=0, state_dir=state,
+                               do_prewarm=False, device="cuda")
+    thread, outcome = _start_daemon(daemon)
+    _wait_until(lambda: daemon.jobs_snapshot()["jobs_done"] == 1, 600, "the resumed job")
+    states = [j["state"] for j in daemon.jobs_snapshot()["jobs"]]
+    _stop_daemon(daemon, thread, outcome)
+    d["resumed"] = states
+    d["seconds"] = time.perf_counter() - t0
+    if (states != ["done"] or os.path.exists(queue_mod.journal_path(state))
+            or _drill_files(root) != want):
+        raise AssertionError(f"serve drill {name}: resumed {states}; the counts CSV or the "
+                             "merged FASTA differs from the undisturbed run's")
+    out[name] = d
+    return out, serial
+
+
+def serve_phase(full_lib, full: dict, small_tree: dict, kernels) -> dict:
+    """Phase 12: the warm-serving daemon on the card; see the module
+    docstring. ``full`` is phase 8's numbers (its first run's output still
+    in place), ``small_tree`` phase 6's files of the small lane on cuda."""
+    import torch
+
+    from ont_tcrconsensus_tpu_torch.obs import history as obs_history
+    from ont_tcrconsensus_tpu_torch.pipeline.config import RunConfig
+    from ont_tcrconsensus_tpu_torch.pipeline.run import _read_counts_csv
+    from ont_tcrconsensus_tpu_torch.serve import daemon as daemon_mod
+    from ont_tcrconsensus_tpu_torch.serve import queue as queue_mod
+
+    t_phase = time.perf_counter()
+    small_lib = _small_library()
+    full_root = os.path.join(WORK, "lane_full")
+    root1 = os.path.join(WORK, "serve_full")
+    lane_fastq = os.path.join("fastq_pass", "barcode01", "barcode01.fastq.gz")
+    shutil.rmtree(root1, ignore_errors=True)
+    os.makedirs(os.path.join(root1, "fastq_pass", "barcode01"))
+    shutil.copy(os.path.join(full_root, "reference.fa"), root1)
+    shutil.copy(os.path.join(full_root, lane_fastq), os.path.join(root1, lane_fastq))
+    root2 = os.path.join(WORK, "serve_small")
+    _write_lane(root2, small_lib)
+    state = os.path.join(WORK, "serve_state")
+    shutil.rmtree(state, ignore_errors=True)
+    ledger = os.path.join(WORK, "serve_ledger.jsonl")
+    if os.path.exists(ledger):
+        os.remove(ledger)
+    out: dict = {}
+
+    # 1. the daemon: the default config as the template, prewarm on
+    job1 = _lane_raw(root1, {**FULL_KNOBS, "history_ledger": ledger})
+    t0 = time.perf_counter()
+    daemon = daemon_mod.Daemon(job1, port=0, state_dir=state, device="cuda")
+    thread, outcome = _start_daemon(daemon)
+    _wait_until(lambda: daemon.warmup_s is not None or outcome, 600, "the prewarm")
+    out["start_s"] = time.perf_counter() - t0
+    out["warmup_s"] = daemon.warmup_s
+    out["prewarm"] = daemon.prewarm_report
+    entries = out["prewarm"].get("entries", [])
+    fused = [e for e in entries if e["kind"] == "fused_assign"]
+    pol = [e for e in entries if e["kind"] == "polisher"]
+    if (outcome or not entries or not all(e["ok"] for e in entries)
+            or not all(e["launches"]["B1"] > 0 for e in fused)
+            or not (pol and pol[0]["launches"]["B2"] > 0)):
+        raise AssertionError(f"serve: prewarm {out['prewarm']} (loop {outcome})")
+    url = _jobs_url()
+
+    # 2. the full lane as job 1, launches counted from zero
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = _submit_and_wait(url, job1, timeout=900)
+    torch.cuda.synchronize()
+    job_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated()
+    tree1 = _artifacts(root1)
+    tel = json.loads(tree1["telemetry.json"])
+    clean = {rel: b for rel, b in _artifacts(full_root).items()
+             if not rel.startswith("barcode01/outs/")}  # phase 10's analysis verb
+    counts = _read_counts_csv(os.path.join(root1, "fastq_pass", "nano_tcr", "barcode01",
+                                           "counts", "umi_consensus_counts.csv"))
+    if snap["state"] != "done" or counts != full_lib.true_counts:
+        raise AssertionError(f"serve: job 1 {snap['state']} {snap['error']}, counts exact "
+                             f"{counts == full_lib.true_counts}")
+    compared = _same_files(tree1, clean, "serve job 1 (full lane)")
+    _timed_schema(tree1, clean, "serve job 1 (full lane)")
+    if launches != full["launches"]["rnn"] or tel["compile"]["count"] != 0:
+        raise AssertionError(f"serve: job 1 launches {launches} (phase 8 run 0: "
+                             f"{full['launches']['rnn']}), kernel builds {tel['compile']}")
+    cfg1 = RunConfig.from_dict(job1)
+    out["job1"] = {
+        "n_reads": len(full_lib.reads), "seconds": job_s,
+        "reads_per_s": len(full_lib.reads) / job_s, "run0_s": full["seconds"][0],
+        "run0_reads_per_s": full["reads_per_s"][0], "wait_s": snap["wait_s"],
+        "dispatch_first_stage_s": snap["first_stage_s"], "launches": launches,
+        "kernel_builds": tel["compile"]["count"], "files_compared": compared,
+        "max_memory_allocated_bytes": peak,
+        "hbm_high_water_bytes": tel["gauges"].get(DEVICE_GAUGE),
+        "admission": _admission_bytes(cfg1, daemon.budget),
+        "admission_detail": queue_mod.estimate_admission(cfg1, daemon.budget)[1],
+    }
+
+    # 3. the small lane as job 2: phase 6's files; the ledger's split
+    t0 = time.perf_counter()
+    snap2 = _submit_and_wait(url, _lane_raw(root2, {**SMALL_KNOBS, "history_ledger": ledger}))
+    job2_s = time.perf_counter() - t0
+    tree2 = _artifacts(root2)
+    if snap2["state"] != "done":
+        raise AssertionError(f"serve: job 2 {snap2['state']}: {snap2['error']}")
+    compared2 = _same_files(tree2, small_tree, "serve job 2 (small lane)")
+    _timed_schema(tree2, small_tree, "serve job 2 (small lane)")
+    _stop_daemon(daemon, thread, outcome)
+    serve_entries = [e for e in obs_history.read_entries(ledger)[0] if e["source"] == "serve"]
+    if (len(serve_entries) != 2 or serve_entries[0].get("warmup_s") != daemon.warmup_s
+            or "warmup_s" in serve_entries[1]):
+        raise AssertionError(f"serve: ledger entries {serve_entries}")
+    out["job2"] = {"n_reads": len(small_lib.reads), "seconds": job2_s,
+                   "wait_s": snap2["wait_s"], "dispatch_first_stage_s": snap2["first_stage_s"],
+                   "files_compared": compared2,
+                   "kernel_builds": json.loads(tree2["telemetry.json"])["compile"]["count"]}
+    out["ledger"] = [{k: e.get(k) for k in ("job_id", "warmup_s", "steady_s", "wait_s",
+                                            "dispatch_first_stage_s", "backend")}
+                     for e in serve_entries]
+
+    # 4. the drills, on the small lane under poa without the QC profiles
+    out["drills"], serial = _serve_drills(small_lib,
+                                          _drill_files(os.path.join(WORK, "drills")))
+
+    # 5. a packed pair on two slices of the one card, held to the
+    # transient drill's serially served job of the same knobs
+    roots = [os.path.join(WORK, f"serve_pack{t}") for t in "AB"]
+    for r in roots:
+        _write_lane(r, small_lib)
+    packed = daemon_mod.Daemon(
+        _lane_raw(roots[0], {**SERVE_DRILL_KNOBS, "serve_workers": 2}), port=0,
+        state_dir=os.path.join(WORK, "serve_state_packed"), do_prewarm=False, device="cuda",
+        devices=["cuda:0", "cuda:0"])
+    thread, outcome = _start_daemon(packed)
+    url = _jobs_url()
+    t0 = time.perf_counter()
+    for r in roots:
+        status, body = _http_json("POST", url, _lane_raw(r, SERVE_DRILL_KNOBS))
+        if status != 202:
+            raise AssertionError(f"serve: packed POST /jobs answered {status}: {body}")
+    high, leases = 0, {}
+    deadline = time.monotonic() + 600
+    while packed.jobs_snapshot()["jobs_done"] < 2 or packed.allocator.resident():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"serve: packed pair unfinished: {packed.jobs_snapshot()}")
+        if packed.allocator.resident() > high:
+            high, leases = packed.allocator.resident(), packed.allocator.snapshot()["leases"]
+        packed.allocator.wait_for_release(0.05)
+    pair_s = time.perf_counter() - t0
+    states = [j["state"] for j in packed.jobs_snapshot()["jobs"]]
+    _stop_daemon(packed, thread, outcome)
+    slices = sorted(tuple(v["devices"]) for v in leases.values())
+    if high != 2 or slices != [("cuda:0",), ("cuda:1",)] or states != ["done", "done"]:
+        raise AssertionError(f"serve: packed pair high-water {high}, leases {leases}, {states}")
+    pair_compared = [_same_files(_artifacts(r), serial["tree"], f"serve packed tenant {i}")
+                     for i, r in enumerate(roots)]
+    out["packed"] = {"seconds": pair_s, "serial_job_s": serial["job_s"],
+                     "resident_high_water": high, "leases": leases,
+                     "files_compared": pair_compared}
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -1973,12 +2432,14 @@ def main(argv=None) -> int:
     print(f"error profile ({ep['n_reads']} reads of {ep['read_len'][0]}-{ep['read_len'][1]} nt): "
           f"every cs string equal on the card and in numpy; device path "
           + ", ".join(f"{t:.2f}" for t in ep["device_s"])
-          + f" s ({ep['device_events']} device events, busy {ep['device_busy_ms']:.1f} ms), "
+          + f" s (traced on {ep['traced_reads']} reads: {ep['device_events']} device events, "
+          f"busy {ep['device_busy_ms']:.1f} ms), "
           f"numpy {ep['numpy_s']:.2f} s", flush=True)
 
     phase("6 small e2e")
     # 6. small e2e, cuda vs cpu, under both polish methods
-    report["small_e2e"] = [small_e2e(method) for method in POLISH]
+    small_trees: dict[str, dict[str, bytes]] = {}
+    report["small_e2e"] = [small_e2e(method, small_trees) for method in POLISH]
     for small in report["small_e2e"]:
         imp = (f"; under executor imperative on cuda ({small['imperative_s']:.1f} s) the same "
                "files byte for byte" if small["imperative_s"] is not None else "")
@@ -2152,14 +2613,14 @@ def main(argv=None) -> int:
     _dump(args.out, report)
 
     phase("11 mesh")
-    # 11. the data mesh: the full lane at data = the host's cards, the
+    # 11. the data mesh: the small lane at data = the host's cards, the
     # kernels split over two slices of one card, the mesh drills, two
     # processes
-    ms = report["mesh"] = mesh_phase(full_lib, full, kernels)
-    print(f"mesh: full lane ({ms['n_reads']} reads) at data={ms['cards']} (this host's cards): "
-          f"{ms['run_s']:.2f} s ({ms['reads_per_s']:.1f} reads/s; unsharded run 0 of phase 8 "
+    ms = report["mesh"] = mesh_phase(report["small_e2e"][0], small_trees["rnn"], kernels)
+    print(f"mesh: small lane ({ms['n_reads']} reads) at data={ms['cards']} (this host's cards): "
+          f"{ms['run_s']:.2f} s ({ms['reads_per_s']:.1f} reads/s; unsharded cuda run of phase 6 "
           f"{ms['clean_s']:.2f} s, {ms['clean_reads_per_s']:.1f} reads/s); counts exact; "
-          f"{ms['files_compared']} files byte-identical to phase 8's run 0; launches "
+          f"{ms['files_compared']} files byte-identical to phase 6's cuda run; launches "
           f"{ms['launches']}, by slice {ms['launches_by_slice']} (B1's self-homology "
           f"launches run unsplit, as in JAX); slice gauges "
           f"{ms['mesh_slice_busy']}; history mesh_config {ms['mesh_config']}", flush=True)
@@ -2183,8 +2644,45 @@ def main(argv=None) -> int:
     print(f"mesh: {ms['seconds']:.1f} s", flush=True)
     _dump(args.out, report)
 
-    phase("12 kernels line")
-    # 12. kernels line
+    phase("12 serve")
+    # 12. the warm-serving daemon: prewarm, the full lane and the small
+    # lane as served jobs, a packed pair on two slices of the card, drills
+    sv = report["serve"] = serve_phase(full_lib, full, small_trees["rnn"], kernels)
+    pw = sv["prewarm"]
+    print(f"serve: daemon started and warm in {sv['start_s']:.2f} s (warmup_s "
+          f"{sv['warmup_s']}); prewarm {pw['seconds']} s, {pw['compiled']} ok, {pw['failed']} "
+          f"failed, kernel build/load {pw['build_s']} s; entries " + ", ".join(
+              f"{e['kind']} w={e['width']} b={e['batch']} {e['seconds']} s "
+              f"B1 {e['launches']['B1']} B2 {e['launches']['B2']}" for e in pw["entries"]),
+          flush=True)
+    j1 = sv["job1"]
+    print(f"serve job 1 (full lane, {j1['n_reads']} reads, over HTTP): {j1['seconds']:.2f} s "
+          f"({j1['reads_per_s']:.1f} reads/s; phase 8 run 0 {j1['run0_s']:.2f} s, "
+          f"{j1['run0_reads_per_s']:.1f} reads/s); counts exact; {j1['files_compared']} files "
+          f"byte-identical to run 0's, the files of timings by schema; launches "
+          f"{j1['launches']}; kernel builds {j1['kernel_builds']}; wait_s {j1['wait_s']}, "
+          f"dispatch_first_stage_s {j1['dispatch_first_stage_s']}; peak memory "
+          f"{j1['max_memory_allocated_bytes']} B (telemetry {j1['hbm_high_water_bytes']} B) "
+          f"against the admission estimate {j1['admission']} ({j1['admission_detail']})",
+          flush=True)
+    j2 = sv["job2"]
+    print(f"serve job 2 (small lane, {j2['n_reads']} reads): {j2['seconds']:.2f} s; "
+          f"{j2['files_compared']} files byte-identical to phase 6's cuda run; kernel builds "
+          f"{j2['kernel_builds']}; ledger (source serve) {sv['ledger']}", flush=True)
+    pk = sv["packed"]
+    for name, d in sv["drills"].items():
+        print(f"serve drill {name}: " + ", ".join(f"{k} {v}" for k, v in d.items()),
+              flush=True)
+    print(f"serve packed pair (serve_workers 2, two slices of cuda:0, small lane, poa without "
+          f"the QC profiles): {pk['seconds']:.2f} s for both (the transient drill's served "
+          f"job {pk['serial_job_s']:.2f} s); resident at once {pk['resident_high_water']} on "
+          f"{pk['leases']}; each tenant's {pk['files_compared']} files equal that job's",
+          flush=True)
+    print(f"serve: {sv['seconds']:.1f} s", flush=True)
+    _dump(args.out, report)
+
+    phase("13 kernels line")
+    # 13. kernels line
     entries = []
     for k, key, name, src, replaces in (
         (sw_kernel.align_banded_cuda, "sw", "sw_banded",

@@ -33,6 +33,7 @@ CUDA_NVCC = "/usr/local/cuda/bin/nvcc"  # the toolkit's home when not on PATH
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+_seconds = 0.0  # spent in build_all and load, under _lock
 
 
 def use_build_dir(path: str) -> None:
@@ -100,13 +101,25 @@ def _finish(name: str, started) -> str:
 def build_all() -> dict[str, str]:
     """Build every kernel in parallel (one ``nvcc`` each, started together);
     returns {name: nvcc's -Xptxas -v report} ('' for an existing build)."""
+    global _seconds
     with _lock:
+        t0 = time.monotonic()
         started = {name: _start(name) for name in KERNELS}
-        return {name: _finish(name, started[name]) for name in KERNELS}
+        logs = {name: _finish(name, started[name]) for name in KERNELS}
+        _seconds += time.monotonic() - t0
+        return logs
+
+
+def seconds() -> float:
+    """Seconds this process has spent building and loading kernel
+    libraries (:func:`build_all` and :func:`load`)."""
+    with _lock:
+        return _seconds
 
 
 def load(name: str) -> ctypes.CDLL:
     """The kernel's shared library, built on first use."""
+    global _seconds
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
@@ -120,6 +133,7 @@ def load(name: str) -> ctypes.CDLL:
             fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _loaded[name] = lib
+            _seconds += time.monotonic() - t0
             obs_device.kernel_built(name, time.monotonic() - t0, built=started is not None)
         return lib
 

@@ -13,6 +13,10 @@ checkpoint intact; ``resume: true`` continues it.
 ``--validate`` checks a run's config, graph, inputs and existing stage
 manifests, both without loading torch, so they work on a host whose card
 is wedged; ``--live-port`` arms the live plane for the run.
+
+``python -m ont_tcrconsensus_tpu_torch serve <template.json> [--cpu]``
+turns the CLI into the warm-serving daemon (:mod:`..serve.daemon`, its
+own flags), dispatched ahead of the one-shot parser as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,6 +27,14 @@ import sys
 
 
 def main(argv: list[str] | None = None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    # subcommand dispatch ahead of the one-shot parser: `serve` is the
+    # long-lived daemon with its own argument surface
+    if argv and argv[0] == "serve":
+        from ont_tcrconsensus_tpu_torch.serve.daemon import serve_main
+
+        return serve_main(argv[1:])
     parser = argparse.ArgumentParser(
         description="Count unique TCR molecule nanopore consensus reads (PyTorch/CUDA)."
     )
@@ -67,7 +79,7 @@ def main(argv: list[str] | None = None) -> int:
         "stage manifests (torn or v1 manifests, full sha256 of completed artifacts), "
         "print a validation report and exit non-zero on any problem",
     )
-    args = parser.parse_args(sys.argv[1:] if argv is None else argv)
+    args = parser.parse_args(argv)
 
     if args.json and not (args.report or args.validate):
         parser.error("--json is a --report/--validate option")

@@ -33,12 +33,31 @@ site                       planted at
                            to the graph executor's degraded-mesh re-run
 ``mesh.slice_oom``         the same place: an ``oom`` takes the chunk's
                            shrink-and-requeue path, the mesh kept whole
+``serve.job_run``          the daemon's per-job dispatch, just before the
+                           pipeline runs (serve/daemon.py): the entry of
+                           the retry/poison ladder
+``serve.job_slow``         a slow tenant job: a ``stall`` inside a
+                           serve-level watchdog guard (serve/daemon.py),
+                           cancelled into a transient retry
+``serve.daemon_loop``      the accept loop between pop and dispatch
+                           (serve/daemon.py): an ``error`` escapes the loop,
+                           whose drain still journals the popped job and
+                           flushes the flight recorder
+``serve.journal_write``    the drain-journal commit (serve/queue.py);
+                           ``torn`` tears the journal mid-write
+``serve.prewarm``          the warm-up launches (serve/daemon.py): a failed
+                           prewarm is a report line, never a dead daemon
+``serve.slice_assign``     the slice allocator's carve, before any pool
+                           mutation (serve/slices.py)
+``serve.slice_lost``       the packed worker between slice assignment and
+                           dispatch (serve/daemon.py): ``device-lost``
+                           quarantines the tenant's slice and requeues it
+``serve.pack``             the allocator's release, after the devices are
+                           back in the pool (serve/slices.py)
 ========================== ==================================================
 
-The JAX package's ``serve.*`` sites stay in :data:`KNOWN_SITES`, so one
-chaos plan arms both packages, but the port plants them in its serve
-slice: arming one here raises ``NotImplementedError`` naming that slice
-(:data:`UNPLANTED`).
+:data:`UNPLANTED` names the site families a later slice of the port
+plants (none now): arming one raises ``NotImplementedError``.
 
 Kinds: ``transient`` (:class:`TransientChaosError`, classified retryable),
 ``oom`` (:class:`OomChaosError`: shrink and retry), ``device-lost``
@@ -122,10 +141,8 @@ KNOWN_SITES = frozenset({
 })
 
 #: sites of the JAX package that later slices of the port plant, and the
-#: slice that brings each family
-UNPLANTED = {
-    "serve.": "the serve daemon slice of the port",
-}
+#: slice that brings each family (every family is planted)
+UNPLANTED: dict[str, str] = {}
 
 KILL_EXIT_CODE = 137
 

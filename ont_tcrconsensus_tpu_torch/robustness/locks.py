@@ -1,11 +1,10 @@
 """Process-wide lock-ownership registry: every cross-thread shared
 location of the port and the lock that owns it, in one table.
 
-The port's copy of the JAX package's ``robustness/locks.py``, on the
-classes the port has: the serve slice's ``JobQueue`` and
-``SliceAllocator`` join it when that slice lands. The runtime checks
-(:mod:`.lockcheck`, ``TCR_LOCKCHECK=1``) read it: :func:`lockcheck.check_owned`
-asserts that the lock this table names for an attribute is held.
+The port's copy of the JAX package's ``robustness/locks.py``, the same
+rows. The runtime checks (:mod:`.lockcheck`, ``TCR_LOCKCHECK=1``) read
+it: :func:`lockcheck.assert_owner` asserts that the lock this table names
+for an object's class is held.
 
 Keys are ``"ClassName.attr"``; values are the lock attribute on the same
 object that must be held for every access. Module-level globals that are
@@ -16,6 +15,11 @@ the GIL, and only container mutations need a lock.
 from __future__ import annotations
 
 LOCK_OWNERSHIP = {
+    # --- serve/queue.py: HTTP handler threads and the daemon loop both
+    # mutate these; any mutation outside the lock loses jobs under load
+    "JobQueue.pending": "_lock",
+    "JobQueue.jobs": "_lock",
+    "JobQueue.finished_order": "_lock",
     # --- obs/metrics.py: worker threads + the watchdog monitor both
     # feed this object
     "MetricsRegistry.counters": "_lock",
@@ -69,6 +73,12 @@ LOCK_OWNERSHIP = {
     # raced by the monitor; the hard cancel's safety relies on every
     # write being locked
     "Watchdog._entries": "_lock",
+    # --- serve/slices.py: the slice pool is mutated by the dispatcher
+    # (assign), runner workers (release/quarantine, the mesh degrade hook
+    # on a job thread) and read by HTTP submit threads
+    # (admission_budget); an unlocked write double-leases a slice
+    "SliceAllocator._state": "_lock",
+    "SliceAllocator._leases": "_lock",
 }
 
 #: Mutable containers on registered classes that are deliberately NOT
@@ -77,6 +87,11 @@ LOCK_EXEMPT = {
     "StageExecutor._pending": (
         "main-thread only: submit/commit/wait_all all run on the "
         "library loop thread; workers never touch the pending list"
+    ),
+    "SliceAllocator.devices": (
+        "written once in __init__ before any thread sees the allocator; "
+        "read-only (index order IS the slice address space) afterwards; "
+        "so is the port's SliceAllocator.labels beside it"
     ),
 }
 

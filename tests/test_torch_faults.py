@@ -1,7 +1,7 @@
 """The port's fault injection, shutdown coordinator and lock table against
 the JAX package's: one chaos plan fires at the same hits in both
-registries, the file-level faults write the same bytes, the port refuses
-the sites it does not plant yet, the coordinator drains on a signal and
+registries, the file-level faults write the same bytes, the port arms
+every site of the JAX package (the serve sites since the serve slice), the coordinator drains on a signal and
 restores every handler, the lock table names the port's own classes, and
 the sites planted in the port's sources are exactly the JAX package's
 minus the refused ones."""
@@ -105,14 +105,14 @@ def test_unknown_sites_and_kinds_fail_fast_and_unplanted_sites_are_refused():
             mod.arm([{"site": "graph.node", "kind": UNKNOWN_KIND}])
         with pytest.raises(ValueError, match="outside"):
             mod.arm([{"site": "graph.node", "p": 2.0}])
+    assert faults.UNPLANTED == {}
     for site in sorted(faults.KNOWN_SITES):
-        if site.startswith("serve."):
-            jfaults.arm([{"site": site}])  # the JAX package plants them
-            with pytest.raises(NotImplementedError, match="slice of the port"):
-                faults.arm([{"site": site}])
-        elif site.startswith("mesh."):  # planted by the port's mesh
+        if site.startswith(("serve.", "mesh.")):  # planted by the port's serve and mesh
+            jfaults.arm([{"site": site}])
             faults.arm([{"site": site}])
+            assert faults.describe()["specs"] == jfaults.describe()["specs"]
             faults.disarm()
+            jfaults.disarm()
     assert faults.describe() is None
 
 
@@ -246,15 +246,19 @@ def test_second_signal_terminates_at_once():
 
 def _instances():
     from ont_tcrconsensus_tpu_torch.obs import live, metrics
+    from ont_tcrconsensus_tpu_torch.parallel.budget import BudgetModel
     from ont_tcrconsensus_tpu_torch.pipeline import overlap
     from ont_tcrconsensus_tpu_torch.robustness import watchdog
+    from ont_tcrconsensus_tpu_torch.serve import queue, slices
 
     return {
+        "JobQueue": queue.JobQueue(2, BudgetModel(12.0)),
         "MetricsRegistry": metrics.MetricsRegistry(),
         "FlightRecorder": live.FlightRecorder(),
         "ProgressTracker": live.ProgressTracker(),
         "StageExecutor": overlap.StageExecutor(device=None),
         "Watchdog": watchdog.Watchdog(base_timeout_s=60),
+        "SliceAllocator": slices.SliceAllocator(["cpu"] * 2, BudgetModel(12.0)),
     }
 
 

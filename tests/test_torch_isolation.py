@@ -54,7 +54,9 @@ def test_importing_every_port_module_loads_no_jax():
                  "graph", "graph.ir", "graph.check", "graph.nodes", "graph.pipeline",
                  "graph.executor", "robustness.faults", "robustness.locks",
                  "robustness.shutdown", "io.validate", "qc.analysis", "qc.analysis_cli",
-                 "parallel.budget", "parallel.mesh", "parallel.distributed"):
+                 "parallel.budget", "parallel.mesh", "parallel.distributed",
+                 "serve", "serve.queue", "serve.slices", "serve.prewarm",
+                 "serve.daemon"):
         assert f"ont_tcrconsensus_tpu_torch.{must}" in report["modules"]
 
 
