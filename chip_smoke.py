@@ -201,6 +201,36 @@ of which fails the script (non-zero exit, no result line):
    disjoint slices, each writing the transient drill's served job's files,
    their seconds beside that job's.
 
+13. polisher training and the bf16 gate (``models/train.py``,
+   ``models/polisher.py``): ``make_examples`` of 16 examples at the
+   training CLI's template length (1,600 nt, width 2048, band 64) on
+   ``cuda``, launches counted from zero (B2 at least once), and on
+   ``cpu`` (in a process of its own, as are the CPU sides below and the
+   training CLI, so they run beside the card's work): labels, insertion
+   labels and loss weights equal, features within 1e-6. The bf16
+   exactness A/B at JAX's defaults (96 clusters, template 1,300) into a
+   temporary artifact: its ``identical`` and ``mismatched_clusters``, and
+   the gate read against that artifact, which must agree with
+   ``identical`` (a mismatch is a result, a bf16 network that does not
+   run a failure). On one batch of 8 from the served (v3) weights, the loss
+   (within 1e-5 relative) and every gradient leaf (within 1e-3 of its
+   largest magnitude) on ``cuda`` against ``cpu``. 50 Adam steps on the
+   card at batch 8 from ``init_params(0)``: each step's CUDA-event ms
+   (median printed), the loss must fall, and the r and z hidden biases
+   stay exactly zero; the weights are written to a temporary file, read
+   back and served by ``evaluate_consensus_gain`` (16 clusters at depth
+   4) on ``cuda`` and ``cpu``, which must agree. A 5-step ``train`` loss
+   trace from the same start on ``cuda`` and ``cpu`` (within 1e-3
+   relative). At phase 4's tile, the largest bf16 logit difference from
+   float32, both networks' CUDA-event ms (median of 7) and the GRU
+   kernels ``torch.profiler`` names for each. ``python -m
+   ont_tcrconsensus_tpu_torch.models.train --steps 2 --pool-examples 4
+   --eval-clusters 4 --out <tmp>`` must exit 0 on ``cuda``; it shares the
+   card, so it starts after the timed parts (the train steps, the networks
+   at the tile), beside the rest. ``models/weights/`` must keep every file's
+   sha256. The phase's B2 launches (the CLI's excepted) join the kernels
+   line.
+
 Each phase's start (seconds since the script began) is printed. Then one
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes every number
@@ -717,6 +747,7 @@ def polisher_parity(seed: int, C: int = 64, S: int = 16, L: int = 2048, W: int =
             got[dev] = {"feats": feats.cpu(), "logits": logits.cpu(), "cls": cls_call,
                         "ins": ins_call, "conf": conf, "ins_conf": ins_conf}
             if dev == "cuda":
+                res["_feats_cuda"] = feats  # phase 13's bf16 tile (popped, not reported)
                 for _ in range(2):
                     model(consensus.pileup_features(*planes, drafts_t))
                 res["features_ms"] = _time_ms(
@@ -2329,6 +2360,318 @@ def serve_phase(full_lib, full: dict, small_tree: dict, kernels) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: polisher training and the bf16 gate
+
+
+def _sha_dir(path: str) -> dict[str, str]:
+    import hashlib
+
+    out = {}
+    for name in sorted(os.listdir(path)):
+        with open(os.path.join(path, name), "rb") as fh:
+            out[name] = hashlib.sha256(fh.read()).hexdigest()
+    return out
+
+
+def _grads(params, batch, dev):
+    """The loss and every gradient leaf (Flax layout, numpy) of one batch
+    on ``dev``."""
+    import torch
+
+    from ont_tcrconsensus_tpu_torch import convert
+    from ont_tcrconsensus_tpu_torch.models import polisher
+
+    model = polisher.trainable(params, device=dev)
+    loss = polisher.cross_entropy_loss(model, *(torch.from_numpy(a).to(dev) for a in batch))
+    loss.backward()
+    tree = convert.tree_from_state({n: p.grad for n, p in model.named_parameters()})
+    leaves = {}
+
+    def walk(t, prefix):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}/")
+            else:
+                leaves[prefix + k] = v.detach().cpu().numpy()
+
+    walk(tree, "")
+    return float(loss.detach()), leaves
+
+
+def _gru_kernels(fn) -> dict[str, int]:
+    """The CUDA kernels one call of ``fn`` launches (``torch.profiler``),
+    name (template arguments cut) -> count."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # in a process that has traced before, a session loses its first few
+        # dozen device records: spend them on a primer of spin kernels
+        for _ in range(256):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    names = collections.Counter(
+        re.sub(r"^void ", "", e.name).split("<")[0].split("(")[0].strip()
+        for e in prof.events()
+        if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name)
+    return dict(names.most_common())
+
+
+def _gru_path(kernels: dict[str, int]) -> str:
+    """Which GRU implementation a forward's kernels show: cuDNN's RNN
+    kernels, or ATen's fused GRU cell launched step by step."""
+    low = " ".join(kernels).lower()
+    if "gru_cell" in low:
+        return "ATen fused GRU cell, step by step"
+    if "persist" in low:
+        return "cuDNN persistent RNN kernel"
+    if "rnncell" in low:
+        return "cuDNN RNN, step by step (a cell kernel and a GEMM a step)"
+    return "other"
+
+
+TRAIN_TEMPLATE = 1600  # the training CLI's template length (width 2048)
+TRAIN_POOL = 16
+TRAIN_BATCH = 8
+TRAIN_STEPS = 50
+TRACE_STEPS = 5
+
+
+def _training_cpu(weights_q, results_q) -> None:
+    """Phase 13's CPU side, in a process of its own beside the card's work:
+    the example pool, one batch's loss and gradients from the served
+    weights, the loss trace from ``init_params(0)``, and, once the card's
+    trained weights' path arrives on ``weights_q``, their evaluation. Puts
+    the results (or the error) on ``results_q``."""
+    import traceback
+
+    try:
+        import torch
+
+        from ont_tcrconsensus_tpu_torch.models import polisher, train
+
+        torch.set_num_threads(2)  # the card's side and the CLI share the host
+        t0 = time.perf_counter()
+        pool = train.make_examples(seed=0, n_examples=TRAIN_POOL, template_len=TRAIN_TEMPLATE,
+                                   device="cpu")
+        res = {"examples_s": time.perf_counter() - t0, "pool": pool}
+        batch = tuple(a[:TRAIN_BATCH] for a in (pool.feats, pool.labels, pool.ins_labels,
+                                                 pool.mask))
+        res["grads"] = _grads(polisher.load_default_params(), batch, "cpu")
+        init = polisher.init_params(0, feature_dim=pool.feats.shape[-1])
+        res["trace"] = train.train(steps=TRACE_STEPS, batch_size=TRAIN_BATCH, params=init,
+                                   pool=pool, log_every=0, device="cpu")[1]
+        res["eval"] = train.evaluate_consensus_gain(
+            polisher.load_params(weights_q.get(timeout=900)), n_clusters=16, depths=(4,),
+            template_len=TRAIN_TEMPLATE, device="cpu")
+        results_q.put(res)
+    except BaseException:
+        results_q.put({"error": traceback.format_exc()})
+
+
+def training_phase(tile_feats) -> dict:
+    """Phase 13: the polisher's training path and the bf16 gate on the
+    card, against the CPU (see the module docstring). ``tile_feats`` are
+    phase 4's features of its polish tile, on the card. The CPU side runs
+    in a process of its own from the start; the card's timed parts (the
+    train steps, the networks at the tile) come first, then the training
+    CLI, which shares the card, starts beside the rest of the card's work."""
+    import multiprocessing
+    import queue
+    import tempfile
+
+    import torch
+
+    from ont_tcrconsensus_tpu_torch import convert
+    from ont_tcrconsensus_tpu_torch.models import polisher, train
+    from ont_tcrconsensus_tpu_torch.ops import pileup_kernel, sw_kernel
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    weights_dir = os.path.dirname(polisher.DEFAULT_WEIGHTS)
+    shas = _sha_dir(weights_dir)
+    tmp = tempfile.mkdtemp(prefix="train_", dir=WORK)
+    b2 = pileup_kernel.forward_planes_cuda
+    sw_kernel.align_banded_cuda.launches = 0
+    b2.launches = 0
+
+    def b2_since(start):
+        return b2.launches - start
+
+    ctx = multiprocessing.get_context("spawn")
+    weights_q, results_q = ctx.Queue(), ctx.Queue()
+    cpu_side = ctx.Process(target=_training_cpu, args=(weights_q, results_q), daemon=True)
+    cli = None
+    try:
+        cpu_side.start()
+        # examples: the pool in batched calls on the card (the CPU's in its process)
+        start = b2.launches
+        t0 = time.perf_counter()
+        pool = train.make_examples(seed=0, n_examples=TRAIN_POOL, template_len=TRAIN_TEMPLATE,
+                                   device="cuda")
+        torch.cuda.synchronize()
+        out["examples"] = {"n": int(pool.feats.shape[0]), "width": int(pool.feats.shape[1]),
+                           "cuda_s": time.perf_counter() - t0, "cuda_b2": b2_since(start)}
+        if out["examples"]["cuda_b2"] < 1:
+            raise AssertionError("training: make_examples launched no B2 on the card")
+
+        # 50 Adam steps on the card from fresh weights
+        init = polisher.init_params(0, feature_dim=pool.feats.shape[-1])
+        model = polisher.trainable(init, device="cuda")
+        step = polisher.make_train_step(torch.optim.Adam(model.parameters(), lr=1e-3))
+        rng = np.random.default_rng(1)
+        losses, step_ms = [], []
+        arrays = [torch.from_numpy(a).cuda() for a in
+                  (pool.feats, pool.labels, pool.ins_labels, pool.mask)]
+        for _ in range(TRAIN_STEPS):
+            idx = torch.from_numpy(rng.integers(0, len(pool.feats), TRAIN_BATCH)).cuda()
+            loss, ms = _timed_once(lambda: step(model, *(a[idx] for a in arrays)))
+            losses.append(float(loss))
+            step_ms.append(ms)
+        rz = sum(int(torch.count_nonzero(p[: 2 * p.shape[0] // 3]))
+                 for gru in model.grus for n, p in gru.named_parameters()
+                 if n.startswith("bias_hh"))
+        out["train"] = {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "step_ms_median":
+                        float(np.median(step_ms)), "step_ms_first": step_ms[0],
+                        "first_loss": losses[0], "last_loss": losses[-1], "rz_nonzero": rz}
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"training: the loss did not fall: {losses}")
+        if rz:
+            raise AssertionError(f"training: {rz} hidden-side r/z biases moved off zero")
+        path = os.path.join(tmp, "w.msgpack")
+        polisher.save_params(convert.polisher_to_numpy(model), path)
+        weights_q.put(path)
+
+        # the served weights' networks at phase 4's tile, float32 and bfloat16
+        served = polisher.load_default_params()
+        m32 = convert.polisher_from_numpy(served, device="cuda")
+        m16 = convert.polisher_from_numpy(served, device="cuda", dtype=torch.bfloat16)
+        ab: dict = {}
+        with torch.inference_mode():
+            l32 = m32(tile_feats)
+            l16 = m16(tile_feats.to(torch.bfloat16)).float()
+            if not torch.isfinite(l16).all():
+                raise AssertionError("bf16: the bf16 network gave non-finite logits")
+            for _ in range(2):
+                m32(tile_feats)
+                m16(tile_feats.to(torch.bfloat16))
+            ab["fp32_ms"] = _time_ms(lambda: m32(tile_feats), 7)
+            ab["bf16_ms"] = _time_ms(lambda: m16(tile_feats.to(torch.bfloat16)), 7)
+        k32 = _gru_kernels(lambda: m32(tile_feats))
+        k16 = _gru_kernels(lambda: m16(tile_feats.to(torch.bfloat16)))
+        ab.update({"tile": list(tile_feats.shape),
+                   "max_abs_logit_diff": float((l16 - l32).abs().max()),
+                   "bf16_gru_path": _gru_path(k16), "fp32_gru_path": _gru_path(k32),
+                   "bf16_kernels": k16, "fp32_kernels": k32})
+
+        # the CLI on the card, in its own process, beside the untimed rest
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        env.pop("TCR_CONSENSUS_FORCE_CPU", None)
+        t_cli = time.perf_counter()
+        cli = subprocess.Popen(
+            [sys.executable, "-m", "ont_tcrconsensus_tpu_torch.models.train", "--steps", "2",
+             "--pool-examples", "4", "--eval-clusters", "4", "--out",
+             os.path.join(tmp, "cli.msgpack")],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+        # the bf16 gate: the A/B at JAX's defaults into a temporary artifact
+        start = b2.launches
+        t0 = time.perf_counter()
+        ab_path = os.path.join(tmp, "polisher_bf16_ab_gpu.json")
+        rec = polisher.run_bf16_exactness_ab(n_clusters=96, template_len=1300, out_path=ab_path,
+                                             device="cuda")
+        ab.update({"identical": rec["identical"], "mismatched_clusters":
+                   rec["mismatched_clusters"], "n_clusters": rec["n_clusters"],
+                   "ab_s": time.perf_counter() - t0, "ab_b2": b2_since(start)})
+        real_path = polisher.bf16_ab_artifact_path
+        polisher.bf16_ab_artifact_path = lambda backend: ab_path
+        try:
+            ab["certified_by_the_temporary_artifact"] = polisher.bf16_serving_certified(
+                min_polish_depth=4)
+        finally:
+            polisher.bf16_ab_artifact_path = real_path
+        if ab["certified_by_the_temporary_artifact"] != rec["identical"]:
+            raise AssertionError(f"bf16: the gate disagrees with its A/B: {ab}")
+        out["bf16"] = ab
+
+        # gradients of one batch from the served (v3) weights, a 5-step loss
+        # trace from the same start, and the trained weights read back and
+        # served through the pipeline polisher
+        batch = tuple(a[:TRAIN_BATCH] for a in (pool.feats, pool.labels, pool.ins_labels,
+                                                 pool.mask))
+        grads_cuda = _grads(served, batch, "cuda")
+        trace_cuda = train.train(steps=TRACE_STEPS, batch_size=TRAIN_BATCH, params=init,
+                                 pool=pool, log_every=0, device="cuda")[1]
+        start = b2.launches
+        t0 = time.perf_counter()
+        eval_cuda = train.evaluate_consensus_gain(
+            polisher.load_params(path), n_clusters=16, depths=(4,), template_len=TRAIN_TEMPLATE,
+            device="cuda")
+        out["eval"] = {"cuda_s": time.perf_counter() - t0, "cuda_b2": b2_since(start),
+                       "table": eval_cuda}
+        out["b2_launches"] = b2.launches
+        out["b1_launches"] = sw_kernel.align_banded_cuda.launches
+
+        cli_out, cli_err = cli.communicate(timeout=900)
+        out["cli"] = {"rc": cli.returncode, "seconds": time.perf_counter() - t_cli,
+                      "names_cuda": "training on cuda" in cli_err,
+                      "saved": os.path.exists(os.path.join(tmp, "cli.msgpack"))}
+        if cli.returncode != 0 or not out["cli"]["names_cuda"] or not out["cli"]["saved"]:
+            raise AssertionError(f"training CLI: {out['cli']}\n{cli_out[-2000:]}\n"
+                                 f"{cli_err[-2000:]}")
+
+        # the CPU side's results against the card's
+        try:
+            cpu = results_q.get(timeout=900)
+        except queue.Empty:
+            raise AssertionError("training: the CPU side gave no result") from None
+        if "error" in cpu:
+            raise AssertionError(f"training: the CPU side failed:\n{cpu['error']}")
+        cpu_pool = cpu["pool"]
+        out["examples"]["cpu_s"] = cpu["examples_s"]
+        for f in ("labels", "ins_labels", "mask"):
+            if not np.array_equal(getattr(pool, f), getattr(cpu_pool, f)):
+                raise AssertionError(f"training: the cuda examples' {f} differ from the cpu's")
+        out["examples"]["max_abs_feature_diff"] = float(
+            np.abs(pool.feats - cpu_pool.feats).max())
+        if out["examples"]["max_abs_feature_diff"] > 1e-6:
+            raise AssertionError(f"training: features differ {out['examples']}")
+        (lc, gc), (lp, gp) = grads_cuda, cpu["grads"]
+        rel = {k: float(np.abs(gc[k] - gp[k]).max() / max(np.abs(gp[k]).max(), 1e-30))
+               for k in gp}
+        worst = max(rel, key=rel.get)
+        out["grads"] = {"loss_cuda": lc, "loss_cpu": lp, "loss_rel_diff": abs(lc - lp) / abs(lp),
+                        "max_rel_grad_diff": rel[worst], "worst_leaf": worst}
+        if out["grads"]["loss_rel_diff"] > 1e-5 or rel[worst] > 1e-3:
+            raise AssertionError(f"training: gradients cuda vs cpu {out['grads']}")
+        trace_rel = float(np.max(np.abs(np.subtract(trace_cuda, cpu["trace"]))
+                                 / np.abs(cpu["trace"])))
+        out["trace"] = {"cuda": trace_cuda, "cpu": cpu["trace"], "max_rel_diff": trace_rel}
+        if trace_rel > 1e-3:
+            raise AssertionError(f"training: loss traces differ {out['trace']}")
+        if cpu["eval"] != eval_cuda:
+            raise AssertionError(f"training: evaluation cuda {eval_cuda} != cpu {cpu['eval']}")
+        cpu_side.join(timeout=60)
+    finally:
+        if cli is not None and cli.poll() is None:
+            cli.kill()
+            cli.wait()
+        if cpu_side.is_alive():
+            cpu_side.kill()
+            cpu_side.join()
+    if _sha_dir(weights_dir) != shas:
+        raise AssertionError("training: models/weights/ changed")
+    out["weights_unchanged"] = True
+    out["seconds"] = time.perf_counter() - t_phase
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every number to this JSON file")
@@ -2415,6 +2758,7 @@ def main(argv=None) -> int:
     phase("4 polisher")
     # 4. the polisher, cuda vs cpu
     pol = report["polisher"] = polisher_parity(20)
+    tile_feats = pol.pop("_feats_cuda")
     print(f"polisher (C={pol['C']} S={pol['S']} L={pol['L']} W={pol['W']}, {pol['weights']}, "
           f"{pol['pileup']} pileup): max |logit cuda - cpu| {pol['max_abs_logit_diff']:.3g}, "
           f"features {pol['max_abs_feature_diff']:.3g}; {pol['decision_flips']} gated decisions "
@@ -2681,8 +3025,41 @@ def main(argv=None) -> int:
     print(f"serve: {sv['seconds']:.1f} s", flush=True)
     _dump(args.out, report)
 
-    phase("13 kernels line")
-    # 13. kernels line
+    phase("13 training")
+    # 13. polisher training and the bf16 gate
+    tr = report["training"] = training_phase(tile_feats)
+    ex, g, t, b = tr["examples"], tr["grads"], tr["train"], tr["bf16"]
+    print(f"training examples ({ex['n']} at width {ex['width']}, template {TRAIN_TEMPLATE}): cuda "
+          f"{ex['cuda_s']:.2f} s with {ex['cuda_b2']} B2 launches, cpu {ex['cpu_s']:.2f} s (both "
+          f"beside the CLI's process and each other); equal (features within "
+          f"{ex['max_abs_feature_diff']:.3g})", flush=True)
+    print(f"training gradients (batch {TRAIN_BATCH}, served weights): loss cuda {g['loss_cuda']:.6f}"
+          f" cpu {g['loss_cpu']:.6f} (rel {g['loss_rel_diff']:.3g}); largest relative gradient "
+          f"difference {g['max_rel_grad_diff']:.3g} ({g['worst_leaf']})", flush=True)
+    print(f"training {t['steps']} Adam steps at batch {t['batch']} on the card: "
+          f"{t['step_ms_median']:.2f} ms a step (median, CUDA events; first {t['step_ms_first']:.2f} "
+          f"ms), loss {t['first_loss']:.4f} -> {t['last_loss']:.4f}; r/z hidden biases nonzero: "
+          f"{t['rz_nonzero']}; {TRACE_STEPS}-step trace cuda {tr['trace']['cuda']} cpu "
+          f"{tr['trace']['cpu']} (max rel {tr['trace']['max_rel_diff']:.3g})", flush=True)
+    print(f"training eval (16 clusters, depth 4, the trained weights read back and served): "
+          f"cuda = cpu {tr['eval']['table']}; cuda {tr['eval']['cuda_s']:.2f} s, "
+          f"{tr['eval']['cuda_b2']} B2 launches", flush=True)
+    print(f"bf16 A/B ({b['n_clusters']} clusters, template 1300): identical {b['identical']}, "
+          f"mismatched_clusters {b['mismatched_clusters']}, gate on its artifact "
+          f"{b['certified_by_the_temporary_artifact']}; {b['ab_s']:.2f} s, {b['ab_b2']} B2 "
+          f"launches; at phase 4's tile {b['tile']}: max |bf16 - fp32 logit| "
+          f"{b['max_abs_logit_diff']:.4g}, network bf16 {b['bf16_ms']:.3f} ms, fp32 "
+          f"{b['fp32_ms']:.3f} ms; GRU path bf16 {b['bf16_gru_path']}, fp32 {b['fp32_gru_path']}; "
+          f"kernels bf16 {dict(list(b['bf16_kernels'].items())[:4])}, fp32 "
+          f"{dict(list(b['fp32_kernels'].items())[:4])}", flush=True)
+    print(f"training CLI on the card: exit {tr['cli']['rc']} in {tr['cli']['seconds']:.1f} s; "
+          f"B2 launches of the phase (in this process) {tr['b2_launches']}, B1 "
+          f"{tr['b1_launches']}; models/weights/ unchanged; phase {tr['seconds']:.1f} s",
+          flush=True)
+    _dump(args.out, report)
+
+    phase("14 kernels line")
+    # 14. kernels line
     entries = []
     for k, key, name, src, replaces in (
         (sw_kernel.align_banded_cuda, "sw", "sw_banded",
@@ -2695,6 +3072,7 @@ def main(argv=None) -> int:
         entries.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": full["launches"]["rnn"][k.__name__],
+            "launches_training": tr["b2_launches"] if key == "pileup" else tr["b1_launches"],
             "max_abs_err": max(x["max_abs_err"] for x in report[key]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,

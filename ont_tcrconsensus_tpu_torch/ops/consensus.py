@@ -5,7 +5,9 @@ round aligns every subread to its cluster's current draft
 (:func:`.pileup.pileup_columns_batch_auto`, kernel B2 on the card), votes
 per column over {A,C,G,T,deletion} and over single-base insertions,
 splices the winners in, extends the draft ends by majority, and repeats
-until the draft is a fixed point or the rounds run out.
+until the draft is a fixed point or the rounds run out:
+:func:`consensus_cluster` for one cluster, :func:`consensus_clusters_batch`
+for C clusters at once.
 
 Vote semantics (deterministic): per column the plurality of covering
 subreads wins; ties prefer a base over a deletion and the smaller base
@@ -116,6 +118,86 @@ def _extend_ends_batch(drafts, dlens, subreads, subread_lens, spans, aligned_dle
         drafts[do, dlens[do]] = win[do]
         dlens[do] += 1
     return drafts, dlens
+
+
+def _extend_ends(draft, draft_len, subreads, subread_lens, spans, aligned_draft_len):
+    """One cluster's majority-vote single-base extension at each draft end
+    (numpy, host; a copy of the JAX package's ``_extend_ends``): among the
+    subreads whose alignment reaches a draft boundary, a strict majority
+    carrying read bases beyond it votes the plurality base onto that end."""
+    r_start, r_end, f_start, f_end = spans[:, 0], spans[:, 1], spans[:, 2], spans[:, 3]
+    at_left = f_start == 0
+    has_more = at_left & (r_start > 0)
+    if at_left.sum() and has_more.sum() * 2 > at_left.sum() and draft_len < draft.shape[0]:
+        bases = subreads[has_more, np.maximum(r_start[has_more] - 1, 0)]
+        bc = np.bincount(bases[bases < 4], minlength=4)
+        if bc.sum():
+            draft = np.concatenate([[np.uint8(bc.argmax())], draft[:-1]])
+            draft_len += 1
+    # right end (spans were computed against the pre-vote draft)
+    at_right = f_end == aligned_draft_len
+    has_more = at_right & (r_end < subread_lens)
+    if at_right.sum() and has_more.sum() * 2 > at_right.sum():
+        bases = subreads[has_more, np.minimum(r_end[has_more], subreads.shape[1] - 1)]
+        bc = np.bincount(bases[bases < 4], minlength=4)
+        if bc.sum() and draft_len < draft.shape[0]:
+            draft = draft.copy()
+            draft[draft_len] = np.uint8(bc.argmax())
+            draft_len += 1
+    return draft, draft_len
+
+
+def consensus_cluster(subreads: np.ndarray, subread_lens: np.ndarray, rounds: int = 4,
+                      band_width: int = POLISH_BAND_WIDTH, pad_to: int | None = None,
+                      device: str | torch.device | None = None) -> tuple[np.ndarray, int]:
+    """Consensus of one cluster's subreads on ``device`` (the card when
+    None): the JAX package's single-cluster driver, one pileup
+    (:func:`.pileup.pileup_columns`, kernel B2 on the card) and vote a
+    round, stopping early at a fixed point.
+
+    Args: subreads (S, L) uint8 codes in canonical orientation (0-length
+    rows are padding); subread_lens (S,); ``pad_to`` the draft's width
+    (L when None). The seed is the subread of lower-median length (stable
+    pick). Returns (draft (width,) uint8 padded, draft length); raises
+    ``ValueError`` when a round's draft grows past the width.
+    """
+    device = resolve_device(device)
+    subreads = np.asarray(subreads)
+    subread_lens = np.asarray(subread_lens)
+    S, L = subreads.shape
+    width = int(pad_to or L)
+    real = np.where(subread_lens > 0)[0]
+    if len(real) == 0:
+        return np.full((width,), PAD_CODE, np.uint8), 0
+    order = real[np.argsort(subread_lens[real], kind="stable")]
+    seed = int(order[(len(real) - 1) // 2])
+    draft = np.full((width,), PAD_CODE, np.uint8)
+    n = int(subread_lens[seed])
+    draft[:n] = subreads[seed, :n]
+    draft_len = n
+    d_sub = torch.from_numpy(np.ascontiguousarray(subreads)).to(device)
+    d_lens = torch.from_numpy(np.ascontiguousarray(subread_lens, dtype=np.int32)).to(device)
+    offsets = np.zeros((S,), np.int32)
+    for _ in range(rounds):
+        t_draft = torch.from_numpy(draft).to(device)
+        t_len = torch.tensor([draft_len], dtype=torch.int32, device=device)
+        base_at, ins_cnt, ins_base, _, spans = pileup.pileup_columns(
+            d_sub, d_lens, t_draft, t_len[0], offsets, band_width=band_width,
+            out_len=width, device=device)
+        new_draft, new_len = vote_columns_batch(
+            base_at[None], ins_cnt[None], ins_base[None], t_draft[None], t_len)
+        new_draft, new_len, spans = obs_device.timed_get(
+            "consensus.get", (new_draft[0, :width], new_len[0], spans))
+        new_len = int(new_len)
+        if new_len > width:
+            raise ValueError("consensus grew past the padded width")
+        cand, new_len = _extend_ends(new_draft.copy(), new_len, subreads, subread_lens, spans,
+                                     draft_len)
+        unchanged = new_len == draft_len and (cand[:new_len] == draft[:new_len]).all()
+        draft, draft_len = cand, new_len
+        if unchanged:
+            break
+    return draft, int(draft_len)
 
 
 def consensus_clusters_batch(subreads: np.ndarray, subread_lens: np.ndarray,

@@ -301,3 +301,35 @@ def pileup_columns_batch_auto(subreads, subread_lens, drafts, draft_lens,
         pos_at.reshape(C, S, out_len),
         spans.reshape(C, S, 4),
     )
+
+
+def pileup_columns(subreads, subread_lens, draft, draft_len, diag_offsets,
+                   band_width: int = 128, out_len: int | None = None, device=None):
+    """One cluster's pileup: each subread aligned to ``draft`` (the JAX
+    package's single-cluster ``pileup_columns``), on ``device`` (the card
+    when None; kernel B2 there), through :func:`pileup_columns_batch_auto`
+    at C = 1.
+
+    Args: subreads (S, L) uint8 codes; subread_lens (S,); draft (Ld,)
+    uint8; draft_len a scalar; diag_offsets (S,) band centres, which must
+    be 0 (same-molecule subreads; the port's forward runs offset 0 only,
+    so a nonzero offset raises). Returns (base_at, ins_cnt, ins_base,
+    pos_at — each (S, out_len) — and spans (S, 4)) on ``device``.
+    """
+    from ont_tcrconsensus_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    if torch.as_tensor(diag_offsets).ne(0).any():
+        raise ValueError("pileup_columns: nonzero diag_offsets are not supported "
+                         "(the forward runs at offset 0)")
+
+    def t(a, dtype):
+        return torch.as_tensor(a).to(device=dev, dtype=dtype)
+
+    draft_t = t(draft, torch.uint8)
+    if out_len is None:
+        out_len = draft_t.shape[-1]
+    cols = pileup_columns_batch_auto(
+        t(subreads, torch.uint8)[None], t(subread_lens, torch.int32)[None], draft_t[None],
+        t(draft_len, torch.int32).reshape(1), band_width=band_width, out_len=out_len)
+    return tuple(c[0] for c in cols)

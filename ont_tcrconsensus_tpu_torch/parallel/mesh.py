@@ -24,9 +24,10 @@ Where the slices come from:
   card more than once (two slices of one card run one after the other on
   its stream); they never mix the CPU with a card.
 
-The ``model`` axis carries the polisher's tensor-parallel layout, which
-comes with training: every function here runs once per DATA index, on the
-first slice of that data row.
+The ``model`` axis carries the polisher's tensor-parallel layout for
+training (:func:`polisher_param_sharding`, :func:`sharded_train_step`);
+every other function here runs once per DATA index, on the first slice of
+that data row.
 
 A slice's function may be a generator: the runner then advances every
 slice one step before the next (:func:`lockstep`), so a host loop that
@@ -493,3 +494,176 @@ def node_sharding_plan(spec, mesh: Mesh) -> dict[str, dict]:
         if ins or outs:
             plan[node.name] = {"in": ins, "out": outs}
     return plan
+
+
+# --- the polisher's training layout -------------------------------------------------
+
+
+def _model_split_axis(path: str, ndim: int) -> int | None:
+    """The axis of a Flax polisher leaf (``path`` like ``embed/kernel``)
+    split over ``model``: the embed kernel's output axis (column-parallel),
+    the head kernel's input axis (row-parallel: its 10 outputs do not
+    divide); None for every other leaf (replicated)."""
+    if ndim == 2 and path.endswith("kernel"):
+        if "embed" in path:
+            return 1
+        if "head" in path:
+            return 0
+    return None
+
+
+def polisher_param_sharding(mesh: Mesh, params) -> dict:
+    """The polisher's tensor-parallel layout: per leaf of a Flax params tree
+    a :class:`NamedSharding`, ``P(None, "model")`` for the embed kernel,
+    ``P("model", None)`` for the head kernel, ``P()`` for the rest (and for
+    every leaf when the mesh has no ``model`` axis): the JAX package's
+    specs, leaf for leaf."""
+    has_model = "model" in mesh.axis_names
+
+    def spec_for(path: str, leaf):
+        axis = _model_split_axis(path, np.ndim(leaf)) if has_model else None
+        if axis is None:
+            return NamedSharding(mesh, P())
+        return NamedSharding(mesh, P(*("model" if d == axis else None for d in range(2))))
+
+    def walk(tree, prefix):
+        return {k: walk(v, f"{prefix}{k}/") if isinstance(v, dict) else spec_for(prefix + k, v)
+                for k, v in tree.items()}
+
+    return walk(params, "")
+
+
+@dataclasses.dataclass
+class GridPlaced:
+    """One array placed on every slice of the mesh's grid (data x model, in
+    grid order): each slice's own piece, the rows of its data index
+    (``data_axis``) and the part of its model index (``model_axis``), or
+    the whole array. Every piece is a tensor of its own, as each slice of
+    a multi-card mesh holds its own copy."""
+
+    pieces: list[torch.Tensor]
+    mesh: Mesh
+    data_axis: int | None
+    model_axis: int | None
+
+    def gather(self) -> torch.Tensor:
+        """The whole array on the first slice's device."""
+        shape = self.mesh.devices.shape
+        names = self.mesh.axis_names
+        dev = self.pieces[0].device
+        grid = np.empty(len(self.pieces), dtype=object)
+        for i, p in enumerate(self.pieces):
+            grid[i] = p
+        grid = grid.reshape(shape)
+        # one piece per data index and model index (the others are copies)
+        d_n = shape[names.index("data")] if "data" in names else 1
+        m_n = shape[names.index("model")] if "model" in names else 1
+
+        def piece(d, m):
+            idx = [0] * len(shape)
+            if "data" in names:
+                idx[names.index("data")] = d
+            if "model" in names:
+                idx[names.index("model")] = m
+            return grid[tuple(idx)].to(dev)
+
+        rows = []
+        for d in range(d_n if self.data_axis is not None else 1):
+            parts = [piece(d, m) for m in range(m_n if self.model_axis is not None else 1)]
+            rows.append(torch.cat(parts, dim=self.model_axis) if len(parts) > 1 else parts[0])
+        return torch.cat(rows, dim=self.data_axis) if len(rows) > 1 else rows[0]
+
+
+def _grid_place(mesh: Mesh, t: torch.Tensor, data_axis: int | None,
+                model_axis: int | None) -> GridPlaced:
+    """``t``'s piece on every slice of the grid (see :class:`GridPlaced`)."""
+    names = mesh.axis_names
+    shape = mesh.devices.shape
+    d_n = shape[names.index("data")] if "data" in names else 1
+    m_n = shape[names.index("model")] if "model" in names else 1
+    for axis, n in ((data_axis, d_n), (model_axis, m_n)):
+        if axis is not None and t.shape[axis] % n:
+            raise ValueError(f"dim {axis} ({t.shape[axis]}) does not divide the mesh axis {n}")
+    pieces = []
+    for pos in np.ndindex(*shape):
+        part = t
+        if data_axis is not None and "data" in names:
+            d, n = pos[names.index("data")], d_n
+            part = part.narrow(data_axis, d * t.shape[data_axis] // n, t.shape[data_axis] // n)
+        if model_axis is not None and "model" in names:
+            m, n = pos[names.index("model")], m_n
+            part = part.narrow(model_axis, m * t.shape[model_axis] // n,
+                               t.shape[model_axis] // n)
+        slice_dev = mesh.devices[pos].device
+        pieces.append(part.detach().to(slice_dev, copy=True).contiguous())
+    return GridPlaced(pieces, mesh, data_axis, model_axis)
+
+
+def _grid_bytes(placed) -> int:
+    return sum(p.numel() * p.element_size() for p in placed.pieces)
+
+
+def _tree_map(fn, tree, prefix=""):
+    """``fn(path, leaf)`` over a nested dict, paths like ``embed/kernel``."""
+    return {k: _tree_map(fn, v, f"{prefix}{k}/") if isinstance(v, dict) else fn(prefix + k, v)
+            for k, v in tree.items()}
+
+
+def sharded_train_step(mesh: Mesh, optimizer):
+    """The polisher's train step over ``mesh``: the batch split over
+    ``data``, the dense kernels over ``model`` (:func:`polisher_param_sharding`).
+    Returns (step_fn, place_params, place_batch):
+
+    - ``place_params(params)``: every leaf of a Flax params tree (numpy or
+      tensors) placed on every slice of the grid, a tree of
+      :class:`GridPlaced`;
+    - ``place_batch(feats, labels, ins_labels, mask)``: each array's rows
+      of every data index on the slices of that index;
+    - ``step_fn(model, placed_params, *placed_batch) -> (placed_params,
+      loss)``: the pieces gathered on the first slice into ``model``'s
+      parameters (which ``optimizer`` steps), one step of
+      ``models.polisher.make_train_step(optimizer)`` on the whole batch,
+      and the updated tree placed again.
+
+    Both placements charge the bytes every slice receives to
+    ``transfer.h2d``, one piece a slice, as the JAX package charges its
+    devices' shards. The update is the unsharded step's: no collective
+    runs, the pieces only move. On one card every slice is that card.
+    """
+    from ont_tcrconsensus_tpu_torch import convert
+    from ont_tcrconsensus_tpu_torch.models import polisher as polisher_mod
+
+    base_step = polisher_mod.make_train_step(optimizer)
+    has_model = "model" in mesh.axis_names
+
+    def place_tree(params):
+        def leaf(path, a):
+            t = _as_tensor(a) if not isinstance(a, torch.Tensor) else a
+            axis = _model_split_axis(path, t.dim()) if has_model else None
+            return _grid_place(mesh, t, None, axis)
+
+        return _tree_map(leaf, params)
+
+    def place_params(params):
+        placed = place_tree(params)
+        leaves = []
+        _tree_map(lambda _, p: leaves.append(p), placed)
+        obs_transfers.h2d("transfer.h2d", None, nbytes=sum(_grid_bytes(p) for p in leaves))
+        return placed
+
+    def place_batch(feats, labels, ins_labels, mask):
+        placed = tuple(_grid_place(mesh, _as_tensor(a), 0, None)
+                       for a in (feats, labels, ins_labels, mask))
+        obs_transfers.h2d("transfer.h2d", None, nbytes=sum(_grid_bytes(p) for p in placed))
+        return placed
+
+    def step_fn(model, placed_params, feats, labels, ins_labels, mask):
+        mark_mesh_slices(mesh)
+        state = convert.state_from_tree(_tree_map(lambda _, p: p.gather(), placed_params))
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(state[name])
+        loss = base_step(model, *(a.gather() for a in (feats, labels, ins_labels, mask)))
+        return place_tree(convert.tree_from_state(model.state_dict())), loss
+
+    return step_fn, place_params, place_batch

@@ -269,9 +269,9 @@ class RunConfig:
     polish_bf16: bool = True  # allow bf16 polisher serving WHEN the
     #   per-backend exactness A/B artifact certifies identical consensus
     #   output (models/polisher.py bf16_serving_certified; generate with
-    #   scripts/bf16_ab.py). Without a certifying artifact — or on the CPU
-    #   backend, where XLA emulates bf16 slower than fp32 — serving stays
-    #   fp32 regardless of this flag; False forces fp32 everywhere
+    #   scripts/torch_bf16_ab.py). Without a certifying artifact for this
+    #   kind of card — or on the CPU — serving stays fp32 regardless of
+    #   this flag; False forces fp32 everywhere
 
     @property
     def cluster_identity(self) -> float:

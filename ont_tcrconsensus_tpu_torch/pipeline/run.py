@@ -622,12 +622,15 @@ def _rnn_polisher(cfg: RunConfig, dev: torch.device):
         polisher_mod.load_low_depth_params()
         if cfg.low_depth_polish and cfg.min_reads_per_cluster <= 2 else None
     )
-    if cfg.polish_bf16:
-        _log("polisher: serving float32 (bf16 serving needs an exactness A/B "
-             "certificate for this card, which the port does not have yet)")
+    # bf16 only behind the exactness A/B certificate for this kind of card
+    # (scripts/torch_bf16_ab.py writes it); never on the CPU
+    use_bf16 = cfg.polish_bf16 and polisher_mod.bf16_serving_certified(
+        min_polish_depth=cfg.min_polish_depth, device=dev)
+    if use_bf16:
+        _log("polisher: bf16 serving enabled (exactness A/B certified)")
     return polisher_mod.make_pipeline_polisher(
         params, min_polish_depth=cfg.min_polish_depth,
-        low_depth_params=low_params, device=dev,
+        low_depth_params=low_params, bf16=use_bf16, device=dev,
     )
 
 

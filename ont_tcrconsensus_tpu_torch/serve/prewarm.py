@@ -16,7 +16,9 @@ candidate selection without a candidate):
 - ``polisher``: one call of :func:`~..models.polisher.make_pipeline_polisher`'s
   device path at the JAX package's tile ``(cluster batch, s_bucket,
   largest width, band)``, which recomputes the pileup (kernel B2) and runs
-  the bi-GRU. The port serves the polisher in float32.
+  the bi-GRU, in bfloat16 where the bf16 gate
+  (:func:`~..models.polisher.bf16_serving_certified`) lets the run serve
+  it, as in JAX, else in float32.
 
 The report keeps the JAX package's schema (``kind``, ``batch``, ``width``,
 ``ok``, ``seconds``; ``compiled``/``failed`` count the entries that warmed
@@ -114,6 +116,8 @@ def _prewarm_polisher(cfg, engine, budget, widths: list[int],
         return
     wants_v4 = (polisher_mod.params_feature_dim(params)
                 == consensus_mod.FEATURE_DIM_V4)
+    use_bf16 = cfg.polish_bf16 and polisher_mod.bf16_serving_certified(
+        min_polish_depth=cfg.min_polish_depth, device=engine.device)
     s_bucket = bucketing.pow2_ceil(max(cfg.max_reads_per_cluster, 1))
     # the JAX package's tile: the largest declared width (subreads are
     # full-length reads) at the budget-derived cluster batch
@@ -129,7 +133,7 @@ def _prewarm_polisher(cfg, engine, budget, widths: list[int],
     before = _launch_counts()
     try:
         polish = polisher_mod.make_pipeline_polisher(
-            params, min_polish_depth=cfg.min_polish_depth,
+            params, min_polish_depth=cfg.min_polish_depth, bf16=use_bf16,
             device=engine.device)
         drafts, dlens = _panel_rows(engine.panel, cb, width)
         sub = np.ascontiguousarray(

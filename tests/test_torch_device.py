@@ -10,8 +10,8 @@ torch = pytest.importorskip("torch")
 from ont_tcrconsensus_tpu_torch import convert  # noqa: E402
 from ont_tcrconsensus_tpu_torch.cluster import regions, umi  # noqa: E402
 from ont_tcrconsensus_tpu_torch.device import resolve_device  # noqa: E402
-from ont_tcrconsensus_tpu_torch.models import polisher  # noqa: E402
-from ont_tcrconsensus_tpu_torch.ops import consensus  # noqa: E402
+from ont_tcrconsensus_tpu_torch.models import polisher, train  # noqa: E402
+from ont_tcrconsensus_tpu_torch.ops import consensus, pileup  # noqa: E402
 from ont_tcrconsensus_tpu_torch.pipeline import assign, stages  # noqa: E402
 
 REFERENCE = {"r0": "ACGTACGTTGCA" * 20, "r1": "TTGCAACGTACG" * 20}
@@ -39,6 +39,22 @@ ENTRY_POINTS = {
     "polisher_from_numpy": lambda: convert.polisher_from_numpy(polisher.load_default_params()),
     "make_pipeline_polisher": lambda: polisher.make_pipeline_polisher(
         polisher.load_default_params()),
+    "consensus_cluster": lambda: consensus.consensus_cluster(
+        np.zeros((2, 128), np.uint8), np.full(2, 100, np.int32)),
+    "pileup_columns": lambda: pileup.pileup_columns(
+        np.zeros((2, 128), np.uint8), np.full(2, 100, np.int32), np.zeros(128, np.uint8), 100,
+        np.zeros(2, np.int32)),
+    "apply_logits": lambda: polisher.apply_logits(polisher.load_default_params(),
+                                                  np.zeros((1, 8, 15), np.float32)),
+    "polish_draft": lambda: polisher.polish_draft(
+        polisher.load_default_params(), np.zeros((8, 15), np.float32), np.zeros(8, np.uint8), 8),
+    "trainable": lambda: polisher.trainable(polisher.load_default_params()),
+    "run_bf16_exactness_ab": lambda: polisher.run_bf16_exactness_ab(n_clusters=1, write=False),
+    "make_examples": lambda: train.make_examples(0, 1),
+    "train": lambda: train.train(steps=1, pool_examples=1),
+    "evaluate_consensus_gain": lambda: train.evaluate_consensus_gain(
+        polisher.load_default_params(), n_clusters=1),
+    "evaluate_accuracy": lambda: train.evaluate_accuracy(polisher.load_default_params()),
 }
 
 

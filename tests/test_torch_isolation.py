@@ -28,9 +28,17 @@ import ont_tcrconsensus_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+import os, runpy, tempfile
+# the port's bf16 A/B script, run for real (a tiny CPU A/B)
+sys.argv = ["torch_bf16_ab.py", "--cpu", "--n", "2", "--template-len", "64",
+            "--out", os.path.join(tempfile.mkdtemp(), "ab.json")]
+try:
+    runpy.run_path("scripts/torch_bf16_ab.py", run_name="__main__")
+except SystemExit:
+    pass
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "jaxlib", "flax", "ont_tcrconsensus_tpu")
-             or m.startswith(("jax.", "jaxlib.", "flax.", "ont_tcrconsensus_tpu.")))
+             if m in ("jax", "jaxlib", "flax", "optax", "ont_tcrconsensus_tpu")
+             or m.startswith(("jax.", "jaxlib.", "flax.", "optax.", "ont_tcrconsensus_tpu.")))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -56,21 +64,25 @@ def test_importing_every_port_module_loads_no_jax():
                  "robustness.shutdown", "io.validate", "qc.analysis", "qc.analysis_cli",
                  "parallel.budget", "parallel.mesh", "parallel.distributed",
                  "serve", "serve.queue", "serve.slices", "serve.prewarm",
-                 "serve.daemon"):
+                 "serve.daemon", "models.train"):
         assert f"ont_tcrconsensus_tpu_torch.{must}" in report["modules"]
 
 
 def test_no_source_names_the_jax_package():
     """Guard against a lazy import inside a function, which the import
-    probe cannot see."""
-    pat = re.compile(r"^\s*(from|import)\s+(jax|flax|ont_tcrconsensus_tpu)(\.|\s|$)", re.M)
+    probe cannot see: the package, its A/B script and the chip script."""
+    pat = re.compile(r"^\s*(from|import)\s+(jax|flax|optax|ont_tcrconsensus_tpu)(\.|\s|$)",
+                     re.M)
+    sources = [os.path.join(root, f) for root, _, files in os.walk(PKG_DIR)
+               for f in files if f.endswith(".py")]
+    sources += [os.path.join(REPO, "scripts", "torch_bf16_ab.py"),
+                os.path.join(REPO, "scripts", "torch_mesh_ab.py"),
+                os.path.join(REPO, "chip_smoke.py")]
     offenders = []
-    for root, _, files in os.walk(PKG_DIR):
-        for f in files:
-            if f.endswith(".py"):
-                with open(os.path.join(root, f)) as fh:
-                    if pat.search(fh.read()):
-                        offenders.append(os.path.join(root, f))
+    for path in sources:
+        with open(path) as fh:
+            if pat.search(fh.read()):
+                offenders.append(path)
     assert offenders == []
 
 

@@ -220,3 +220,32 @@ def test_polisher_on_card_matches_cpu():
         on_card = convert.polisher_from_numpy(params, device="cuda")(feats.cuda()).cpu()
         on_cpu = convert.polisher_from_numpy(params, device="cpu")(feats)
     torch.testing.assert_close(on_card, on_cpu, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_training_on_card_matches_cpu():
+    """The training path at the tests' small size: examples (kernel B2 on
+    the card) equal the CPU's (features to 1e-6), a 3-step loss trace
+    within 1e-4 relative (cuDNN's GRU against the CPU's), the r and z
+    hidden biases zero; the bf16 network finite and within 0.25 of the
+    card's float32 logits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: kernel B2 has no CPU mode")
+    from ont_tcrconsensus_tpu_torch.models import train
+
+    got = train.make_examples(seed=2, n_examples=4, template_len=128, device="cuda")
+    want = train.make_examples(seed=2, n_examples=4, template_len=128, device="cpu")
+    for f in ("labels", "ins_labels", "mask"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    np.testing.assert_allclose(got.feats, want.feats, rtol=0, atol=1e-6)
+    init = polisher.init_params(0)
+    traces = {dev: train.train(steps=3, batch_size=4, params=init, pool=want, log_every=0,
+                               device=dev) for dev in ("cuda", "cpu")}
+    np.testing.assert_allclose(traces["cuda"][1], traces["cpu"][1], rtol=1e-4)
+    assert traces["cuda"][1][-1] < traces["cuda"][1][0]
+    feats = torch.from_numpy(want.feats).cuda()
+    with torch.inference_mode():
+        l16 = polisher.apply_logits(traces["cuda"][0], feats, bf16=True, device="cuda")
+        l32 = polisher.apply_logits(traces["cuda"][0], feats, device="cuda")
+    assert torch.isfinite(l16).all()
+    assert float((l16 - l32).abs().max()) < 0.25
