@@ -6,7 +6,16 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It needs one CUDA card and imports nothing of the JAX package. Phases, each
 of which fails the script (non-zero exit, no result line):
 
-1. device: the card's name and ``nvidia-smi`` name/power-limit line;
+1. device: the card's name and ``nvidia-smi`` name/power-limit line; the
+   host's ingest parser, printed as ``{"parser": "native"|"python",
+   "native_build_s": ..., "build_error": ...}``: the native C++ parser
+   (``ont_tcrconsensus_tpu_torch/io/native``, built now with g++ and zlib
+   into ``build/torch_native/``) must load where g++ and
+   ``/usr/include/zlib.h`` are there; where either is missing a line
+   names which, and every ingest runs the Python parsers, as in the JAX
+   package. Phase 8's first run, phase 10's quarantine run and phase 12's
+   in-process jobs must ingest through that parser alone (their read
+   batches are counted by path);
 2. build: both kernels (``ont_tcrconsensus_tpu_torch/csrc/*.cu``), one
    ``nvcc`` each, started together; ptxas's registers and spills and each
    instantiation's SASS instruction mix (``cuobjdump``) are printed;
@@ -38,7 +47,9 @@ of which fails the script (non-zero exit, no result line):
    ``torch.profiler``, its device events (kernel launches and copies) and
    busy time;
 6. small e2e: the tests' 4-region lane under ``rnn`` (the default) and
-   under ``poa``, each on ``cuda`` and on ``cpu`` (plain versions), both
+   under ``poa``, each on ``cuda`` and on ``cpu`` (plain versions; each
+   CPU run in a process of its own, started first, beside the card's
+   runs, whose seconds it shares the host with), both
    through the default graph executor: every file under ``nano_tcr/``
    byte-identical (the QC logs and CSVs, both error profiles, the
    reports), but the files of timings (:data:`TIMED_FILES`): the stage
@@ -109,7 +120,7 @@ of which fails the script (non-zero exit, no result line):
    read per run, and the peak reached inside a polisher call when that
    call raised it;
 9. robustness on the card: the small lane under ``poa`` (no retry
-   back-off), undisturbed, then one chaos drill a run: a transient fault
+   back-off), one chaos drill a run: a transient fault
    at ``assign.dispatch`` and ``polish.dispatch`` (retried), an out of
    memory error at ``polish.dispatch`` (the chunk batch shrinks), a
    killed ``overlap.worker`` (recomputed on the main thread), a transient
@@ -123,8 +134,8 @@ of which fails the script (non-zero exit, no result line):
    ``verify_resume: "full"`` (a ``resume.verify`` rerun), and last a
    ``corrupt-input`` under ``on_bad_record: "drop"`` (``dropped`` events,
    no quarantine file). Each drill must
-   end with the truth's counts and the undisturbed run's counts CSV and
-   merged FASTA; its ``robustness_report.json`` events (site,
+   end with the truth's counts and the counts CSV and merged FASTA of
+   phase 6's undisturbed run under ``poa`` on ``cuda``; its ``robustness_report.json`` events (site,
    classification, outcome) and the phase's seconds are printed;
 10. ingest validation on the card: phase 8's full lane again under
    ``on_bad_record: "quarantine"``, ``contracts: "strict"`` and the
@@ -185,16 +196,17 @@ of which fails the script (non-zero exit, no result line):
    ``history.jsonl``), B1 and B2 launched as often as there, 0 kernel
    builds in its ``telemetry.json``; its seconds and reads/s beside run
    0's, its ``wait_s`` and ``dispatch_first_stage_s``, and its peak
-   memory beside the admission estimate's byte figures. The small lane
-   as job 2: every file phase 6's cuda run's; the two ``source: "serve"``
-   ledger entries, ``warmup_s`` on the first only. Drills on the small
+   memory beside the admission estimate's byte figures; its ``source:
+   "serve"`` ledger entry carries the daemon's ``warmup_s``
+   (``tests/test_torch_serve.py`` holds a later entry without it). Drills
+   on the small
    lane under ``poa`` without the QC profiles: a transient
    ``serve.job_run`` retried to done, a fatal one poisoned in
    ``serve_poison.json``, a ``serve.daemon_loop`` crash journaling the
    popped job and flushing ``serve_crash:RuntimeError``, and a ``python -m
    ont_tcrconsensus_tpu_torch serve ... --port 0`` process sent SIGTERM
    mid-job: exit 143, the job journaled with ``resume: true``, completed
-   by a restarted daemon to phase 9's undisturbed counts CSV and merged
+   by a restarted daemon to phase 9's drills' counts CSV and merged
    FASTA (its cold start to ``serve_info.json`` and ``warmup_s`` printed).
    Last a packed pair (``serve_workers: 2`` over ``devices=["cuda:0",
    "cuda:0"]``) of two tenants of the drills' knobs: resident at once on
@@ -230,6 +242,25 @@ of which fails the script (non-zero exit, no result line):
    at the tile), beside the rest. ``models/weights/`` must keep every file's
    sha256. The phase's B2 launches (the CLI's excepted) join the kernels
    line.
+
+14. the native ingest and the serve load harness on the card: on phase
+   8's full lane, the native ``parse_file``, the concatenated
+   ``parse_chunks`` (at the default and at 1M bases a chunk) and the
+   Python ``read_fastx`` give the same records, and ``batch_parsed_chunks``
+   gives ``batch_reads``' batches one for one; on phase 10's corrupted
+   copy the native tolerant parse, whole and chunked, gives the Python
+   twin's records and bad regions (offset, reason, bytes); each parse's
+   host seconds. Then ``scripts/torch_serve_load.py`` in this process on
+   ``cuda``: ``smoke`` (the exact ledger, the saturation burst's 429s
+   equal to burst - ``queue_max``), ``packed`` on two slices of
+   ``cuda:0`` (resident high-water >= 2, disjoint leases) and
+   ``sustained`` (its default dataset: 3 regions of 2 molecules of 5-6
+   reads, ``poa``; 2 tenants, ``--ledger`` into a temporary file):
+   counts exact, B1 and B2 launched (counted from zero, the prewarm's
+   included), 0 steady kernel builds; its reads/s, wait and first-stage
+   p50/p99 and ``cold_start_s``. Last ``scripts/torch_perf_gate.py`` on
+   that ledger in a process where torch cannot be imported: exit 0,
+   ``warn`` on one entry. The phase's launches join the kernels line.
 
 Each phase's start (seconds since the script began) is printed. Then one
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
@@ -447,8 +478,13 @@ def _device_ms(fn) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    # the profiler's raw records: ``prof.events()`` builds a Python event
+    # tree from them, tens of seconds at the 10^5 events of a traced call,
+    # for the same device intervals (it drops the hidden records too)
+    spans = sorted((e.start_ns() / 1e3, e.end_ns() / 1e3)
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA
+                   and not getattr(e, "is_hidden_event", lambda: False)())
     busy_us, end = 0.0, float("-inf")
     for start, stop in spans:
         if stop > end:
@@ -948,44 +984,45 @@ SMALL_KNOBS = {"minimal_length": 600, "min_reads_per_cluster": 4, "read_batch_si
 POLISH = {"rnn": {}, "poa": {"polish_method": "poa"}}
 
 
-def small_e2e(method: str, trees: dict | None = None) -> dict:
-    """``trees``, when given, receives the cuda run's files under
-    ``method`` (phase 12 holds a served job to them)."""
+def _small_cpu(method: str, results_q) -> None:
+    """Phase 6's CPU side under ``method``, in a process of its own beside
+    the card's runs: the small lane on the CPU in a directory of its own.
+    Puts its seconds, counts and files (or the error) on ``results_q``."""
+    import traceback
+
+    try:
+        lib = _small_library()
+        root = os.path.join(WORK, f"small_cpu_{method}")
+        _write_lane(root, lib)
+        t0 = time.perf_counter()
+        got = _run_lane(root, {**SMALL_KNOBS, **POLISH[method]}, "cpu")
+        results_q.put({"method": method, "cpu_s": time.perf_counter() - t0,
+                       "counts": got.get("barcode01"), "tree": _artifacts(root)})
+    except BaseException:
+        results_q.put({"method": method, "error": traceback.format_exc()})
+
+
+def _small_cuda(method: str) -> dict:
+    """Phase 6's card side under ``method``: the small lane on ``cuda``
+    and, under ``rnn``, again under the imperative executor, which must
+    write the graph run's files."""
     import torch
 
     lib = _small_library()
-    root = os.path.join(WORK, "small")
+    root = os.path.join(WORK, f"small_{method}")
     _write_lane(root, lib)
     knobs = {**SMALL_KNOBS, **POLISH[method]}
     t0 = time.perf_counter()
-    got_cuda = _run_lane(root, knobs, "cuda")
+    runs = [("cuda", _run_lane(root, knobs, "cuda"))]
     torch.cuda.synchronize()
-    cuda_s = time.perf_counter() - t0
-    art_cuda = _artifacts(root)
-    t0 = time.perf_counter()
-    got_cpu = _run_lane(root, knobs, "cpu")
-    cpu_s = time.perf_counter() - t0
-    art_cpu = _artifacts(root)
-    if sorted(art_cuda) != sorted(art_cpu):
-        raise AssertionError(f"small e2e ({method}): the file sets differ between cuda and "
-                             f"cpu: {sorted(set(art_cuda) ^ set(art_cpu))}")
-    for rel in sorted(set(art_cuda) - set(TIMED_FILES)):
-        if art_cuda[rel] != art_cpu[rel]:
-            raise AssertionError(f"small e2e ({method}): {rel} differs between cuda and cpu")
-    if _stage_names(art_cuda) != _stage_names(art_cpu):
-        raise AssertionError(f"small e2e ({method}): stage names differ between cuda and cpu")
-    obs = _compare_obs(art_cuda, art_cpu, f"small e2e ({method})")
-    runs = [("cuda", got_cuda), ("cpu", got_cpu)]
-    imperative_s = None
+    out = {"cuda_s": time.perf_counter() - t0, "tree": _artifacts(root), "imperative_s": None}
     if method == "rnn":
-        # the default config under the imperative executor, on the card:
-        # the same files as the graph executor's run
         t0 = time.perf_counter()
         runs.append(("cuda, imperative",
                      _run_lane(root, {**knobs, "executor": "imperative"}, "cuda")))
         torch.cuda.synchronize()
-        imperative_s = time.perf_counter() - t0
-        art_imp = _artifacts(root)
+        out["imperative_s"] = time.perf_counter() - t0
+        art_imp, art_cuda = _artifacts(root), out["tree"]
         if sorted(art_imp) != sorted(art_cuda):
             raise AssertionError(f"small e2e: the file sets differ between the executors: "
                                  f"{sorted(set(art_imp) ^ set(art_cuda))}")
@@ -997,12 +1034,63 @@ def small_e2e(method: str, trees: dict | None = None) -> dict:
         if got.get("barcode01") != lib.true_counts:
             raise AssertionError(f"small e2e ({method}) on {dev}: counts "
                                  f"{got.get('barcode01')} != truth {lib.true_counts}")
-    if trees is not None:
+    return out
+
+
+def small_e2e(trees: dict) -> list[dict]:
+    """Phase 6: see the module docstring. The CPU sides run in processes
+    of their own, started first, beside the card's runs. ``trees``
+    receives each method's cuda files (phases 9, 11 and 12 hold runs to
+    them)."""
+    import multiprocessing
+    import queue
+
+    lib = _small_library()
+    ctx = multiprocessing.get_context("spawn")
+    results_q = ctx.Queue()
+    procs = [ctx.Process(target=_small_cpu, args=(method, results_q), daemon=True)
+             for method in POLISH]
+    cpu: dict[str, dict] = {}
+    try:
+        for proc in procs:
+            proc.start()
+        cuda = {method: _small_cuda(method) for method in POLISH}
+        for _ in procs:
+            try:
+                res = results_q.get(timeout=900)
+            except queue.Empty:
+                raise AssertionError("small e2e: a CPU side gave no result") from None
+            if "error" in res:
+                raise AssertionError(f"small e2e ({res['method']}): the CPU side failed:\n"
+                                     f"{res['error']}")
+            cpu[res["method"]] = res
+    finally:
+        for proc in procs:
+            proc.join(timeout=60)
+            if proc.is_alive():
+                proc.kill()
+    out = []
+    for method in POLISH:
+        art_cuda, art_cpu = cuda[method]["tree"], cpu[method]["tree"]
+        if sorted(art_cuda) != sorted(art_cpu):
+            raise AssertionError(f"small e2e ({method}): the file sets differ between cuda and "
+                                 f"cpu: {sorted(set(art_cuda) ^ set(art_cpu))}")
+        for rel in sorted(set(art_cuda) - set(TIMED_FILES)):
+            if art_cuda[rel] != art_cpu[rel]:
+                raise AssertionError(f"small e2e ({method}): {rel} differs between cuda and cpu")
+        if _stage_names(art_cuda) != _stage_names(art_cpu):
+            raise AssertionError(f"small e2e ({method}): stage names differ between cuda and cpu")
+        obs = _compare_obs(art_cuda, art_cpu, f"small e2e ({method})")
+        if cpu[method]["counts"] != lib.true_counts:
+            raise AssertionError(f"small e2e ({method}) on cpu: counts "
+                                 f"{cpu[method]['counts']} != truth {lib.true_counts}")
         trees[method] = art_cuda
-    return {"polish": method, "n_reads": len(lib.reads), "cuda_s": cuda_s, "cpu_s": cpu_s,
-            "imperative_s": imperative_s,
-            "files_compared": len(art_cuda) - len(TIMED_FILES), "artifacts_identical": True,
-            "counts_exact": True, "obs": obs}
+        out.append({"polish": method, "n_reads": len(lib.reads),
+                    "cuda_s": cuda[method]["cuda_s"], "cpu_s": cpu[method]["cpu_s"],
+                    "imperative_s": cuda[method]["imperative_s"],
+                    "files_compared": len(art_cuda) - len(TIMED_FILES),
+                    "artifacts_identical": True, "counts_exact": True, "obs": obs})
+    return out
 
 
 # the CLI in a subprocess (--report, --validate): its exit code and whether
@@ -1175,16 +1263,17 @@ def _drill_cli(root: str, knobs: dict) -> subprocess.CompletedProcess:
                           capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
 
 
-def robustness_phase() -> dict:
-    """Phase 9: the chaos drills on the card; see the module docstring."""
+def robustness_phase(undisturbed: dict[str, bytes]) -> dict:
+    """Phase 9: the chaos drills on the card; see the module docstring.
+    ``undisturbed`` is phase 6's cuda run of the small lane under ``poa``
+    (the drills' knobs but the retry back-off, which writes nothing): every
+    drill ends with its counts CSV and merged FASTA."""
 
     t_phase = time.perf_counter()
     lib = _small_library()
     root = os.path.join(WORK, "drills")
     _write_lane(root, lib)
-    if _run_lane(root, DRILL_KNOBS, "cuda").get("barcode01") != lib.true_counts:
-        raise AssertionError("drills: the undisturbed run's counts differ from the truth")
-    want = _drill_files(root)
+    want = {rel: undisturbed[f"barcode01/{rel}"] for rel in DRILL_FILES}
     drills: dict[str, list] = {}
 
     def finish(name: str, got: dict, expect: tuple = ()) -> None:
@@ -1465,6 +1554,7 @@ def full_e2e(kernels, rounds: int):
     lanes = ["full"] + ["small"] * (len(methods) - 1)
     seconds, stages, peaks, polisher_runs, launches, diffs = [], [], [], [], {}, {}
     telemetry: dict[int, dict] = {}
+    ingest: dict[str, int] = {}  # run 0's read batches by ingest path
     for run, (lane, method) in enumerate(zip(lanes, methods)):
         root, lib = roots[lane], libs[lane]
         counted = run == 0 or method == "poa"  # each path's launches, from zero
@@ -1480,6 +1570,7 @@ def full_e2e(kernels, rounds: int):
             if run == 0:
                 shapes = {key: stack.enter_context(_launch_shapes(module, name, shape_of))
                           for key, (module, name, shape_of) in recorded.items()}
+                stack.enter_context(_ingest_batches(ingest))
             stack.enter_context(_polisher_clock(pol))
             stack.enter_context(_rollup_clock(rollup))
             t0 = time.perf_counter()
@@ -1528,7 +1619,7 @@ def full_e2e(kernels, rounds: int):
            "counts_exact": not diffs,
            "max_memory_allocated_gb": peaks, "polisher": polisher_runs,
            "data_s": data_s, "launches": launches, "stage_s": stages,
-           "telemetry": telemetry,
+           "telemetry": telemetry, "ingest_batches": ingest,
            "launch_gaps": {
                "sw": launch_gaps(shapes["sw"], sw_kernel.align_banded_cuda, _sw_costs, dev),
                "pileup": launch_gaps(shapes["pileup"], pileup_kernel.forward_planes_cuda,
@@ -2210,10 +2301,10 @@ def _serve_drills(lib, want: dict) -> tuple[dict, dict]:
     return out, serial
 
 
-def serve_phase(full_lib, full: dict, small_tree: dict, kernels) -> dict:
+def serve_phase(full_lib, full: dict, kernels) -> dict:
     """Phase 12: the warm-serving daemon on the card; see the module
     docstring. ``full`` is phase 8's numbers (its first run's output still
-    in place), ``small_tree`` phase 6's files of the small lane on cuda."""
+    in place)."""
     import torch
 
     from ont_tcrconsensus_tpu_torch.obs import history as obs_history
@@ -2231,8 +2322,6 @@ def serve_phase(full_lib, full: dict, small_tree: dict, kernels) -> dict:
     os.makedirs(os.path.join(root1, "fastq_pass", "barcode01"))
     shutil.copy(os.path.join(full_root, "reference.fa"), root1)
     shutil.copy(os.path.join(full_root, lane_fastq), os.path.join(root1, lane_fastq))
-    root2 = os.path.join(WORK, "serve_small")
-    _write_lane(root2, small_lib)
     state = os.path.join(WORK, "serve_state")
     shutil.rmtree(state, ignore_errors=True)
     ledger = os.path.join(WORK, "serve_ledger.jsonl")
@@ -2295,33 +2384,19 @@ def serve_phase(full_lib, full: dict, small_tree: dict, kernels) -> dict:
         "admission_detail": queue_mod.estimate_admission(cfg1, daemon.budget)[1],
     }
 
-    # 3. the small lane as job 2: phase 6's files; the ledger's split
-    t0 = time.perf_counter()
-    snap2 = _submit_and_wait(url, _lane_raw(root2, {**SMALL_KNOBS, "history_ledger": ledger}))
-    job2_s = time.perf_counter() - t0
-    tree2 = _artifacts(root2)
-    if snap2["state"] != "done":
-        raise AssertionError(f"serve: job 2 {snap2['state']}: {snap2['error']}")
-    compared2 = _same_files(tree2, small_tree, "serve job 2 (small lane)")
-    _timed_schema(tree2, small_tree, "serve job 2 (small lane)")
     _stop_daemon(daemon, thread, outcome)
     serve_entries = [e for e in obs_history.read_entries(ledger)[0] if e["source"] == "serve"]
-    if (len(serve_entries) != 2 or serve_entries[0].get("warmup_s") != daemon.warmup_s
-            or "warmup_s" in serve_entries[1]):
+    if len(serve_entries) != 1 or serve_entries[0].get("warmup_s") != daemon.warmup_s:
         raise AssertionError(f"serve: ledger entries {serve_entries}")
-    out["job2"] = {"n_reads": len(small_lib.reads), "seconds": job2_s,
-                   "wait_s": snap2["wait_s"], "dispatch_first_stage_s": snap2["first_stage_s"],
-                   "files_compared": compared2,
-                   "kernel_builds": json.loads(tree2["telemetry.json"])["compile"]["count"]}
     out["ledger"] = [{k: e.get(k) for k in ("job_id", "warmup_s", "steady_s", "wait_s",
                                             "dispatch_first_stage_s", "backend")}
                      for e in serve_entries]
 
-    # 4. the drills, on the small lane under poa without the QC profiles
+    # 3. the drills, on the small lane under poa without the QC profiles
     out["drills"], serial = _serve_drills(small_lib,
                                           _drill_files(os.path.join(WORK, "drills")))
 
-    # 5. a packed pair on two slices of the one card, held to the
+    # 4. a packed pair on two slices of the one card, held to the
     # transient drill's serially served job of the same knobs
     roots = [os.path.join(WORK, f"serve_pack{t}") for t in "AB"]
     for r in roots:
@@ -2672,6 +2747,217 @@ def training_phase(tile_feats) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the native parser against the Python parsers on the full lane,
+# the serve load harness on the card and the perf gate
+
+
+@contextlib.contextmanager
+def _ingest_batches(counts: dict):
+    """Count the read batches each ingest path yields while the block runs:
+    ``native`` (the native parser's columnar path) and ``python`` (the
+    Python parsers' record path)."""
+    from ont_tcrconsensus_tpu_torch.io import bucketing
+
+    real = {"native": bucketing.batch_parsed_chunks, "python": bucketing.batch_reads}
+    counts.update(native=0, python=0)
+
+    def counting(name):
+        def wrapped(*args, **kwargs):
+            for batch in real[name](*args, **kwargs):
+                counts[name] += 1
+                yield batch
+        return wrapped
+
+    bucketing.batch_parsed_chunks, bucketing.batch_reads = counting("native"), counting("python")
+    try:
+        yield counts
+    finally:
+        bucketing.batch_parsed_chunks, bucketing.batch_reads = real["native"], real["python"]
+
+
+def _check_ingest_path(counts: dict, parser: str, label: str) -> None:
+    """The run ingested through ``parser`` (phase 1's answer) alone."""
+    other = "python" if parser == "native" else "native"
+    if counts[parser] == 0 or counts[other] != 0:
+        raise AssertionError(f"{label}: ingest batches {counts}, want the {parser} parser's")
+
+
+def _records_view(parsed) -> list[tuple]:
+    """(header, codes, quals) of each record of a native parse."""
+    return [(parsed.names[i], parsed.codes[parsed.offsets[i]:parsed.offsets[i + 1]].tobytes(),
+             None if parsed.quals is None
+             else parsed.quals[parsed.offsets[i]:parsed.offsets[i + 1]].tobytes())
+            for i in range(parsed.num_records)]
+
+
+def _concat(chunks):
+    """Whole-file view of a list of native chunks."""
+    return [r for c in chunks for r in _records_view(c)], [b for c in chunks for b in c.bad]
+
+
+def _batches_view(batches) -> list[tuple]:
+    return [(b.width, b.ids, b.codes.tobytes(), None if b.quals is None else b.quals.tobytes(),
+             b.lengths.tobytes(), b.valid.tobytes()) for b in batches]
+
+
+# the gate, in a process where torch cannot be imported
+_GATE_PROBE = r"""
+import runpy, sys
+sys.modules["torch"] = None
+sys.argv = sys.argv[1:]
+try:
+    runpy.run_path(sys.argv[0], run_name="__main__")
+    rc = 0
+except SystemExit as exc:
+    rc = exc.code or 0
+sys.exit(rc)
+"""
+
+
+def ingest_serve_phase(full_lib, parser: str, kernels) -> dict:
+    """Phase 14: see the module docstring. ``parser`` is phase 1's answer
+    ("native" or "python")."""
+    import importlib.util
+
+    from ont_tcrconsensus_tpu_torch.io import bucketing, fastx, native, validate
+    from ont_tcrconsensus_tpu_torch.ops import encode
+
+    t_phase = time.perf_counter()
+    out: dict = {"parser": parser}
+    lane = os.path.join(WORK, "lane_full", "fastq_pass", "barcode01", "barcode01.fastq.gz")
+    corrupted = os.path.join(WORK, "ingest_full", "fastq_pass", "barcode01",
+                             "barcode01.chaos-corrupt.gz")
+    host_s: dict[str, float] = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        value = fn()
+        host_s[name] = time.perf_counter() - t0
+        return value
+
+    # 1. the parsers on the full lane: the Python parser is the reference
+    py = timed("python_read_fastx", lambda: [
+        (r.header, encode.encode_seq(r.sequence).tobytes(),
+         None if r.quality is None
+         else (np.frombuffer(r.quality.encode(), np.uint8) - 33).astype(np.uint8).tobytes())
+        for r in fastx.read_fastx(lane)])
+    py_tol, py_bad = timed("python_tolerant_corrupted",
+                           lambda: validate.parse_path_tolerant(corrupted))
+    py_tol = [(r.header.decode("utf-8", "replace"),
+               validate.CODE_LUT[np.frombuffer(r.seq, np.uint8)].tobytes(),
+               None if r.qual is None
+               else (np.frombuffer(r.qual, np.uint8) - 33).astype(np.uint8).tobytes())
+              for r in py_tol]
+    py_bad = [(b.offset, b.reason, b.raw) for b in py_bad]
+    want_batches = timed("python_batch_reads", lambda: _batches_view(bucketing.batch_reads(
+        fastx.read_fastx(lane), batch_size=FULL_KNOBS["read_batch_size"], min_len=1)))
+    if len(py) != len(full_lib.reads) or len(py_bad) < 3:
+        raise AssertionError(f"phase 14: the Python parsers read {len(py)} records of "
+                             f"{len(full_lib.reads)}, {len(py_bad)} bad regions")
+    out.update(n_reads=len(py), n_bad=len(py_bad), n_batches=len(want_batches))
+    if parser == "native":
+        whole = timed("native_parse_file", lambda: native.parse_file(lane))
+        chunks = timed("native_parse_chunks", lambda: list(native.parse_chunks(lane)))
+        small = timed("native_parse_chunks_1M", lambda: list(
+            native.parse_chunks(lane, chunk_bases=1 << 20)))
+        got = {"parse_file": (_records_view(whole), whole.bad),
+               "parse_chunks": _concat(chunks), "parse_chunks_1M": _concat(small)}
+        for name, (records, bad) in got.items():
+            if records != py or bad:
+                raise AssertionError(f"phase 14: native {name} differs from read_fastx on the "
+                                     f"full lane ({len(records)} records, {len(bad)} bad)")
+        batches = timed("native_batch_parsed_chunks", lambda: _batches_view(
+            bucketing.batch_parsed_chunks(native.parse_chunks(lane),
+                                          batch_size=FULL_KNOBS["read_batch_size"], min_len=1)))
+        if batches != want_batches:
+            raise AssertionError("phase 14: batch_parsed_chunks differs from batch_reads")
+        tol = timed("native_tolerant_corrupted",
+                    lambda: native.parse_file(corrupted, tolerant=True))
+        tol_chunks = _concat(list(native.parse_chunks(corrupted, chunk_bases=1 << 20,
+                                                      tolerant=True)))
+        for name, (records, bad) in (("parse_file", (_records_view(tol), tol.bad)),
+                                     ("parse_chunks_1M", tol_chunks)):
+            if records != py_tol or bad != py_bad:
+                raise AssertionError(f"phase 14: the native tolerant {name} of the corrupted "
+                                     f"lane differs from the Python twin: bad {bad[:3]} vs "
+                                     f"{py_bad[:3]}")
+        out.update(n_chunks=len(chunks), n_chunks_1M=len(small),
+                   bad=[(o, r, len(raw)) for o, r, raw in tol.bad])
+    out["host_s"] = host_s
+
+    # 2. the load harness on the card, in this process (its daemons run on
+    # threads): the stub scenarios, then the real pipeline
+    spec = importlib.util.spec_from_file_location(
+        "torch_serve_load", os.path.join(ROOT, "scripts", "torch_serve_load.py"))
+    load = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(load)
+    root = os.path.join(WORK, "serve_load")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    ledger = os.path.join(root, "ledger.jsonl")
+    reports = {}
+    for scenario, extra in (("smoke", []), ("packed", []),
+                            ("sustained", ["--tenants", "2", "--ledger", ledger])):
+        for k in kernels:
+            k.launches = 0
+        path = os.path.join(root, f"{scenario}.json")
+        t0 = time.perf_counter()
+        rc = load.main(["--scenario", scenario, "--workdir", os.path.join(root, scenario),
+                        "--out", path, "--timeout-s", "600", *extra])
+        with open(path) as fh:
+            report = json.load(fh)
+        report["_seconds"] = time.perf_counter() - t0
+        report["_launches"] = {k.__name__: k.launches for k in kernels}
+        reports[scenario] = report
+        if rc != 0 or report["invariants"]:
+            raise AssertionError(f"phase 14: torch_serve_load --scenario {scenario} exit {rc}: "
+                                 f"{report['invariants']}")
+    sat = reports["smoke"]["drills"]["saturation"]
+    if sat["queue_full_429"] != sat["burst"] - sat["queue_max"]:
+        raise AssertionError(f"phase 14: smoke saturation {sat}")
+    packed = reports["packed"]["drills"]["packed"]
+    if packed["resident_high_water"] < 2 or not packed["disjoint_slices"]:
+        raise AssertionError(f"phase 14: packed {packed}")
+    sus = reports["sustained"]
+    launches = sus["_launches"]
+    if (not sus["drills"]["sustained"]["counts_exact"] or sus["steady_compile_count"] != 0
+            or not all(launches.values())):
+        raise AssertionError(f"phase 14: sustained counts exact "
+                             f"{sus['drills']['sustained']['counts_exact']}, steady builds "
+                             f"{sus['steady_compile_count']}, launches {launches}")
+    out["serve_load"] = {
+        name: {k: r.get(k) for k in ("submitted", "accepted", "completed", "poisoned", "failed",
+                                     "journaled_remaining", "rejected_by_reason", "wait_s",
+                                     "first_stage_s", "reads_per_sec", "n_reads",
+                                     "steady_compile_count", "cold_start_s", "_seconds",
+                                     "_launches")}
+        for name, r in reports.items()}
+    out["serve_load"]["smoke"]["saturation"] = sat
+    out["serve_load"]["packed"]["packed"] = packed
+    out["serve_load"]["sustained"]["drill"] = {
+        k: v for k, v in sus["drills"]["sustained"].items() if k != "prewarm"}
+    out["launches"] = launches
+
+    # 3. the perf gate over the sustained entry, torch unimportable
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", _GATE_PROBE, os.path.join(ROOT, "scripts", "torch_perf_gate.py"),
+         ledger, "--json"], capture_output=True, text=True, env=env, cwd=ROOT, timeout=120)
+    try:
+        verdict = json.loads(proc.stdout)
+    except ValueError:
+        verdict = None
+    if proc.returncode != 0 or verdict is None or verdict["load"]["status"] != "warn":
+        raise AssertionError(f"phase 14: perf gate exit {proc.returncode}: {proc.stdout[-1000:]} "
+                             f"{proc.stderr[-1000:]}")
+    out["perf_gate"] = {"rc": proc.returncode, "status": verdict["status"],
+                        "load": verdict["load"]["status"], "reason": verdict["load"]["reason"],
+                        "transfer": verdict["transfer"]["status"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write every number to this JSON file")
@@ -2714,6 +3000,31 @@ def main(argv=None) -> int:
     print(f"device: {kind} (count {torch.cuda.device_count()}); nvidia-smi: {smi}", flush=True)
     report["device"] = {"kind": kind, "nvidia_smi": smi, "torch": torch.__version__,
                         "cuda": torch.version.cuda}
+    # the host's parser: the native one where g++ and zlib's header are
+    # there (built now, into build/torch_native/), else the Python parsers
+    from ont_tcrconsensus_tpu_torch.io import native
+
+    gxx = shutil.which("g++")
+    gxx_version = (subprocess.run([gxx, "--version"], capture_output=True, text=True)
+                   .stdout.splitlines() or [""])[0] if gxx else None
+    zlib_h = os.path.exists("/usr/include/zlib.h")
+    ingest = report["ingest_parser"] = {
+        "parser": "native" if native.available() else "python",
+        "native_build_s": native.build_seconds(), "build_error": native.build_error(),
+        "gxx": gxx_version, "zlib_h": zlib_h}
+    print(json.dumps({k: ingest[k] for k in ("parser", "native_build_s", "build_error")}),
+          flush=True)
+    print(f"host toolchain: g++ {gxx_version or 'missing'}; /usr/include/zlib.h "
+          f"{'present' if zlib_h else 'missing'}", flush=True)
+    if ingest["parser"] == "python":
+        if gxx and zlib_h:
+            return _fail(f"g++ and zlib.h are here but the native parser does not load: "
+                         f"{ingest['build_error']}")
+        print("native parser: not built, "
+              + " and ".join(w for w, ok in (("g++ is missing", gxx), ("zlib.h is missing",
+                                                                        zlib_h)) if not ok)
+              + "; every ingest runs the Python parsers", flush=True)
+    parser = ingest["parser"]
 
     phase("2 build")
     # 2. build
@@ -2783,7 +3094,7 @@ def main(argv=None) -> int:
     phase("6 small e2e")
     # 6. small e2e, cuda vs cpu, under both polish methods
     small_trees: dict[str, dict[str, bytes]] = {}
-    report["small_e2e"] = [small_e2e(method, small_trees) for method in POLISH]
+    report["small_e2e"] = small_e2e(small_trees)
     for small in report["small_e2e"]:
         imp = (f"; under executor imperative on cuda ({small['imperative_s']:.1f} s) the same "
                "files byte for byte" if small["imperative_s"] is not None else "")
@@ -2913,22 +3224,29 @@ def main(argv=None) -> int:
         return _fail(f"full e2e counts differ from the truth: {full.get('count_diffs')}")
     if not all(n for path in full["launches"].values() for n in path.values()):
         return _fail(f"a kernel of a path never launched: {full['launches']}")
+    _check_ingest_path(full["ingest_batches"], parser, "full e2e run 0")
+    print(f"full e2e run 0 ingest: {parser} parser, read batches by path "
+          f"{full['ingest_batches']}", flush=True)
 
     phase("9 robustness")
     # 9. robustness on the card
-    rob = report["robustness"] = robustness_phase()
+    rob = report["robustness"] = robustness_phase(small_trees["poa"])
     for name, events in rob["drills"].items():
         print(f"drill {name}: events " + (", ".join("/".join(e) for e in events) or "none"),
               flush=True)
     print(f"robustness: {len(rob['drills'])} drills on the small lane ({rob['n_reads']} reads, "
-          f"poa), each ending with the undisturbed run's counts CSV and merged FASTA; "
+          f"poa), each ending with phase 6's undisturbed counts CSV and merged FASTA; "
           f"{rob['seconds']:.1f} s", flush=True)
     _dump(args.out, report)
 
     phase("10 ingest")
     # 10. ingest validation on the card: the full lane under quarantine,
     # --validate, the analysis verb
-    ing = report["ingest"] = ingest_phase(full_lib, full, kernels)
+    with _ingest_batches({}) as ingest_10:
+        ing = report["ingest"] = ingest_phase(full_lib, full, kernels)
+    _check_ingest_path(ingest_10, parser, "ingest (phase 10)")
+    print(f"ingest: the quarantine run ingested through the {parser} parser, read batches by "
+          f"path {ingest_10}", flush=True)
     print(f"ingest: full lane ({ing['n_reads']} reads) under quarantine, contracts strict, "
           f"three blocks spliced: {ing['run_s']:.2f} s ({ing['reads_per_s']:.1f} reads/s; the "
           f"clean run of phase 8 {ing['clean_s']:.2f} s, {ing['clean_reads_per_s']:.1f} "
@@ -2989,9 +3307,13 @@ def main(argv=None) -> int:
     _dump(args.out, report)
 
     phase("12 serve")
-    # 12. the warm-serving daemon: prewarm, the full lane and the small
-    # lane as served jobs, a packed pair on two slices of the card, drills
-    sv = report["serve"] = serve_phase(full_lib, full, small_trees["rnn"], kernels)
+    # 12. the warm-serving daemon: prewarm, the full lane as a served job,
+    # drills, a packed pair on two slices of the card
+    with _ingest_batches({}) as ingest_12:
+        sv = report["serve"] = serve_phase(full_lib, full, kernels)
+    _check_ingest_path(ingest_12, parser, "serve (phase 12)")
+    print(f"serve: the jobs in this process ingested through the {parser} parser, read "
+          f"batches by path {ingest_12}", flush=True)
     pw = sv["prewarm"]
     print(f"serve: daemon started and warm in {sv['start_s']:.2f} s (warmup_s "
           f"{sv['warmup_s']}); prewarm {pw['seconds']} s, {pw['compiled']} ok, {pw['failed']} "
@@ -3009,10 +3331,7 @@ def main(argv=None) -> int:
           f"{j1['max_memory_allocated_bytes']} B (telemetry {j1['hbm_high_water_bytes']} B) "
           f"against the admission estimate {j1['admission']} ({j1['admission_detail']})",
           flush=True)
-    j2 = sv["job2"]
-    print(f"serve job 2 (small lane, {j2['n_reads']} reads): {j2['seconds']:.2f} s; "
-          f"{j2['files_compared']} files byte-identical to phase 6's cuda run; kernel builds "
-          f"{j2['kernel_builds']}; ledger (source serve) {sv['ledger']}", flush=True)
+    print(f"serve ledger (source serve): {sv['ledger']}", flush=True)
     pk = sv["packed"]
     for name, d in sv["drills"].items():
         print(f"serve drill {name}: " + ", ".join(f"{k} {v}" for k, v in d.items()),
@@ -3058,8 +3377,50 @@ def main(argv=None) -> int:
           flush=True)
     _dump(args.out, report)
 
-    phase("14 kernels line")
-    # 14. kernels line
+    phase("14 ingest and load")
+    # 14. the native parser against the Python parsers on the full lane, the
+    # load harness's scenarios on the card, the perf gate on its ledger
+    il = report["ingest_load"] = ingest_serve_phase(full_lib, parser, kernels)
+    hs = il["host_s"]
+    if parser == "native":
+        print(f"parsers on the full lane ({il['n_reads']} reads): native parse_file, "
+              f"parse_chunks ({il['n_chunks']} chunk(s); {il['n_chunks_1M']} at 1M bases) and "
+              f"read_fastx give the same records; batch_parsed_chunks gives batch_reads' "
+              f"{il['n_batches']} batches one for one; on phase 10's corrupted copy the native "
+              f"tolerant parse (whole and in 1M-base chunks) gives the Python twin's records "
+              f"and {il['n_bad']} bad regions (offset, reason, bytes): "
+              + ", ".join(f"{r!r} at {o} ({n} B)" for o, r, n in il["bad"]), flush=True)
+    else:
+        print(f"parsers on the full lane ({il['n_reads']} reads): the Python parsers only "
+              f"(no native parser on this host)", flush=True)
+    print("parse host seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in hs.items()), flush=True)
+    for name, r in il["serve_load"].items():
+        print(f"serve_load {name} on cuda ({r['_seconds']:.1f} s): submitted {r['submitted']} = "
+              f"accepted {r['accepted']} + rejected {r['rejected_by_reason']}; accepted = "
+              f"completed {r['completed']} + poisoned {r['poisoned']} + failed {r['failed']} + "
+              f"journaled {r['journaled_remaining']}; launches {r['_launches']}", flush=True)
+    sl = il["serve_load"]
+    print(f"serve_load smoke: saturation burst {sl['smoke']['saturation']['burst']} over "
+          f"queue_max {sl['smoke']['saturation']['queue_max']}: "
+          f"{sl['smoke']['saturation']['queue_full_429']} queue_full 429s; packed on "
+          f"{sl['packed']['packed']['overlap_observed']}: resident high-water "
+          f"{sl['packed']['packed']['resident_high_water']}, disjoint "
+          f"{sl['packed']['packed']['disjoint_slices']}", flush=True)
+    su = sl["sustained"]
+    print(f"serve_load sustained (2 tenants, {su['n_reads']} reads, poa): {su['reads_per_sec']} "
+          f"reads/s over the busy window {su['drill']['busy_window_s']} s; wait p50/p99 "
+          f"{su['wait_s']['p50']}/{su['wait_s']['p99']} s; first stage p50/p99 "
+          f"{su['first_stage_s']['p50']}/{su['first_stage_s']['p99']} s; cold_start_s "
+          f"{su['cold_start_s']}; steady_compile_count {su['steady_compile_count']}; counts "
+          f"exact {su['drill']['counts_exact']}; B1/B2 launches {il['launches']}", flush=True)
+    pg = il["perf_gate"]
+    print(f"perf gate (torch unimportable) on the sustained ledger: exit {pg['rc']}, verdict "
+          f"{pg['status']}, load {pg['load']} ({pg['reason']}), transfer {pg['transfer']}; "
+          f"phase {il['seconds']:.1f} s", flush=True)
+    _dump(args.out, report)
+
+    phase("15 kernels line")
+    # 15. kernels line
     entries = []
     for k, key, name, src, replaces in (
         (sw_kernel.align_banded_cuda, "sw", "sw_banded",
@@ -3073,6 +3434,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": full["launches"]["rnn"][k.__name__],
             "launches_training": tr["b2_launches"] if key == "pileup" else tr["b1_launches"],
+            "launches_serve_load": il["launches"][k.__name__],
             "max_abs_err": max(x["max_abs_err"] for x in report[key]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,

@@ -1,11 +1,14 @@
 """Length bucketing: ragged reads -> fixed-shape device batches.
 
-A copy of the JAX package's record path (``io/bucketing.py``) and its
-pre-encoded path (:class:`EncodedRecords`, the graph executor's round-1 to
-round-2 hand-off): reads are
-grouped into a small set of padded widths, and each bucket is emitted in
-fixed-size batches (a final partial batch is padded up with dummy rows,
-masked out by ``valid``). The fused read pass picks its SW subset per
+A copy of the JAX package's ``io/bucketing.py``: the record path
+(:func:`batch_reads`), the columnar paths the native parser feeds
+(:func:`batch_parsed_reads` over a whole-file parse,
+:func:`batch_parsed_chunks` over a stream of chunks, the default ingest)
+and the pre-encoded path (:class:`EncodedRecords`, the graph executor's
+round-1 to round-2 hand-off). Reads are grouped into a small set of padded
+widths, and each bucket is emitted in fixed-size batches (a final partial
+batch is padded up with dummy rows, masked out by ``valid``); every path
+gives the record path's batches on the same data. The fused read pass picks its SW subset per
 batch, so batch composition is part of the result and must match the
 reference package row for row.
 """
@@ -147,6 +150,131 @@ def _make_batch(recs: list, width: int, batch_size: int, with_quals: bool) -> Re
     return ReadBatch(codes=codes, quals=quals, lengths=lengths, valid=valid, ids=ids, width=width)
 
 
+def _rows_to_batch(rows: list, w: int, batch_size: int, has_quals: bool) -> ReadBatch:
+    """One padded batch from (codes, quals or None, name) rows: the padded
+    batch policy of the columnar and pre-encoded paths, byte for byte
+    :func:`_make_batch`'s on the same data (a partial batch pads to the
+    pow2 of its real count, floor 64)."""
+    B = min(batch_size, pow2_ceil(len(rows), 64))
+    codes = np.full((B, w), encode.PAD_CODE, dtype=np.uint8)
+    quals = np.full((B, w), QUAL_FILL, dtype=np.uint8) if has_quals else None
+    lengths = np.zeros((B,), dtype=np.int32)
+    valid = np.zeros((B,), dtype=bool)
+    ids: list[str] = []
+    for i, (c, q, nm) in enumerate(rows):
+        codes[i, : c.size] = c
+        if has_quals and q is not None:
+            quals[i, : q.size] = q
+        lengths[i] = c.size
+        valid[i] = True
+        ids.append(nm)
+    ids.extend([""] * (B - len(rows)))
+    return ReadBatch(codes=codes, quals=quals, lengths=lengths, valid=valid, ids=ids, width=w)
+
+
+def batch_parsed_reads(
+    parsed,
+    batch_size: int = 2048,
+    widths: Sequence[int] = DEFAULT_WIDTHS,
+    min_len: int = 1,
+) -> Iterator[ReadBatch]:
+    """Batches straight from a columnar :class:`..native.ParsedFastx` parse:
+    bucketing is a vectorized ``searchsorted`` and each batch is filled by
+    row slicing, with no per-read record objects. Emission order is
+    :func:`batch_reads`' on the same file: input order within a bucket,
+    buckets flushed when full and at end-of-stream in width order."""
+    lens = np.asarray(parsed.lengths)
+    widths_arr = np.asarray(widths)
+    bucket_idx = np.searchsorted(widths_arr, lens)  # widths[i-1] < len <= widths[i]
+    eligible = (lens >= min_len) & (bucket_idx < len(widths_arr))
+    has_quals = parsed.quals is not None
+    pending: dict[int, list[int]] = {int(w): [] for w in widths}
+
+    def flush(w: int) -> ReadBatch:
+        rows = pending[w]
+        pending[w] = []
+        return _rows_to_batch(
+            [(parsed.codes[parsed.offsets[r]:parsed.offsets[r + 1]],
+              parsed.quals[parsed.offsets[r]:parsed.offsets[r + 1]] if has_quals else None,
+              parsed.names[r]) for r in rows],
+            w, batch_size, has_quals,
+        )
+
+    for r in np.where(eligible)[0]:
+        w = int(widths_arr[bucket_idx[r]])
+        pending[w].append(int(r))
+        if len(pending[w]) == batch_size:
+            yield flush(w)
+    for w in widths:
+        if pending[int(w)]:
+            yield flush(int(w))
+
+
+def batch_parsed_chunks(
+    chunks,
+    batch_size: int = 2048,
+    widths: Sequence[int] = DEFAULT_WIDTHS,
+    min_len: int = 1,
+    subsample: int | None = None,
+    counters: IngestCounters | None = None,
+) -> Iterator[ReadBatch]:
+    """:func:`batch_parsed_reads` over a STREAM of ParsedFastx chunks.
+
+    Buckets carry across chunk boundaries, so the batches are a whole-file
+    parse's. Pending rows are copied out of a finished chunk (at most
+    ``batch_size`` rows a bucket) so each chunk's arrays free once it is
+    consumed: peak host memory is O(chunk + pending), not O(file).
+    ``subsample`` counts RAW records, the ineligible ones too, as the
+    record path's head-subsample does; ``counters`` tallies the records and
+    the length gates' drops.
+    """
+    widths_arr = np.asarray(widths)
+    pending: dict[int, list[tuple]] = {int(w): [] for w in widths}
+    has_quals = False
+    taken = 0
+
+    def flush(w: int) -> ReadBatch:
+        rows = pending[w]
+        pending[w] = []
+        return _rows_to_batch(rows, w, batch_size, has_quals)
+
+    for parsed in chunks:
+        if parsed.quals is not None:
+            has_quals = True
+        n_raw = parsed.num_records
+        if subsample is not None:
+            n_raw = min(n_raw, subsample - taken)
+            taken += n_raw
+        lens = np.asarray(parsed.lengths)[:n_raw]
+        bucket_idx = np.searchsorted(widths_arr, lens)
+        if counters is not None:
+            counters.n_records += int(n_raw)
+            short = lens < min_len
+            counters.n_dropped_short += int(short.sum())
+            counters.n_dropped_long += int((~short & (bucket_idx >= len(widths_arr))).sum())
+        for r in np.where((lens >= min_len) & (bucket_idx < len(widths_arr)))[0]:
+            w = int(widths_arr[bucket_idx[r]])
+            s, e = parsed.offsets[r], parsed.offsets[r + 1]
+            pending[w].append((parsed.codes[s:e],
+                               parsed.quals[s:e] if parsed.quals is not None else None,
+                               parsed.names[r]))
+            if len(pending[w]) == batch_size:
+                yield flush(w)
+        # copy the leftover views (their base is the chunk's array) so the
+        # chunk can free; rows copied at earlier boundaries are owned
+        for w in widths:
+            pending[int(w)] = [
+                (c if c.base is None else c.copy(),
+                 q if q is None or q.base is None else q.copy(), nm)
+                for c, q, nm in pending[int(w)]
+            ]
+        if subsample is not None and taken >= subsample:
+            break
+    for w in widths:
+        if pending[int(w)]:
+            yield flush(int(w))
+
+
 @dataclasses.dataclass
 class EncodedRecords:
     """Pre-encoded reads: parallel header/code-vector lists.
@@ -180,17 +308,7 @@ def batch_encoded(
     def flush(w: int) -> ReadBatch:
         rows = pending[w]
         pending[w] = []
-        B = min(batch_size, pow2_ceil(len(rows), 64))
-        codes = np.full((B, w), encode.PAD_CODE, dtype=np.uint8)
-        lengths = np.zeros((B,), dtype=np.int32)
-        valid = np.zeros((B,), dtype=bool)
-        for i, (c, _) in enumerate(rows):
-            codes[i, : c.size] = c
-            lengths[i] = c.size
-            valid[i] = True
-        ids = [h for _, h in rows] + [""] * (B - len(rows))
-        return ReadBatch(codes=codes, quals=None, lengths=lengths, valid=valid, ids=ids,
-                         width=w)
+        return _rows_to_batch(rows, w, batch_size, has_quals=False)
 
     for header, codes in zip(records.headers, records.codes):
         codes = np.asarray(codes, dtype=np.uint8)
@@ -206,7 +324,7 @@ def batch_encoded(
             if counters is not None:
                 counters.n_dropped_long += 1
             continue
-        pending[w].append((codes, header))
+        pending[w].append((codes, None, header))
         if len(pending[w]) == batch_size:
             yield flush(w)
     for w in widths:

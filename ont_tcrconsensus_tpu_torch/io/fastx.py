@@ -5,8 +5,10 @@ The reference leans on pysam.FastxFile + external tools for all sequence IO
 region_split.py:241). Here IO is a first-party streaming layer that feeds the
 device batcher: gzip-transparent record iteration, zero intermediate files,
 and batched emission sized for padded device arrays. A copy of the JAX
-package's pure-Python parser: the port has no native parser and so no
-silent fallback between two parsers.
+package's pure-Python parser. The ingest of a path goes through the native
+C++ parser (:mod:`.native`) when it builds; this module is the fallback
+with the same semantics (``native.build_error()`` says why a process
+falls back) and the reader of references and of record streams.
 """
 
 from __future__ import annotations

@@ -7,11 +7,13 @@ that package):
   (the first bad record raises), ``quarantine`` (bad records land in a
   per-library ``quarantine.fastq.gz`` with machine-readable reasons in
   ``robustness_report.json``) or ``drop`` (counted and reported only).
-- :func:`parse_bytes_tolerant` is the JAX package's pure-Python tolerant
-  parser, the twin of its native C++ parser's tolerant mode: the same
-  resync algorithm, the same canonical reason strings, the same byte
-  offsets. The port has no native parser, so this is its only tolerant
-  parser; the tests hold it to both of the JAX package's.
+- :func:`parse_bytes_tolerant` is the pure-Python twin of the native C++
+  parser's tolerant mode (``io/native/fastx_parser.cpp``
+  ``parse_stream_tol``): the same resync algorithm, the same canonical
+  reason strings, the same byte offsets. The native parser is the ingest
+  path; this twin is the fallback where it does not build, and the
+  differential fuzzer (``scripts/torch_fuzz_ingest.py``) and the tests
+  hold the two to each other and to the JAX package's.
 - :class:`IngestGuard` routes bad records per the policy and feeds the
   robustness report.
 - :func:`validate_inputs` backs ``python -m ont_tcrconsensus_tpu_torch
@@ -35,8 +37,8 @@ import numpy as np
 
 from ont_tcrconsensus_tpu_torch.robustness import lockcheck
 
-# Canonical malformation reasons: byte for byte the JAX package's (its
-# Python parser's and its native parser's kReason* strings).
+# Canonical malformation reasons: byte for byte the kReason* strings of
+# io/native/fastx_parser.cpp (the fuzzer pins this) and the JAX package's.
 R_GZIP = "truncated or corrupt gzip stream"
 R_NOT_FASTX = "not FASTA/FASTQ"
 R_BAD_HEADER = "malformed FASTQ header"
@@ -78,7 +80,7 @@ class RawFastxRecord:
 
 def _split_lines(data: bytes) -> list[tuple[int, int, int]]:
     """(line_start, content_end, next_line_start) per line; content_end
-    excludes the '\\n' and one trailing '\\r' (the JAX native parser's
+    excludes the '\\n' and one trailing '\\r' (the native parser's
     next_line_t rule)."""
     out: list[tuple[int, int, int]] = []
     pos, n = 0, len(data)
@@ -100,12 +102,11 @@ def parse_bytes_tolerant(
 ) -> tuple[list[RawFastxRecord], list[BadRecord]]:
     """Tolerant parse of a whole decompressed buffer.
 
-    The JAX package's Python twin of its native ``parse_stream_tol`` at
-    EOF: malformed regions become :class:`BadRecord` entries and parsing
-    resynchronizes at the next candidate record start — a line starting
-    with ``@`` whose line+2 starts with ``+`` (the structure check keeps a
-    quality line that happens to begin with '@' from being mistaken for a
-    header).
+    The Python twin of the native ``parse_stream_tol`` at EOF: malformed
+    regions become :class:`BadRecord` entries and parsing resynchronizes
+    at the next candidate record start — a line starting with ``@`` whose
+    line+2 starts with ``+`` (the structure check keeps a quality line
+    that happens to begin with '@' from being mistaken for a header).
     """
     records: list[RawFastxRecord] = []
     bads: list[BadRecord] = []
@@ -276,11 +277,13 @@ def iter_records_tolerant(
     path: str | os.PathLike[str], guard: "IngestGuard",
 ) -> Iterator:
     """FastxRecord stream with bad records routed through ``guard``: the
-    pipeline's quarantine/drop ingest path.
+    quarantine/drop ingest path where the native parser does not build
+    (the native parser streams and reports bad regions per chunk).
 
     It materializes the decompressed file: the tolerant resync algorithm
-    is whole-buffer, as in the JAX package's Python twin. The bad records
-    reach the guard before the first record is yielded.
+    is whole-buffer, and it stays byte for byte the native twin's (the
+    fuzzer's contract). The bad records reach the guard before the first
+    record is yielded.
     """
     from ont_tcrconsensus_tpu_torch.io import fastx
 
@@ -362,6 +365,11 @@ class IngestGuard:
         with self._lock:
             self._close_locked()
 
+    def handle_native(self, parsed_bad: list[tuple[int, str, bytes]]) -> None:
+        """Consume a native chunk's ``ParsedFastx.bad`` list."""
+        for offset, reason, raw in parsed_bad:
+            self.handle(BadRecord(offset, reason, raw, self.source))
+
     def finalize(self, recorder=None) -> dict:
         """Close the artifact, push report events, return the summary."""
         self.close()
@@ -403,10 +411,10 @@ class IngestGuard:
 
 
 def scan_file(path: str | os.PathLike[str]) -> dict:
-    """Record-count/size scan of one input file via the tolerant parser.
-    The JAX package streams the scan through its native parser when it
-    builds; the port has only the Python twin, which reads the whole
-    decompressed file (the same counts, reasons and offsets)."""
+    """Record-count/size scan of one input file via the tolerant parser
+    (native when it builds, the Python twin otherwise). The native path
+    streams in O(chunk) host memory: a --validate dry-run over lane-scale
+    fastqs never materializes a whole file."""
     p = os.fspath(path)
     out = {
         "path": p,
@@ -416,10 +424,19 @@ def scan_file(path: str | os.PathLike[str]) -> dict:
         "bad_records": 0,
         "bad_reasons": {},
     }
-    records, bad_list = parse_path_tolerant(p)
-    out["records"] = len(records)
-    out["bases"] = sum(len(r.seq) for r in records)
-    bads = [(b.offset, b.reason) for b in bad_list]
+    from ont_tcrconsensus_tpu_torch.io import native
+
+    bads: list[tuple[int, str]] = []
+    if native.available():
+        for chunk in native.parse_chunks(p, tolerant=True):
+            out["records"] += int(chunk.num_records)
+            out["bases"] += int(chunk.lengths.sum()) if chunk.num_records else 0
+            bads.extend((o, r) for o, r, _ in chunk.bad)
+    else:
+        records, bad_list = parse_path_tolerant(p)
+        out["records"] = len(records)
+        out["bases"] = sum(len(r.seq) for r in records)
+        bads = [(b.offset, b.reason) for b in bad_list]
     out["bad_records"] = len(bads)
     for _, reason in bads:
         out["bad_reasons"][reason] = out["bad_reasons"].get(reason, 0) + 1

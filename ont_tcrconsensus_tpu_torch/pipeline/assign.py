@@ -19,13 +19,14 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import sys
 from collections import defaultdict
 
 import numpy as np
 import torch
 
 from ont_tcrconsensus_tpu_torch.device import resolve_device
-from ont_tcrconsensus_tpu_torch.io import bucketing, fastx, validate
+from ont_tcrconsensus_tpu_torch.io import bucketing, fastx, native, validate
 from ont_tcrconsensus_tpu_torch.obs import device as obs_device
 from ont_tcrconsensus_tpu_torch.obs import metrics as obs_metrics
 from ont_tcrconsensus_tpu_torch.ops import ee_filter, encode, fuzzy_match, sketch, sw_kernel
@@ -603,6 +604,77 @@ class AssignEngine:
         return fn(*args, *consts, min_len)
 
 
+def _batches_from_source(source, batch_size, widths, subsample, counters=None, guard=None):
+    """Batch iterator from a file path (the native C++ parser when it
+    builds, the Python parsers otherwise), an :class:`EncodedRecords`
+    hand-off, or any FastxRecord iterable.
+
+    ``guard`` (an :class:`..io.validate.IngestGuard`) switches a path
+    source to the TOLERANT parsers: malformed records and regions go to
+    the guard (quarantine/drop per its policy) instead of raising, and
+    parsing resynchronizes at the next record. Without a guard the first
+    bad record raises.
+    """
+    if isinstance(source, bucketing.EncodedRecords):
+        # the graph executor's hand-off: round-1 consensus codes batch
+        # without a string pass, never subsampled (consensus records are
+        # not raw reads)
+        return bucketing.batch_encoded(source, batch_size=batch_size, widths=widths,
+                                       min_len=1, counters=counters)
+    if isinstance(source, (str, bytes)) or hasattr(source, "__fspath__"):
+        tolerant = guard is not None
+        # streamed ingest, O(chunk) host memory, batches equal to a
+        # whole-file parse's. The first chunk is pulled here, so a native
+        # failure falls back to the Python parsers before anything was
+        # consumed, while malformed input (ValueError) raises; a fault
+        # deeper in the file raises mid-stream
+        chunk_iter = None
+        first_cell: list = []
+        try:
+            if native.available():
+                chunk_iter = native.parse_chunks(source, tolerant=tolerant)
+                first = next(chunk_iter, None)
+                if first is not None:
+                    first_cell.append(first)
+                del first
+        except ValueError:
+            raise
+        except Exception as exc:  # the native library failed: the Python parsers take over
+            print(f"native parse of {source} failed ({exc!r}); using the Python parser",
+                  file=sys.stderr)
+            chunk_iter = None
+        if chunk_iter is not None:
+            def chunks():
+                def consume_bad(parsed):
+                    if guard is not None and parsed.bad:
+                        guard.handle_native(parsed.bad)
+                    return parsed
+
+                while first_cell:
+                    # popped, so the first chunk frees once consumed
+                    yield consume_bad(first_cell.pop())
+                for parsed in chunk_iter:
+                    yield consume_bad(parsed)
+
+            return bucketing.batch_parsed_chunks(chunks(), batch_size=batch_size,
+                                                 widths=widths, min_len=1,
+                                                 subsample=subsample, counters=counters)
+        source = (validate.iter_records_tolerant(source, guard) if tolerant
+                  else fastx.read_fastx(source))
+    records = iter(source)
+
+    def limited():
+        taken = 0
+        for rec in records:
+            if subsample is not None and taken >= subsample:
+                return
+            taken += 1
+            yield rec
+
+    return bucketing.batch_reads(limited(), batch_size=batch_size, widths=widths, min_len=1,
+                                 counters=counters)
+
+
 def run_assign(
     source,
     engine: AssignEngine,
@@ -635,11 +707,13 @@ def run_assign(
     split. The ingest, partition and store conservation contracts are
     checked at the end.
 
-    ``guard`` (an :class:`..io.validate.IngestGuard`) switches a path
-    source to the tolerant parser: malformed records and regions go to the
-    guard (quarantine or drop, per its policy) instead of raising, and
-    parsing resynchronizes at the next record. Without a guard a malformed
-    record raises, as before.
+    A path streams through the native parser in chunks when it builds
+    (:func:`_batches_from_source`). ``guard`` (an
+    :class:`..io.validate.IngestGuard`) switches a path source to the
+    tolerant parsers: malformed records and regions go to the guard
+    (quarantine or drop, per its policy) instead of raising, and parsing
+    resynchronizes at the next record. Without a guard a malformed record
+    raises.
     """
     panel = engine.panel
     stats = AlignStats()
@@ -741,30 +815,10 @@ def run_assign(
         })
         acc_names[batch.width].append([batch.ids[i].partition(" ")[0] for i in rows])
 
-    source_desc = "<records>"
-    if isinstance(source, bucketing.EncodedRecords):
-        # the graph executor's hand-off: round-1 consensus codes batch
-        # without a string pass (never subsampled, as in the JAX package)
-        batches = bucketing.batch_encoded(source, batch_size=batch_size, widths=widths,
-                                          min_len=1, counters=counters)
-    else:
-        if isinstance(source, (str, bytes)) or hasattr(source, "__fspath__"):
-            source_desc = source
-            source = (fastx.read_fastx(source) if guard is None
-                      else validate.iter_records_tolerant(source, guard))
-        records = iter(source)
-
-        def limited():
-            taken = 0
-            for rec in records:
-                if subsample is not None and taken >= subsample:
-                    return
-                taken += 1
-                yield rec
-
-        batches = bucketing.batch_reads(limited(), batch_size=batch_size, widths=widths,
-                                        min_len=1, counters=counters)
-
+    source_desc = (source if isinstance(source, (str, bytes)) or hasattr(source, "__fspath__")
+                   else "<records>")
+    batches = _batches_from_source(source, batch_size, widths, subsample,
+                                   counters=counters, guard=guard)
     for batch in batches:
         # liveness: one heartbeat per batch; a wedged parser or dispatch
         # stops them, and the stage's watchdog guard cancels into the

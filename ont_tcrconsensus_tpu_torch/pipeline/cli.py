@@ -17,16 +17,36 @@ is wedged; ``--live-port`` arms the live plane for the run.
 ``python -m ont_tcrconsensus_tpu_torch serve <template.json> [--cpu]``
 turns the CLI into the warm-serving daemon (:mod:`..serve.daemon`, its
 own flags), dispatched ahead of the one-shot parser as in the JAX package.
+
+SIGQUIT (``kill -QUIT``, Ctrl-\\) dumps every thread's stack to stderr
+and the process keeps running, from the first thing :func:`main` does; a
+run moves the dump into its ``stack_dumps_p<proc>.log`` while its output
+tree exists and puts the stderr dump back when it ends.
 """
 
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import os
+import signal
 import sys
 
 
+def _install_stack_dump_signal() -> None:
+    """SIGQUIT -> every thread's stack on stderr, without killing the
+    process: the operator's hook for a wedged run or daemon, as in the JAX
+    package's CLI."""
+    if not hasattr(signal, "SIGQUIT"):
+        return
+    try:
+        faulthandler.register(signal.SIGQUIT, all_threads=True)
+    except (ValueError, OSError, AttributeError):
+        pass  # a runtime without signal support: never fatal
+
+
 def main(argv: list[str] | None = None) -> int:
+    _install_stack_dump_signal()
     if argv is None:
         argv = sys.argv[1:]
     # subcommand dispatch ahead of the one-shot parser: `serve` is the

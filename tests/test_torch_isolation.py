@@ -64,25 +64,35 @@ def test_importing_every_port_module_loads_no_jax():
                  "robustness.shutdown", "io.validate", "qc.analysis", "qc.analysis_cli",
                  "parallel.budget", "parallel.mesh", "parallel.distributed",
                  "serve", "serve.queue", "serve.slices", "serve.prewarm",
-                 "serve.daemon", "models.train"):
+                 "serve.daemon", "models.train", "io.native"):
         assert f"ont_tcrconsensus_tpu_torch.{must}" in report["modules"]
 
 
 def test_no_source_names_the_jax_package():
     """Guard against a lazy import inside a function, which the import
-    probe cannot see: the package, its A/B script and the chip script."""
+    probe cannot see: the package, every ``scripts/torch_*.py`` and the
+    chip script import nothing of JAX; the native parser's C++ source and
+    the port's scripts do not name the JAX package or its native parser's
+    variables at all (a script that ran the JAX package, or pointed its
+    loader at a library, would be caught here)."""
     pat = re.compile(r"^\s*(from|import)\s+(jax|flax|optax|ont_tcrconsensus_tpu)(\.|\s|$)",
                      re.M)
+    name = re.compile(r"ont_tcrconsensus_tpu(?!_torch)\b|GRAFT_(FASTX_LIB|SANITIZE)")
     sources = [os.path.join(root, f) for root, _, files in os.walk(PKG_DIR)
                for f in files if f.endswith(".py")]
-    sources += [os.path.join(REPO, "scripts", "torch_bf16_ab.py"),
-                os.path.join(REPO, "scripts", "torch_mesh_ab.py"),
-                os.path.join(REPO, "chip_smoke.py")]
+    scripts = [os.path.join(REPO, "scripts", f)
+               for f in sorted(os.listdir(os.path.join(REPO, "scripts")))
+               if f.startswith("torch_") and f.endswith(".py")]
+    native_src = [os.path.join(PKG_DIR, "io", "native", "fastx_parser.cpp")]
+    assert {"torch_bf16_ab.py", "torch_mesh_ab.py", "torch_fuzz_ingest.py",
+            "torch_streaming_ingest_proof.py", "torch_serve_load.py",
+            "torch_perf_gate.py"} <= {os.path.basename(p) for p in scripts}
     offenders = []
-    for path in sources:
+    for path in sources + scripts + native_src + [os.path.join(REPO, "chip_smoke.py")]:
         with open(path) as fh:
-            if pat.search(fh.read()):
-                offenders.append(path)
+            text = fh.read()
+        if pat.search(text) or (path in scripts + native_src and name.search(text)):
+            offenders.append(path)
     assert offenders == []
 
 
@@ -127,6 +137,15 @@ def test_the_kernels_ship_as_package_data():
     assert "csrc/*.cu" in globs and "csrc/*.cuh" in globs and "primers/*.fasta" in globs
 
 
+def test_the_native_parser_ships_as_package_data():
+    import tomllib
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as fh:
+        data = tomllib.load(fh)["tool"]["setuptools"]["package-data"]
+    assert data["ont_tcrconsensus_tpu_torch.io"] == ["native/*.cpp"]
+    assert os.path.exists(os.path.join(PKG_DIR, "io", "native", "fastx_parser.cpp"))
+
+
 def test_the_polisher_weights_ship_as_package_data():
     import tomllib
 
@@ -155,7 +174,7 @@ TORCH_FREE = ("pipeline.cli", "obs.report", "obs.history", "obs.critical_path",
               "robustness.faults", "robustness.locks", "robustness.shutdown",
               "io.layout", "graph", "graph.ir", "graph.check", "graph.nodes",
               "graph.pipeline", "io.validate", "io.fastx", "pipeline.config",
-              "ops._build", "qc.analysis", "qc.analysis_cli")
+              "ops._build", "qc.analysis", "qc.analysis_cli", "io.native")
 
 
 def test_the_report_path_loads_no_torch():

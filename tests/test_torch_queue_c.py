@@ -12,14 +12,23 @@ fixture:
    every file under ``nano_tcr/`` but the files of timings is equal;
 3. ``TCR_CONSENSUS_FORCE_CPU`` puts the port's CLI on the CPU, as it does
    the JAX package's; without it (and without ``--cpu``) a host with no card
-   raises."""
+   raises;
+4. the CLI installs the SIGQUIT stack dump first thing, as the JAX
+   package's does: after ``main(["serve", "--help"])`` both CLIs leave it
+   registered, a ``serve --cpu`` process given SIGQUIT writes every
+   thread's stack to stderr and keeps serving, and a run that moved the
+   dump into its ``stack_dumps_p0.log`` puts the CLI's back when it
+   ends."""
 
 from __future__ import annotations
 
+import faulthandler
 import json
 import os
+import signal
 import subprocess
 import sys
+import time
 
 import pytest
 
@@ -136,3 +145,101 @@ def test_force_cpu_puts_the_cli_on_the_cpu_and_only_the_cpu(tmp_path, monkeypatc
     assert (nano / "barcode02" / "counts" / "umi_consensus_counts.csv").read_text() == \
         "TCR,Count\n"
     assert json.loads((nano / "history.jsonl").read_text().splitlines()[0])["backend"] == "cpu"
+
+
+@pytest.fixture
+def _sigquit_restored():
+    """Leave SIGQUIT as the test found it (no dump registered)."""
+    faulthandler.unregister(signal.SIGQUIT)
+    yield
+    faulthandler.unregister(signal.SIGQUIT)
+
+
+@pytest.mark.parametrize("side", ["port", "jax"])
+def test_the_cli_leaves_the_sigquit_dump_registered(side, _sigquit_restored):
+    if side == "port":
+        main = cli.main
+    else:
+        from ont_tcrconsensus_tpu.pipeline.cli import main
+    with pytest.raises(SystemExit) as info:
+        main(["serve", "--help"])
+    assert info.value.code == 0
+    assert faulthandler.unregister(signal.SIGQUIT) is True
+
+
+def test_a_serve_process_survives_sigquit_and_dumps_its_threads(tmp_path):
+    template = tmp_path / "template.json"
+    template.write_text(json.dumps({"reference_file": str(tmp_path / "r.fa"),
+                                    "fastq_pass_dir": str(tmp_path / "fq")}))
+    state = tmp_path / "state"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    err_path = tmp_path / "stderr.log"
+    with open(err_path, "wb") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "ont_tcrconsensus_tpu_torch", "serve", str(template),
+             "--cpu", "--port", "0", "--state-dir", str(state), "--no-prewarm"],
+            env=env, cwd=tmp_path, stdout=subprocess.DEVNULL, stderr=err)
+    try:
+        deadline = time.monotonic() + 120
+        while not (state / "serve_info.json").exists():
+            assert proc.poll() is None, err_path.read_text()[-2000:]
+            assert time.monotonic() < deadline, "the daemon never wrote serve_info.json"
+            time.sleep(0.1)
+        proc.send_signal(signal.SIGQUIT)
+        deadline = time.monotonic() + 30
+        while "Thread 0x" not in err_path.read_text(errors="replace"):
+            assert time.monotonic() < deadline, err_path.read_text()[-2000:]
+            time.sleep(0.1)
+        time.sleep(0.5)
+        assert proc.poll() is None  # still serving
+        port = json.loads((state / "serve_info.json").read_text())["port"]
+        import urllib.request
+
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/jobs", timeout=30) as resp:
+            assert resp.status == 200
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=120) in (0, 143)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    dump = err_path.read_text(errors="replace")
+    assert "Current thread" in dump or "Thread 0x" in dump
+
+
+# a process that registers the CLI's dump, runs a lane, then sends itself
+# SIGQUIT: the dump must reach stderr, not the run's closed log
+_RUN_THEN_SIGQUIT = r"""
+import json, os, signal, sys, time
+from ont_tcrconsensus_tpu_torch.pipeline import cli, run
+from ont_tcrconsensus_tpu_torch.pipeline.config import RunConfig
+cli._install_stack_dump_signal()
+with open(sys.argv[1]) as fh:
+    got = run.run_with_config(RunConfig.from_dict(json.load(fh)), device="cpu")
+log = sys.argv[2]
+before = os.path.getsize(log)
+sys.stderr.write("SIGQUIT SENT\n")
+sys.stderr.flush()
+os.kill(os.getpid(), signal.SIGQUIT)
+time.sleep(0.5)
+print(json.dumps({"libraries": sorted(got), "log_before": before,
+                  "log_after": os.path.getsize(log)}))
+"""
+
+
+def test_a_run_puts_the_cli_s_dump_back_when_it_ends(tmp_path):
+    cfg = _empty_library_fixture(tmp_path / "lane")
+    log = tmp_path / "lane" / "fastq_pass" / "nano_tcr" / "stack_dumps_p0.log"
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "TCR_CHAOS")}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", _RUN_THEN_SIGQUIT, str(cfg), str(log)],
+                          capture_output=True, text=True, env=env, cwd=tmp_path, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]  # the dump did not kill it
+    got = json.loads(proc.stdout.splitlines()[-1])
+    assert "barcode02" in got["libraries"]
+    # the run's file dump is gone: nothing new in its log ...
+    assert got["log_after"] == got["log_before"]
+    # ... and the CLI's stderr dump is back
+    after = proc.stderr.split("SIGQUIT SENT\n", 1)[1]
+    assert "most recent call first" in after

@@ -9,6 +9,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import time
 
 import numpy as np
 import pytest
@@ -156,7 +157,10 @@ def test_journal_round_trip_equal_jax(tmp_path):
     assert [r["id"] for r in loaded["port"]] == ["job-0001", "job-0002"]
 
 
-def test_torn_journal_is_quarantined_as_in_jax(tmp_path, capsys):
+def test_torn_journal_is_quarantined_as_in_jax(tmp_path, capsys, monkeypatch):
+    # one clock for both sides: the journal's t_wall sets the torn half's
+    # length, and so the offset the JSON error names
+    monkeypatch.setattr(time, "time", lambda: 1760000000.125)
     got = {}
     for side, (mod, *_, faults) in SIDES.items():
         sd = str(tmp_path / side)

@@ -327,14 +327,18 @@ def _no_read_passes(batch, max_ee_rate, min_len):
 
 def _port_batches(monkeypatch, path, guard, batch_size, subsample):
     seen = []
-    real = tassign.bucketing.batch_reads
 
-    def recording(*args, **kwargs):
-        for batch in real(*args, **kwargs):
-            seen.append(batch)
-            yield batch
+    def recording(real):
+        def wrapped(*args, **kwargs):
+            for batch in real(*args, **kwargs):
+                seen.append(batch)
+                yield batch
+        return wrapped
 
-    monkeypatch.setattr(tassign.bucketing, "batch_reads", recording)
+    # the native parser's columnar path where it builds, else the records'
+    for name in ("batch_reads", "batch_parsed_chunks"):
+        monkeypatch.setattr(tassign.bucketing, name,
+                            recording(getattr(tassign.bucketing, name)))
     store, stats = tassign.run_assign(
         path, _Engine(), max_ee_rate=0.1, min_len=1, minimal_region_overlap=0.9,
         max_softclip_5_end=0, max_softclip_3_end=0, batch_size=batch_size,
