@@ -16,7 +16,7 @@ of which fails the script (non-zero exit, no result line):
    package. Phase 8's first run, phase 10's quarantine run and phase 12's
    in-process jobs must ingest through that parser alone (their read
    batches are counted by path);
-2. build: both kernels (``ont_tcrconsensus_tpu_torch/csrc/*.cu``), one
+2. build: the three kernels (``ont_tcrconsensus_tpu_torch/csrc/*.cu``), one
    ``nvcc`` each, started together; ptxas's registers and spills and each
    instantiation's SASS instruction mix (``cuobjdump``) are printed;
 3. kernel parity: kernel B1 (banded SW stats) at B=2048, W=128 and kernel
@@ -29,8 +29,16 @@ of which fails the script (non-zero exit, no result line):
    function needs over the int32 issue rate (``_bound_ms``); the design's
    own floor (its second F pass, band-shift moves, carry scan and warp
    shuffles) is reported beside it. The plain versions' times are one
-   call each, the call whose outputs the kernel is held to. Then one polish round at a main-path tile, split into the
-   B2 forward, the traceback and the vote, and traced once with
+   call each, the call whose outputs the kernel is held to. Kernel B3
+   (the polish traceback) on B2's planes of the same batches at N=1024,
+   L=2048 and 3072 at W=64, and L=3072 at W=128 (out_len L), against the
+   plain ``_traceback_steps`` on the same card tensors: every column and
+   the spans exactly equal; its bound (a 32-byte sector a step of every
+   walk, the columns written once) and beside it the dependent-load
+   floor (the longest walk's steps times one step of a lone lane through
+   cold planes, measured first). Then one polish round at a main-path
+   tile, split into the B2 forward, the B3 traceback and the vote, beside
+   one call of the plain traceback's host loop, and traced once with
    ``torch.profiler`` for the card's busy share;
 4. polisher parity: at the same tile, the vote rounds' kept final pileup
    (recomputed against the final drafts if the rounds ran out), then the
@@ -68,7 +76,7 @@ of which fails the script (non-zero exit, no result line):
    ``/progress`` names the graph node the run is in;
    ``logs/trace.json`` holds a span for every stage of the stage table,
    on the main thread's row or, for the QC worker's ``*_bg`` stages, on a
-   worker's row; the ``torch.profiler`` trace names both kernels (its
+   worker's row; the ``torch.profiler`` trace names the three kernels (its
    size and event count are printed); ``python -m
    ont_tcrconsensus_tpu_torch --report`` exits 0 in a subprocess that
    never loads torch; ``robustness_report.json`` holds no watchdog event;
@@ -107,7 +115,8 @@ of which fails the script (non-zero exit, no result line):
    are set against that run's seconds. Kernel launch counts are zeroed
    just before the first run (the main path's) and read just after it,
    and again around the ``poa`` run; each kernel must have launched in
-   both, and every run's counts must equal the truth. Each run's stage
+   both, B3 as often as B2 (each forward is followed by its traceback),
+   and every run's counts must equal the truth. Each run's stage
    seconds are printed under
    the stage table's names, the error profiles' worker seconds
    (``*_bg``) beside the main thread's wait at their commit. The first
@@ -142,7 +151,7 @@ of which fails the script (non-zero exit, no result line):
    ``corrupt-input`` drill (three malformed blocks spliced between
    records), launches counted from zero: the truth's counts, every file
    under ``nano_tcr/`` byte-identical to phase 8's first run but the files
-   of timings and :data:`INGEST_DIFFERS`, B1 and B2 launched as often as
+   of timings and :data:`INGEST_DIFFERS`, B1, B2 and B3 launched as often as
    there, at least three ``quarantined`` events with canonical reasons and
    one ``summary``, no contract violated, and ``quarantine.fastq.gz``
    holding exactly the spliced blocks (cut from the corrupted copy at the
@@ -164,10 +173,11 @@ of which fails the script (non-zero exit, no result line):
    counted from zero and by slice: the truth's counts, every file under
    ``nano_tcr/`` byte-identical to phase 6's cuda run but the files of
    timings (and, at data > 1, :data:`MESH_DIFFERS`), every kernel
-   launched on every slice, ``mesh_slice_busy`` for every slice and
-   ``mesh_config`` in ``history.jsonl``; its seconds and reads/s beside
-   phase 6's. Then B1 at
-   B=2048, L=2048, W=128 and B2 at N=1024, L=2048, W=64 split over a
+   launched on every slice, B3 as often as B2, ``mesh_slice_busy`` for
+   every slice and ``mesh_config`` in ``history.jsonl``; its seconds and
+   reads/s beside phase 6's. Then B1 at
+   B=2048, L=2048, W=128, B2 at N=1024, L=2048, W=64 and B3 on those
+   planes split over a
    ``data=2`` mesh of two slices of ONE card (``cuda:0`` twice), each bit
    for bit the unsplit launch, both timed (CUDA-event medians of 5). Then
    the small lane under ``poa`` without the QC error profiles at
@@ -187,13 +197,13 @@ of which fails the script (non-zero exit, no result line):
 12. the warm-serving daemon (``serve/``): a ``Daemon`` in this process on
    a thread, on ``cuda``, phase 8's full-lane config (the default config)
    as its template, prewarm on: the prewarm report (each warm-up launch's
-   bucket, seconds and B1/B2 launches; the kernel build/load seconds) and
+   bucket, seconds and B1/B2/B3 launches; the kernel build/load seconds) and
    ``warmup_s``. Then phase 8's full lane as job 1 over real HTTP
    (``POST /jobs``), launches counted from zero: done with the truth's
    counts, every file under ``nano_tcr/`` byte-identical to phase 8's run
    0 but the files of timings, which must match by schema and names
    (telemetry keys, stage names, manifest stages, the run entry of
-   ``history.jsonl``), B1 and B2 launched as often as there, 0 kernel
+   ``history.jsonl``), B1, B2 and B3 launched as often as there, 0 kernel
    builds in its ``telemetry.json``; its seconds and reads/s beside run
    0's, its ``wait_s`` and ``dispatch_first_stage_s``, and its peak
    memory beside the admission estimate's byte figures; its ``source:
@@ -240,8 +250,8 @@ of which fails the script (non-zero exit, no result line):
    --eval-clusters 4 --out <tmp>`` must exit 0 on ``cuda``; it shares the
    card, so it starts after the timed parts (the train steps, the networks
    at the tile), beside the rest. ``models/weights/`` must keep every file's
-   sha256. The phase's B2 launches (the CLI's excepted) join the kernels
-   line.
+   sha256. The phase's B2 launches (the CLI's excepted), and B3's, which
+   must equal them, join the kernels line.
 
 14. the native ingest and the serve load harness on the card: on phase
    8's full lane, the native ``parse_file``, the concatenated
@@ -256,11 +266,22 @@ of which fails the script (non-zero exit, no result line):
    ``cuda:0`` (resident high-water >= 2, disjoint leases) and
    ``sustained`` (its default dataset: 3 regions of 2 molecules of 5-6
    reads, ``poa``; 2 tenants, ``--ledger`` into a temporary file):
-   counts exact, B1 and B2 launched (counted from zero, the prewarm's
-   included), 0 steady kernel builds; its reads/s, wait and first-stage
+   counts exact, B1, B2 and B3 launched (counted from zero, the prewarm's
+   included; in every scenario B3 as often as B2), 0 steady kernel builds; its reads/s, wait and first-stage
    p50/p99 and ``cold_start_s``. Last ``scripts/torch_perf_gate.py`` on
    that ledger in a process where torch cannot be imported: exit 0,
    ``warn`` on one entry. The phase's launches join the kernels line.
+
+15. the lane-scale path: ``scripts/torch_lane_scale_proof.py`` on
+   ``cuda`` in a process of its own at 3,000 reads (the JAX package's
+   medium tier) with 600 unique molecules at depth 3 in its heavy region (past the
+   UMI shortlist's threshold of 256) and ``min_reads_per_cluster: 2``,
+   held to the medium tier's assertions (``tests/test_lane_scale.py``):
+   the heavy region at least 0.96 of the truth and never over it, every
+   other region exact, B3 launched as often as B2; its reads/s, stage
+   seconds, peak device memory and launches are printed. The tier's
+   "every other region exact" is a property of its size: at 10,000 reads
+   the JAX package's own run loses a depth-4 molecule too.
 
 Each phase's start (seconds since the script began) is printed. Then one
 ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
@@ -607,12 +628,96 @@ def _pileup_costs(rl, Lr: int, L: int, W: int) -> dict:
                   pad_cells=(N * L - dp_rows) * W)
 
 
+# int32 operations of one traceback step, counted from the plain version's
+# step (ops/pileup._traceback_steps); the gather and the column writes are
+# the bytes
+TRACEBACK_STEP_OPS = {
+    "column, clamps, cell index": 8,
+    "plane fields, deletion run, choice": 10,
+    "diagonal, insertion, fresh, drop test": 8,
+    "next row, slot, mode": 8,
+    "spans, stop test, state": 10,
+}
+SECTOR_BYTES = 32  # the least a load moves from device memory
+
+
+def dependent_step_ns(dev, L: int = 3072, W: int = 64, reps: int = 5) -> float:
+    """One step of a lone lane's walk through cold planes, in ns: kernel B3
+    on one lane whose planes are all plain diagonal cells, walked from row
+    L - 1 to row 0 (L steps, one new 128- or 256-byte row a step, each
+    address known only once the last cell is read). The L2 cache (50 MB)
+    is overwritten before each of ``reps`` CUDA-event timed launches; the
+    median over L is the time a walk pays a step when nothing hides the
+    load, the unit of the design's dependent-load floor."""
+    import torch
+
+    from ont_tcrconsensus_tpu_torch.ops import traceback_kernel
+
+    best = torch.tensor([[1, L - 1, W // 2]], dtype=torch.int32, device=dev)
+    planes = torch.zeros((1, L, W), dtype=torch.int16, device=dev)
+    reads = torch.zeros((1, L), dtype=torch.uint8, device=dev)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    traceback_kernel.traceback_columns_cuda(best, planes, reads, W, L)
+    times = []
+    for _ in range(reps):
+        flush.fill_(1)
+        times.append(_time_ms(
+            lambda: traceback_kernel.traceback_columns_cuda(best, planes, reads, W, L), 1))
+    return float(np.median(times)) * 1e6 / L
+
+
+def check_traceback(dev, seed: int, N: int, L: int, W: int, step_ns: float) -> dict:
+    """Kernel B3 on B2's planes of a ``dp_batch`` (out_len = L) against the
+    plain ``_traceback_steps`` on the same card tensors: every output equal."""
+    import torch
+
+    from ont_tcrconsensus_tpu_torch.io import dp_cases
+    from ont_tcrconsensus_tpu_torch.ops import pileup, pileup_kernel, traceback_kernel
+    from ont_tcrconsensus_tpu_torch.parallel.mesh import lockstep
+
+    reads, rl, refs, tl, _ = (torch.from_numpy(x).to(dev)
+                              for x in dp_cases.dp_batch(N, L, W, seed, offsets=False))
+    best, planes = pileup_kernel.forward_planes_cuda(reads, rl, refs, tl, band_width=W)
+    args = (best, planes, reads, W, L)
+    got = traceback_kernel.traceback_columns_cuda(*args)
+    want, plain_ms = _timed_once(lambda: lockstep([pileup._traceback_steps(*args)])[0])
+    for name, a, b in zip(("base_at", "ins_cnt", "ins_base", "pos_at", "spans"), got, want):
+        if not torch.equal(a, b):
+            bad = (a != b).reshape(N, -1).any(dim=1).nonzero()[0, 0]
+            raise AssertionError(f"B3 L={L} W={W}: {name} differs (first lane {int(bad)})")
+    for _ in range(2):
+        traceback_kernel.traceback_columns_cuda(*args)
+    ms = _time_ms(lambda: traceback_kernel.traceback_columns_cuda(*args), 7)
+    return {"L": L, "N": N, "W": W, "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+            **_traceback_costs(want[4], N, L, step_ns),
+            "aligned_lanes": int((best[:, 0] > 0).sum())}
+
+
+def _traceback_costs(spans, N: int, out_len: int, step_ns: float) -> dict:
+    """B3's bound and floor from the walks' spans: a lane takes at least
+    max(read span, draft span) steps (each step consumes a read base, a
+    draft column or both). Bytes: a 32-byte sector a step, the columns
+    written once, best and spans; the dependent-load floor: the longest
+    walk's steps, one after another, at ``step_ns`` each."""
+    import torch
+
+    s = spans.long()
+    steps = torch.maximum(s[:, 1] - s[:, 0], s[:, 3] - s[:, 2]).clamp(min=0)
+    total = int(steps.sum())
+    n_bytes = SECTOR_BYTES * total + N * out_len * (1 + 4 + 1 + 4) + N * 4 * 4 + N * 3 * 4
+    bound, by = _bound_ms(n_bytes, total * sum(TRACEBACK_STEP_OPS.values()))
+    longest = int(steps.max()) if N else 0
+    return {"steps": total, "longest_walk": longest, "bound_ms": bound, "bound_by": by,
+            "step_ns": step_ns, "dependent_load_floor_ms": longest * step_ns * 1e-6}
+
+
 @contextlib.contextmanager
-def _launch_shapes(module, name: str, shape_of):
+def _launch_shapes(module, name: str, shape_of, keep: bool = True):
     """Count the CUDA calls of the dispatcher ``module.name`` by input shape
-    while the block runs, keeping a host copy of the first call's inputs of
-    each shape: {shape: [calls, args, kwargs]}. The dispatcher is wrapped,
-    not the kernel's wrapper, which keeps counting its own launches."""
+    while the block runs, keeping (when ``keep``) a host copy of the first
+    call's inputs of each shape: {shape: [calls, args, kwargs]}. The
+    dispatcher is wrapped, not the kernel's wrapper, which keeps counting
+    its own launches."""
     import torch
 
     fn = getattr(module, name)
@@ -623,7 +728,7 @@ def _launch_shapes(module, name: str, shape_of):
         if shape[0] and args[0].device.type == "cuda":
             if shape not in seen:
                 seen[shape] = [0, tuple(a.to("cpu", copy=True) if torch.is_tensor(a) else a
-                                        for a in args), dict(kwargs)]
+                                        for a in args) if keep else None, dict(kwargs)]
             seen[shape][0] += 1
         return fn(*args, **kwargs)
 
@@ -640,6 +745,41 @@ def _sw_shape(reads, read_lens, refs, *rest, band_width=256, **_):
 
 def _pileup_shape(reads, read_lens, refs, ref_lens, band_width):
     return (reads.shape[0], reads.shape[1], refs.shape[1], band_width)
+
+
+def _traceback_shape(reads, read_lens, refs, ref_lens, band_width, out_len):
+    return (reads.shape[0], reads.shape[1], refs.shape[1], band_width, out_len)
+
+
+def traceback_gaps(shapes: dict, forward_shapes: dict, step_ns: float, dev) -> dict:
+    """:func:`launch_gaps` for kernel B3: each recorded traceback shape
+    (batch, L, Lr, W, out_len) replays B2 on the first forward's inputs of
+    its (batch, L, Lr, W), recorded by the same run, and times B3 on those
+    planes (CUDA-event median of 5 after one warm-up), against the bound
+    and the dependent-load floor of this output's walks."""
+    import torch
+
+    from ont_tcrconsensus_tpu_torch.ops import pileup_kernel, traceback_kernel
+
+    rows, total = [], 0.0
+    for shape, (calls, _, _) in sorted(shapes.items()):
+        N, L, Lr, W, out_len = shape
+        reads, read_lens, refs, ref_lens = (
+            a.to(dev) for a in forward_shapes[(N, L, Lr, W)][1][:4])
+        best, planes = pileup_kernel.forward_planes_cuda(reads, read_lens, refs, ref_lens, W)
+        spans = traceback_kernel.traceback_columns_cuda(best, planes, reads, W, out_len)[4]
+        ms = _time_ms(lambda: traceback_kernel.traceback_columns_cuda(
+            best, planes, reads, W, out_len), 5)
+        c = _traceback_costs(spans, N, out_len, step_ns)
+        gap = calls * (ms - c["bound_ms"])
+        total += gap
+        rows.append({"shape": list(shape), "launches": calls, "ms": ms,
+                     "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                     "dependent_load_floor_ms": c["dependent_load_floor_ms"],
+                     "launches_x_gap_ms": gap})
+        del best, planes
+    return {"shapes": rows, "launches_x_gap_ms": total,
+            "kernel_ms": sum(r["launches"] * r["ms"] for r in rows)}
 
 
 def launch_gaps(shapes: dict, launch, costs, dev) -> dict:
@@ -686,13 +826,15 @@ def _polish_tile(seed: int, C: int, S: int, L: int):
 
 def polish_split(dev, seed: int, C: int = 64, S: int = 16, L: int = 2048, W: int = 64) -> dict:
     """One polish round at a main-path tile (C clusters of S subreads, width
-    L, band W), split into the kernel B2 forward, the plain scan-log
-    traceback and the vote; then the whole round once more under
+    L, band W), split into the kernel B2 forward, the kernel B3 traceback
+    and the vote, beside one call of the plain scan-log traceback (the
+    host loop B3 replaced); then the whole round once more under
     ``torch.profiler``, whose device time over the round's unprofiled wall
     time is the card's busy share in polish."""
     import torch
 
     from ont_tcrconsensus_tpu_torch.ops import consensus, pileup
+    from ont_tcrconsensus_tpu_torch.parallel.mesh import lockstep
 
     reads, rl, drafts, dl = _polish_tile(seed, C, S, L)
     reads_t, rl_t, dl_t = (torch.from_numpy(x).to(dev) for x in
@@ -712,6 +854,8 @@ def polish_split(dev, seed: int, C: int = 64, S: int = 16, L: int = 2048, W: int
 
     base_at, ins_cnt, ins_base = (x.reshape(C, S, L) for x in traceback()[:3])
     tb_ms = _host_ms(traceback, 3)
+    plain_tb_ms = _host_ms(
+        lambda: lockstep([pileup._traceback_steps(best, planes, reads_t, W, L)])[0], 1)
     vote_ms = _host_ms(
         lambda: consensus.vote_columns_batch(base_at, ins_cnt, ins_base, drafts_t, dl_t), 3)
 
@@ -724,7 +868,7 @@ def polish_split(dev, seed: int, C: int = 64, S: int = 16, L: int = 2048, W: int
     traced = _device_ms(one_round)
     busy = traced["device_ms"] / round_ms if traced["events"] else None
     return {"C": C, "S": S, "L": L, "W": W, "forward_ms": fwd_ms, "traceback_ms": tb_ms,
-            "vote_ms": vote_ms, "round_ms": round_ms, "device_ms": traced["device_ms"],
+            "plain_traceback_ms": plain_tb_ms, "vote_ms": vote_ms, "round_ms": round_ms, "device_ms": traced["device_ms"],
             "device_events": traced["events"], "busy_share": busy}
 
 
@@ -1193,11 +1337,12 @@ def observation_phase() -> dict:
         {"worker"} if name.endswith("_bg") else {"MainThread"})]
     if missing or not any(n.endswith("_bg") for n in table):
         raise AssertionError(f"observation: stages without their span on their row: {missing}")
-    # the whole-run profiler trace names both kernels
+    # the whole-run profiler trace names the three kernels
     (prof_name,) = [f for f in os.listdir(prof_dir) if f.endswith(".pt.trace.json")]
     with open(os.path.join(prof_dir, prof_name), "rb") as fh:
         raw = fh.read()
-    kernels_named = {k: k.encode() in raw for k in ("sw_banded_kernel", "pileup_forward_kernel")}
+    kernels_named = {k: k.encode() in raw for k in ("sw_banded_kernel", "pileup_forward_kernel",
+                                                     "pileup_traceback_kernel")}
     if not all(kernels_named.values()):
         raise AssertionError(f"observation: the profiler trace lacks a kernel: {kernels_named}")
     rep = _cli_probe("--report", os.path.dirname(nano))
@@ -1516,13 +1661,14 @@ LANE_RUNS = {**POLISH, "rnn, error_profile_sample 0": {"error_profile_sample": 0
              "rnn, telemetry off": {"telemetry": "off"}}
 
 
-def full_e2e(kernels, rounds: int):
+def full_e2e(kernels, rounds: int, step_ns: float):
     """The full lane under the default config, then, on the small lane,
     ``rounds`` times in turns the default config without the error
     profiles, with them on the main thread, under the imperative order, as
     it is and without telemetry, then once under ``poa``.
     Kernel launches are counted over the first run (recorded by shape for
-    :func:`launch_gaps`) and over the ``poa`` run, each from zero. Each
+    :func:`launch_gaps` and :func:`traceback_gaps`, whose dependent-load
+    floor takes ``step_ns`` a step) and over the ``poa`` run, each from zero. Each
     default run's telemetry.json is read back and its roll-up timed.
     Returns the numbers and the full lane's simulated library (its first
     run's output stays in ``build/chip_smoke/lane_full`` for phase 10)."""
@@ -1533,8 +1679,9 @@ def full_e2e(kernels, rounds: int):
     from ont_tcrconsensus_tpu_torch.ops import pileup, pileup_kernel, sw_kernel
 
     dev = torch.device("cuda")
-    recorded = {"sw": (sw_kernel, "align_banded_auto", _sw_shape),
-                "pileup": (pileup, "forward_auto", _pileup_shape)}
+    recorded = {"sw": (sw_kernel, "align_banded_auto", _sw_shape, True),
+                "pileup": (pileup, "forward_auto", _pileup_shape, True),
+                "traceback": (pileup, "_forward_traceback", _traceback_shape, False)}
     shapes: dict = {}
 
     t0 = time.perf_counter()
@@ -1568,8 +1715,8 @@ def full_e2e(kernels, rounds: int):
         rollup = {"s": 0.0}
         with contextlib.ExitStack() as stack:
             if run == 0:
-                shapes = {key: stack.enter_context(_launch_shapes(module, name, shape_of))
-                          for key, (module, name, shape_of) in recorded.items()}
+                shapes = {key: stack.enter_context(_launch_shapes(module, name, shape_of, keep))
+                          for key, (module, name, shape_of, keep) in recorded.items()}
                 stack.enter_context(_ingest_batches(ingest))
             stack.enter_context(_polisher_clock(pol))
             stack.enter_context(_rollup_clock(rollup))
@@ -1623,7 +1770,9 @@ def full_e2e(kernels, rounds: int):
            "launch_gaps": {
                "sw": launch_gaps(shapes["sw"], sw_kernel.align_banded_cuda, _sw_costs, dev),
                "pileup": launch_gaps(shapes["pileup"], pileup_kernel.forward_planes_cuda,
-                                     _pileup_costs, dev)}}
+                                     _pileup_costs, dev),
+               "traceback": traceback_gaps(shapes["traceback"], shapes["pileup"], step_ns,
+                                           dev)}}
     if diffs:
         out["count_diffs"] = diffs
     return out, libs["full"]
@@ -1821,17 +1970,21 @@ def _same_files(tree: dict, other: dict, label: str, but=()) -> int:
 
 
 def _sharded_kernels(dev, mesh_mod) -> dict:
-    """B1 and B2 at main-path shapes split over a data=2 mesh of two slices
-    of ONE card, against the unsplit launch: bit for bit."""
+    """B1, B2 and B3 at main-path shapes split over a data=2 mesh of two
+    slices of ONE card, against the unsplit launch: bit for bit."""
     import dataclasses
 
     import torch
 
     from ont_tcrconsensus_tpu_torch.io import dp_cases
-    from ont_tcrconsensus_tpu_torch.ops import pileup_kernel, sw_kernel
+    from ont_tcrconsensus_tpu_torch.ops import pileup_kernel, sw_kernel, traceback_kernel
 
     def sw_fields(*a, band_width):
         return dataclasses.astuple(sw_kernel.align_banded_cuda(*a, band_width=band_width))
+
+    def traceback(best, planes, reads, band_width):
+        return traceback_kernel.traceback_columns_cuda(best, planes, reads, band_width,
+                                                       reads.shape[1])
 
     m = mesh_mod.make_mesh({"data": 2}, devices=[dev, dev])
     d1, d2 = mesh_mod.P("data"), mesh_mod.P("data", None)
@@ -1840,9 +1993,13 @@ def _sharded_kernels(dev, mesh_mod) -> dict:
         ("sw", (2048, 2048, 128), sw_fields, (d2, d1, d2, d1, d1), (d1,) * 7),
         ("pileup", (1024, 2048, 64), pileup_kernel.forward_planes_cuda, (d2, d1, d2, d1),
          (d2, d2)),
+        ("traceback", (1024, 2048, 64), traceback, (d2, d2, d2), (d2,) * 5),
     ):
         args = [torch.from_numpy(x).to(dev) for x in
-                dp_cases.dp_batch(B, L, W, 40, offsets=key == "sw")][:len(specs)]
+                dp_cases.dp_batch(B, L, W, 40, offsets=key == "sw")]
+        if key == "traceback":  # B2's planes of the pileup case
+            args = [*pileup_kernel.forward_planes_cuda(*args[:4], band_width=W), args[0]]
+        args = args[:len(specs)]
         whole = fn(*args, band_width=W)
         sharded = mesh_mod.shard_map_compat(
             lambda *a, fn=fn, W=W: tuple(fn(*a, band_width=W)), m, in_specs=specs,
@@ -2018,6 +2175,8 @@ def mesh_phase(small: dict, small_tree: dict, kernels) -> dict:
     labels = [f"cuda:{i}" for i in range(n_cards)]
     if not all(launches.values()) or any(sorted(s) != labels for s in by_slice.values()):
         raise AssertionError(f"mesh: a kernel did not launch on every slice: {by_slice}")
+    if not _b3_follows_b2(launches):
+        raise AssertionError(f"mesh: B3 did not follow every B2 launch: {launches}")
     compared = _same_files(_artifacts(root), small_tree, "mesh small lane",
                            MESH_DIFFERS if n_cards > 1 else ())
     with open(os.path.join(root, "fastq_pass", "nano_tcr", "telemetry.json")) as fh:
@@ -2343,7 +2502,8 @@ def serve_phase(full_lib, full: dict, kernels) -> dict:
     pol = [e for e in entries if e["kind"] == "polisher"]
     if (outcome or not entries or not all(e["ok"] for e in entries)
             or not all(e["launches"]["B1"] > 0 for e in fused)
-            or not (pol and pol[0]["launches"]["B2"] > 0)):
+            or not (pol and pol[0]["launches"]["B2"] > 0
+                    and pol[0]["launches"]["B3"] == pol[0]["launches"]["B2"])):
         raise AssertionError(f"serve: prewarm {out['prewarm']} (loop {outcome})")
     url = _jobs_url()
 
@@ -2564,7 +2724,7 @@ def training_phase(tile_feats) -> dict:
 
     from ont_tcrconsensus_tpu_torch import convert
     from ont_tcrconsensus_tpu_torch.models import polisher, train
-    from ont_tcrconsensus_tpu_torch.ops import pileup_kernel, sw_kernel
+    from ont_tcrconsensus_tpu_torch.ops import pileup_kernel, sw_kernel, traceback_kernel
 
     t_phase = time.perf_counter()
     out: dict = {}
@@ -2572,8 +2732,10 @@ def training_phase(tile_feats) -> dict:
     shas = _sha_dir(weights_dir)
     tmp = tempfile.mkdtemp(prefix="train_", dir=WORK)
     b2 = pileup_kernel.forward_planes_cuda
+    b3 = traceback_kernel.traceback_columns_cuda
     sw_kernel.align_banded_cuda.launches = 0
     b2.launches = 0
+    b3.launches = 0
 
     def b2_since(start):
         return b2.launches - start
@@ -2690,7 +2852,10 @@ def training_phase(tile_feats) -> dict:
         out["eval"] = {"cuda_s": time.perf_counter() - t0, "cuda_b2": b2_since(start),
                        "table": eval_cuda}
         out["b2_launches"] = b2.launches
+        out["b3_launches"] = b3.launches
         out["b1_launches"] = sw_kernel.align_banded_cuda.launches
+        if b3.launches != b2.launches:
+            raise AssertionError(f"training: B3 launched {b3.launches} times, B2 {b2.launches}")
 
         cli_out, cli_err = cli.communicate(timeout=900)
         out["cli"] = {"rc": cli.returncode, "seconds": time.perf_counter() - t_cli,
@@ -2910,6 +3075,9 @@ def ingest_serve_phase(full_lib, parser: str, kernels) -> dict:
         report["_seconds"] = time.perf_counter() - t0
         report["_launches"] = {k.__name__: k.launches for k in kernels}
         reports[scenario] = report
+        if not _b3_follows_b2(report["_launches"]):
+            raise AssertionError(f"phase 14: {scenario}: B3 did not follow every B2 launch: "
+                                 f"{report['_launches']}")
         if rc != 0 or report["invariants"]:
             raise AssertionError(f"phase 14: torch_serve_load --scenario {scenario} exit {rc}: "
                                  f"{report['invariants']}")
@@ -2977,7 +3145,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     try:
         from ont_tcrconsensus_tpu_torch.device import resolve_device
-        from ont_tcrconsensus_tpu_torch.ops import _build, pileup_kernel, sw_kernel
+        from ont_tcrconsensus_tpu_torch.ops import (_build, pileup_kernel, sw_kernel,
+                                                    traceback_kernel)
     except ImportError as exc:
         return _fail(f"the port is not beside this script ({exc})")
     if any(m in ("jax", "flax", "ont_tcrconsensus_tpu")
@@ -3052,6 +3221,10 @@ def main(argv=None) -> int:
     report["pileup"] = [check_pileup(dev, 10 + seed, N, L, W)
                         for seed, (N, L, W) in
                         enumerate(((1024, 2048, 64), (1024, 3072, 64), (1024, 3072, 128)))]
+    step_ns = report["dependent_step_ns"] = dependent_step_ns(dev)
+    report["traceback"] = [check_traceback(dev, 10 + seed, N, L, W, step_ns)
+                           for seed, (N, L, W) in
+                           enumerate(((1024, 2048, 64), (1024, 3072, 64), (1024, 3072, 128)))]
     for key in ("sw", "pileup"):
         for r in report[key]:
             print(f"parity {key} L={r['L']} W={r['W']}: exact; kernel {r['ms']:.3f} ms, plain "
@@ -3059,9 +3232,18 @@ def main(argv=None) -> int:
                   f"{r['fn_ops_per_cell']} ops a cell); design floor {r['design_bound_ms']:.3f} ms "
                   f"({r['design_ops_per_cell']} ops, {r['design_shuffles_per_cell']:.2f} "
                   f"shuffles a cell)", flush=True)
+    print(f"B3 dependent step (one lane, cold planes, L=3072, W=64): {step_ns:.1f} ns a step",
+          flush=True)
+    for r in report["traceback"]:
+        print(f"parity traceback N={r['N']} L={r['L']} W={r['W']} (out_len L, B2's planes): "
+              f"exact; kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.1f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['steps']} steps at least, 32 B a "
+              f"step); dependent-load floor {r['dependent_load_floor_ms']:.3f} ms (longest "
+              f"walk {r['longest_walk']} steps x {r['step_ns']:.1f} ns)", flush=True)
     split = report["polish_split"] = polish_split(dev, 20)
     print(f"polish round (C={split['C']} S={split['S']} L={split['L']} W={split['W']}): "
-          f"B2 forward {split['forward_ms']:.1f} ms, traceback {split['traceback_ms']:.1f} ms, "
+          f"B2 forward {split['forward_ms']:.1f} ms, B3 traceback {split['traceback_ms']:.1f} ms "
+          f"(the plain host loop {split['plain_traceback_ms']:.1f} ms), "
           f"vote {split['vote_ms']:.1f} ms; whole round {split['round_ms']:.1f} ms, device "
           f"{split['device_ms']:.1f} ms over {split['device_events']} traced events, busy share "
           f"{split['busy_share']}", flush=True)
@@ -3114,7 +3296,7 @@ def main(argv=None) -> int:
           + f"; trace.json {obs['trace_events']} events ({obs['trace_bytes']} B), a span for "
           f"each of {len(obs['stages'])} stages on its row; profiler trace "
           f"{obs['profiler_trace_bytes']} B, {obs['profiler_trace_events']} events, names "
-          f"both kernels; --report exit 0 without torch ({obs['report_lines']} lines); no "
+          f"the three kernels; --report exit 0 without torch ({obs['report_lines']} lines); no "
           f"watchdog event; kernel builds {obs['compile']['count']}; device high-water "
           f"{obs['hbm_high_water_bytes']} B", flush=True)
     pd = obs["dispatch"].get("polish.dispatch", {})
@@ -3127,8 +3309,9 @@ def main(argv=None) -> int:
     # the small lane, in turns without the QC profiles, with them serial and
     # overlapped, under the imperative order and without telemetry, then the
     # poa path), and the plants' cost
-    kernels = (sw_kernel.align_banded_cuda, pileup_kernel.forward_planes_cuda)
-    full, full_lib = full_e2e(kernels, max(args.lane_runs, 0))
+    kernels = (sw_kernel.align_banded_cuda, pileup_kernel.forward_planes_cuda,
+               traceback_kernel.traceback_columns_cuda)
+    full, full_lib = full_e2e(kernels, max(args.lane_runs, 0), step_ns)
     report["full_e2e"] = full
     plants = report["plant_cost_us"] = plant_cost(dev)
     print(f"full e2e: full lane {full['n_reads']} reads, small lane {full['small_n_reads']} "
@@ -3150,8 +3333,11 @@ def main(argv=None) -> int:
               + f"; polisher {full['polisher'][run]['s']:.2f} (peak inside it: "
               f"{full['polisher'][run]['peak_gb']} GB)" + (f"; {qc}" if qc else ""), flush=True)
     for key, gaps in full["launch_gaps"].items():
-        print(f"full e2e run 0 {key} launches by (batch, L, Lr, W): " + ", ".join(
-              f"{tuple(r['shape'])} x{r['launches']} {r['ms']:.3f} ms (bound {r['bound_ms']:.3f})"
+        dims = "(batch, L, Lr, W, out_len)" if key == "traceback" else "(batch, L, Lr, W)"
+        print(f"full e2e run 0 {key} launches by {dims}: " + ", ".join(
+              f"{tuple(r['shape'])} x{r['launches']} {r['ms']:.3f} ms (bound {r['bound_ms']:.4f}"
+              + (f", dependent-load floor {r['dependent_load_floor_ms']:.3f}"
+                 if "dependent_load_floor_ms" in r else "") + ")"
               for r in gaps["shapes"]), flush=True)
         print(f"full e2e run 0 {key}: kernel {gaps['kernel_ms']:.1f} ms in all, launches x "
               f"(time - bound) {gaps['launches_x_gap_ms']:.1f} ms", flush=True)
@@ -3224,6 +3410,8 @@ def main(argv=None) -> int:
         return _fail(f"full e2e counts differ from the truth: {full.get('count_diffs')}")
     if not all(n for path in full["launches"].values() for n in path.values()):
         return _fail(f"a kernel of a path never launched: {full['launches']}")
+    if not all(_b3_follows_b2(path) for path in full["launches"].values()):
+        return _fail(f"B3 did not follow every B2 launch: {full['launches']}")
     _check_ingest_path(full["ingest_batches"], parser, "full e2e run 0")
     print(f"full e2e run 0 ingest: {parser} parser, read batches by path "
           f"{full['ingest_batches']}", flush=True)
@@ -3319,7 +3507,8 @@ def main(argv=None) -> int:
           f"{sv['warmup_s']}); prewarm {pw['seconds']} s, {pw['compiled']} ok, {pw['failed']} "
           f"failed, kernel build/load {pw['build_s']} s; entries " + ", ".join(
               f"{e['kind']} w={e['width']} b={e['batch']} {e['seconds']} s "
-              f"B1 {e['launches']['B1']} B2 {e['launches']['B2']}" for e in pw["entries"]),
+              f"B1 {e['launches']['B1']} B2 {e['launches']['B2']} B3 {e['launches']['B3']}"
+              for e in pw["entries"]),
           flush=True)
     j1 = sv["job1"]
     print(f"serve job 1 (full lane, {j1['n_reads']} reads, over HTTP): {j1['seconds']:.2f} s "
@@ -3372,7 +3561,8 @@ def main(argv=None) -> int:
           f"kernels bf16 {dict(list(b['bf16_kernels'].items())[:4])}, fp32 "
           f"{dict(list(b['fp32_kernels'].items())[:4])}", flush=True)
     print(f"training CLI on the card: exit {tr['cli']['rc']} in {tr['cli']['seconds']:.1f} s; "
-          f"B2 launches of the phase (in this process) {tr['b2_launches']}, B1 "
+          f"B2 launches of the phase (in this process) {tr['b2_launches']}, B3 "
+          f"{tr['b3_launches']}, B1 "
           f"{tr['b1_launches']}; models/weights/ unchanged; phase {tr['seconds']:.1f} s",
           flush=True)
     _dump(args.out, report)
@@ -3412,32 +3602,57 @@ def main(argv=None) -> int:
           f"{su['wait_s']['p50']}/{su['wait_s']['p99']} s; first stage p50/p99 "
           f"{su['first_stage_s']['p50']}/{su['first_stage_s']['p99']} s; cold_start_s "
           f"{su['cold_start_s']}; steady_compile_count {su['steady_compile_count']}; counts "
-          f"exact {su['drill']['counts_exact']}; B1/B2 launches {il['launches']}", flush=True)
+          f"exact {su['drill']['counts_exact']}; launches {il['launches']}", flush=True)
     pg = il["perf_gate"]
     print(f"perf gate (torch unimportable) on the sustained ledger: exit {pg['rc']}, verdict "
           f"{pg['status']}, load {pg['load']} ({pg['reason']}), transfer {pg['transfer']}; "
           f"phase {il['seconds']:.1f} s", flush=True)
     _dump(args.out, report)
 
-    phase("15 kernels line")
-    # 15. kernels line
+    phase("15 lane scale")
+    # 15. the lane-scale path in a process of its own
+    lsr = report["lane_scale"] = lane_scale_phase()
+    art = lsr["artifact"]
+    print(f"lane scale ({art['n_reads']} reads, heavy region {art['heavy_region_molecules']} "
+          f"molecules at depth 3, {art['round2_assign']} round 2, on {art['device_kind']}): "
+          f"{art['wall_seconds']:.2f} s, {art['reads_per_sec']:.1f} reads/s; heavy region "
+          f"{art['heavy_region_count'][0]}/{art['heavy_region_count'][1]} (>= 0.96, no "
+          f"overcount), every other region exact; peak device memory "
+          f"{art['peak_device_mem_gb']:.3f} GB, host RSS {art['peak_host_rss_gb']:.3f} GB; "
+          f"launches {art['kernel_launches']}; exit {lsr['rc']}; dataset and run "
+          f"{lsr['seconds']:.1f} s", flush=True)
+    print("lane scale stages (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in art["stage_timing_sec"].items())
+        + f"; precision at depth {art['precision_at_depth']}", flush=True)
+    _dump(args.out, report)
+
+    phase("16 kernels line")
+    # 16. kernels line
     entries = []
-    for k, key, name, src, replaces in (
+    for k, key, name, src, replaces, training in (
         (sw_kernel.align_banded_cuda, "sw", "sw_banded",
-         "ont_tcrconsensus_tpu_torch/csrc/sw_banded.cu", "ont_tcrconsensus_tpu/ops/sw_pallas.py:56"),
+         "ont_tcrconsensus_tpu_torch/csrc/sw_banded.cu", "ont_tcrconsensus_tpu/ops/sw_pallas.py:56",
+         tr["b1_launches"]),
         (pileup_kernel.forward_planes_cuda, "pileup", "pileup_forward",
          "ont_tcrconsensus_tpu_torch/csrc/pileup_forward.cu",
-         "ont_tcrconsensus_tpu/ops/pileup_pallas.py:61"),
+         "ont_tcrconsensus_tpu/ops/pileup_pallas.py:61", tr["b2_launches"]),
+        (traceback_kernel.traceback_columns_cuda, "traceback", "pileup_traceback",
+         "ont_tcrconsensus_tpu_torch/csrc/pileup_traceback.cu",
+         "ont_tcrconsensus_tpu/ops/pileup.py:297", tr["b3_launches"]),
     ):
         r = report[key][1]  # L=3072: the read passes' band 128, the polish band 64
         entries.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": full["launches"]["rnn"][k.__name__],
-            "launches_training": tr["b2_launches"] if key == "pileup" else tr["b1_launches"],
+            "launches_training": training,
             "launches_serve_load": il["launches"][k.__name__],
+            "launches_lane_scale": art["kernel_launches"][{"sw": "B1", "pileup": "B2",
+                                                           "traceback": "B3"}[key]],
             "max_abs_err": max(x["max_abs_err"] for x in report[key]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
+            **({"dependent_load_floor_ms": r["dependent_load_floor_ms"]}
+               if key == "traceback" else {}),
         })
     print(json.dumps({"kernels": entries}))
     print(smi)
@@ -3445,6 +3660,56 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     shutil.rmtree(WORK, ignore_errors=True)
     return 0
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the lane-scale path (scripts/torch_lane_scale_proof.py)
+
+LANE_SCALE_READS = 3_000  # the JAX medium tier's shape (tests/test_lane_scale.py)
+LANE_SCALE_MIN_HEAVY = 600  # the JAX medium tier's floor, past the shortlist's 256
+
+
+def lane_scale_phase() -> dict:
+    """``scripts/torch_lane_scale_proof.py`` on ``cuda`` in a process of its
+    own at the JAX package's medium tier (``tests/test_lane_scale.py``),
+    held to its assertions: the heavy region >= 0.96 of the truth and never
+    over it, every other region exact; each B2 launch followed by B3. The script exits 1
+    when a count differs from the truth (at depth 3 the heavy region may
+    lose molecules), which the assertions judge."""
+    t0 = time.perf_counter()
+    root = os.path.join(WORK, "lane_scale")
+    out_path = os.path.join(WORK, "lane_scale.json")
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "scripts", "torch_lane_scale_proof.py"),
+         "--reads", str(LANE_SCALE_READS), "--min-heavy", str(LANE_SCALE_MIN_HEAVY),
+         "--root", root, "--out", out_path], cwd=ROOT, capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    if proc.returncode not in (0, 1) or not os.path.exists(out_path):
+        raise AssertionError(f"lane scale: exit {proc.returncode}: {proc.stderr[-3000:]}")
+    with open(out_path) as fh:
+        art = json.load(fh)
+    heavy = art["heavy_region_molecules"]
+    heavy_got, heavy_want = art["heavy_region_count"]
+    rest = {k: v for k, v in art["count_diffs"].items() if k != "TCR0000"}
+    b = art["kernel_launches"]
+    problems = [what for what, bad in (
+        ("backend not cuda", art["backend"] != "cuda"),
+        (f"heavy region {heavy} < {LANE_SCALE_MIN_HEAVY}", heavy < LANE_SCALE_MIN_HEAVY),
+        (f"heavy {heavy_got} < 0.96 x {heavy_want}", heavy_got < 0.96 * heavy_want),
+        (f"heavy {heavy_got} > {heavy_want}: overcount", heavy_got > heavy_want),
+        (f"other regions differ: {rest}", bool(rest)),
+        (f"exit {proc.returncode} with counts_exact {art['counts_exact']}",
+         proc.returncode != (0 if art["counts_exact"] else 1)),
+        (f"launches {b}", not all(b.values()) or b["B3"] != b["B2"]),
+    ) if bad]
+    if problems:
+        raise AssertionError(f"lane scale: {'; '.join(problems)}")
+    return {"rc": proc.returncode, "seconds": seconds, "artifact": art}
+
+
+def _b3_follows_b2(launches: dict) -> bool:
+    """Each forward (B2) is followed by its traceback (B3)."""
+    return launches["traceback_columns_cuda"] == launches["forward_planes_cuda"]
 
 
 def _dump(path, report) -> None:

@@ -27,7 +27,14 @@ DEFAULT_BUILD_DIR = os.path.join(
     "build", "torch_kernels",
 )
 BUILD_DIR = DEFAULT_BUILD_DIR  # where libraries are built and looked up
-KERNELS = ("sw_banded", "pileup_forward")
+KERNELS = ("sw_banded", "pileup_forward", "pileup_traceback")
+# each launcher's C signature: its pointers, its ints, then the stream
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    "sw_banded": [_P] * 6 + [_I] * 8 + [_P],
+    "pileup_forward": [_P] * 6 + [_I] * 8 + [_P],
+    "pileup_traceback": [_P] * 8 + [_I] * 4 + [_P],
+}
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 CUDA_NVCC = "/usr/local/cuda/bin/nvcc"  # the toolkit's home when not on PATH
 
@@ -130,7 +137,7 @@ def load(name: str) -> ctypes.CDLL:
             _finish(name, started)
             lib = ctypes.CDLL(library_path(name))
             fn = getattr(lib, f"{name}_launch")
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+            fn.argtypes = SIGNATURES[name]
             fn.restype = ctypes.c_int
             _loaded[name] = lib
             _seconds += time.monotonic() - t0

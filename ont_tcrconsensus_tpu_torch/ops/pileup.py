@@ -13,14 +13,16 @@ Packed plane per cell (u16): ``tdir | fjump << 4``.
   (H chose F; predecessor is tmp at band slot b - m in the same row).
 
 :func:`_forward_batch` is the plain PyTorch twin of kernel B2
-(``csrc/pileup_forward.cu``); :func:`forward_auto` picks by device.
+(``csrc/pileup_forward.cu``) and :func:`_traceback_steps` that of kernel B3
+(``csrc/pileup_traceback.cu``); :func:`forward_auto` and
+:func:`traceback_auto` pick by device.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ont_tcrconsensus_tpu_torch.ops import pileup_kernel
+from ont_tcrconsensus_tpu_torch.ops import pileup_kernel, traceback_kernel
 from ont_tcrconsensus_tpu_torch.parallel import mesh as mesh_mod
 from ont_tcrconsensus_tpu_torch.ops.sw_align import (
     GAP_EXT,
@@ -131,15 +133,28 @@ def forward_auto(reads, read_lens, refs, ref_lens, band_width: int):
     return pileup_kernel.forward_planes_cuda(reads, read_lens, refs, ref_lens, band_width)
 
 
+def traceback_auto(best, planes, reads, band_width: int, out_len: int):
+    """The traceback as a generator for :func:`..parallel.mesh.lockstep`:
+    the plain :func:`_traceback_steps` for CPU tensors; for CUDA tensors
+    kernel B3, launched once, then one yield, so that every slice launches
+    before any slice waits. Returns the columns."""
+    if reads.device.type == "cpu":
+        return (yield from _traceback_steps(best, planes, reads, band_width, out_len))
+    cols = traceback_kernel.traceback_columns_cuda(best, planes, reads, band_width, out_len)
+    yield
+    return cols
+
+
 def _traceback_batch(best, planes, reads, band_width: int, out_len: int):
-    """Scan-log traceback over flat lanes (offsets 0): :func:`_traceback_steps`
-    run to its end."""
-    return mesh_mod.lockstep([_traceback_steps(best, planes, reads, band_width, out_len)])[0]
+    """Traceback over flat lanes (offsets 0): :func:`traceback_auto` run to
+    its end."""
+    return mesh_mod.lockstep([traceback_auto(best, planes, reads, band_width, out_len)])[0]
 
 
 def _traceback_steps(best, planes, reads, band_width: int, out_len: int):
-    """Scan-log traceback over flat lanes (offsets 0), a generator that
-    yields after each step's launches and returns the columns.
+    """Scan-log traceback over flat lanes (offsets 0), the plain version of
+    kernel B3 on any device: a generator that yields after each step's
+    launches and returns the columns.
 
     Each step gathers ONE packed plane cell per lane, keeps 7 scalars of
     per-lane state and logs the move (op, read index, draft column); the
@@ -254,17 +269,18 @@ def _traceback_steps(best, planes, reads, band_width: int, out_len: int):
 def _forward_traceback(reads, rlens, refs, reflens, band_width: int, out_len: int):
     """One slice's pileup program, a generator for :func:`..parallel.mesh.lockstep`:
     the forward (kernel B2 on the card), a yield so every slice launches
-    its forward before any slice waits, then the traceback's steps."""
+    its forward before any slice waits, then the traceback (kernel B3 on
+    the card, the plain steps on the CPU)."""
     best, planes = forward_auto(reads, rlens, refs, reflens, band_width)
     yield
-    return (yield from _traceback_steps(best, planes, reads, band_width, out_len))
+    return (yield from traceback_auto(best, planes, reads, band_width, out_len))
 
 
 def pileup_columns_batch_auto(subreads, subread_lens, drafts, draft_lens,
                               band_width: int = 128, out_len: int | None = None,
                               mesh=None):
     """Align each subread to its cluster's draft and emit per-position
-    columns — forward (kernel B2 on the card) + scan-log traceback.
+    columns — forward (kernel B2 on the card) + traceback (kernel B3).
 
     Args: subreads (C, S, L) uint8 codes; subread_lens (C, S); drafts
     (C, Ld) uint8; draft_lens (C,). Returns (base_at, ins_cnt, ins_base,
@@ -273,9 +289,10 @@ def pileup_columns_batch_auto(subreads, subread_lens, drafts, draft_lens,
 
     ``mesh`` splits the flat lane axis (C*S) over the mesh's data slices
     when it divides the data-axis size (callers pad the cluster axis):
-    every slice runs the forward and the traceback on its lanes, the
-    traceback steps in turns over the slices, and the columns gather on
-    the first slice's device.
+    every slice runs the forward and the traceback on its lanes, each
+    launching in turn before any waits (on the CPU the plain traceback
+    steps in turns over the slices), and the columns gather on the first
+    slice's device.
     """
     if out_len is None:
         out_len = drafts.shape[-1]

@@ -31,8 +31,9 @@ that data row.
 
 A slice's function may be a generator: the runner then advances every
 slice one step before the next (:func:`lockstep`), so a host loop that
-launches a little work a step (the pileup traceback) keeps every card
-busy instead of finishing card 0's loop before card 1 starts. Outputs are
+launches a little work a step (the pileup traceback's plain steps) keeps
+every card busy instead of finishing card 0's loop before card 1 starts,
+and every slice launches its kernels before any slice waits. Outputs are
 gathered onto the first slice's device.
 """
 

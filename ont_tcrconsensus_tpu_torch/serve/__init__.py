@@ -22,8 +22,8 @@ Four pieces:
   as a buddy pool of aligned power-of-two slices.
 - :mod:`.prewarm` — warm-up launches at the declared shape buckets: the
   fused round-1 pass (kernel B1) per read-width bucket on reads drawn from
-  the reference panel, and one polisher tile (kernel B2 and the GRUs). The
-  port compiles nothing ahead of time; a warm-up launch builds or loads
+  the reference panel, and one polisher tile (kernels B2 and B3 and the
+  GRUs). The port compiles nothing ahead of time; a warm-up launch builds or loads
   the kernel libraries, creates the CUDA context and the cuDNN handles.
 - :mod:`.daemon` — the accept loop and its loopback control plane on the
   live server (POST ``/jobs``, GET ``/jobs`` and ``/jobs/<id>``). SIGTERM

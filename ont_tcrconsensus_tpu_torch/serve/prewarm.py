@@ -3,7 +3,7 @@
 The counterpart of the JAX package's ``serve/prewarm.py``. There, each
 entry point is lowered and compiled ahead of the first job for the
 declared bucket set. The port compiles nothing per shape: its cold costs
-are the ``nvcc`` build (or build-cache load) of the two hand kernels, the
+are the ``nvcc`` build (or build-cache load) of the three hand kernels, the
 CUDA context and cuDNN's GRU handles. So each entry here is one warm-up
 launch of the real entry point at a declared bucket, on inputs drawn from
 the reference panel (all-zero reads could leave the fused pass's
@@ -15,7 +15,7 @@ candidate selection without a candidate):
   :class:`~..pipeline.assign.AssignEngine` and its real constants;
 - ``polisher``: one call of :func:`~..models.polisher.make_pipeline_polisher`'s
   device path at the JAX package's tile ``(cluster batch, s_bucket,
-  largest width, band)``, which recomputes the pileup (kernel B2) and runs
+  largest width, band)``, which recomputes the pileup (kernels B2 and B3) and runs
   the bi-GRU, in bfloat16 where the bf16 gate
   (:func:`~..models.polisher.bf16_serving_certified`) lets the run serve
   it, as in JAX, else in float32.
@@ -23,7 +23,7 @@ candidate selection without a candidate):
 The report keeps the JAX package's schema (``kind``, ``batch``, ``width``,
 ``ok``, ``seconds``; ``compiled``/``failed`` count the entries that warmed
 or failed) and adds, per entry, the kernel launches it made (``launches``:
-``{"B1": n, "B2": n}``, from the wrappers' counters; 0 on the CPU, whose
+``{"B1": n, "B2": n, "B3": n}``, from the wrappers' counters; 0 on the CPU, whose
 plain versions launch no kernel) and, for the whole prewarm, the seconds
 the process had spent making kernel libraries ready (``build_s``). An
 entry that fails is reported ``ok: false`` with its error, exactly as in
@@ -38,7 +38,7 @@ import time
 import numpy as np
 
 from ont_tcrconsensus_tpu_torch.io import bucketing
-from ont_tcrconsensus_tpu_torch.ops import _build, pileup_kernel, sw_kernel
+from ont_tcrconsensus_tpu_torch.ops import _build, pileup_kernel, sw_kernel, traceback_kernel
 from ont_tcrconsensus_tpu_torch.ops.encode import PAD_CODE
 
 
@@ -52,7 +52,8 @@ def declared_width_buckets(cfg) -> list[int]:
 
 def _launch_counts() -> dict[str, int]:
     return {"B1": sw_kernel.align_banded_cuda.launches,
-            "B2": pileup_kernel.forward_planes_cuda.launches}
+            "B2": pileup_kernel.forward_planes_cuda.launches,
+            "B3": traceback_kernel.traceback_columns_cuda.launches}
 
 
 def _launches_since(before: dict[str, int]) -> dict[str, int]:
@@ -139,7 +140,7 @@ def _prewarm_polisher(cfg, engine, budget, widths: list[int],
         sub = np.ascontiguousarray(
             np.broadcast_to(drafts[:, None, :], (cb, s_bucket, width)))
         lens = np.ascontiguousarray(np.broadcast_to(dlens[:, None], (cb, s_bucket)))
-        # no kept pileup: the device path recomputes it (kernel B2), then
+        # no kept pileup: the device path recomputes it (kernels B2 and B3), then
         # the features and the GRUs
         polish(sub, lens, drafts, dlens, band_width=eff_band)
         entry["ok"] = True

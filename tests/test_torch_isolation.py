@@ -52,7 +52,8 @@ def test_importing_every_port_module_loads_no_jax():
                          env=env, cwd=REPO, timeout=300, check=True)
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report["bad"] == []
-    for must in ("ops.sw_kernel", "ops.pileup_kernel", "pipeline.run", "convert",
+    for must in ("ops.sw_kernel", "ops.pileup_kernel", "ops.traceback_kernel",
+                 "pipeline.run", "convert",
                  "pipeline.cli", "__main__", "models.polisher", "device",
                  "pipeline.overlap", "qc.artifacts", "qc.error_profile", "qc.timing",
                  "qc.umi_overlap", "robustness.contracts", "robustness.jobscope",
@@ -86,7 +87,8 @@ def test_no_source_names_the_jax_package():
     native_src = [os.path.join(PKG_DIR, "io", "native", "fastx_parser.cpp")]
     assert {"torch_bf16_ab.py", "torch_mesh_ab.py", "torch_fuzz_ingest.py",
             "torch_streaming_ingest_proof.py", "torch_serve_load.py",
-            "torch_perf_gate.py"} <= {os.path.basename(p) for p in scripts}
+            "torch_perf_gate.py", "torch_lane_scale_proof.py"} <= {
+                os.path.basename(p) for p in scripts}
     offenders = []
     for path in sources + scripts + native_src + [os.path.join(REPO, "chip_smoke.py")]:
         with open(path) as fh:

@@ -1,0 +1,181 @@
+"""Kernel B3 (the polish traceback, ``csrc/pileup_traceback.cu``): a scalar
+walk written the way the kernel walks a lane (one lane at a time, its rows
+written as it goes, ``ins_base`` overwritten) against the JAX package's
+scan-log ``_traceback_batch`` and the port's plain ``_traceback_steps``, on
+planes from the forward; the wrapper's CPU refusal and the CPU dispatch;
+and, on a card, the kernel against the plain steps. Tolerance: exact."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from ont_tcrconsensus_tpu_torch.io.dp_cases import noisy_copy, pack  # noqa: E402
+
+try:  # the JAX reference; a card machine without JAX runs the gpu case only
+    from ont_tcrconsensus_tpu.ops import pileup as jpileup
+except ImportError:
+    jpileup = None
+from ont_tcrconsensus_tpu_torch.ops import pileup, pileup_kernel, traceback_kernel  # noqa: E402
+from ont_tcrconsensus_tpu_torch.parallel.mesh import lockstep  # noqa: E402
+
+COLUMNS = ("base_at", "ins_cnt", "ins_base", "pos_at", "spans")
+LANE_KINDS = ("noisy", "long_del", "long_ins", "n_bases", "dead", "unrelated")
+
+
+def _lanes(seed: int, n: int, L: int):
+    """``n`` (read, draft) lanes of width ``L``, cycling over LANE_KINDS:
+    noisy copies, a 9-14 base run deleted from the read (a ref-gap jump
+    of more than one), 8-12 bases inserted (an E run), N bases (code 4),
+    empty reads (lanes that start done) and unrelated reads. Drafts are
+    shorter than ``L``."""
+    rng = np.random.default_rng(seed)
+    reads, drafts = [], []
+    for k in range(n):
+        kind = LANE_KINDS[k % len(LANE_KINDS)]
+        tpl = rng.integers(0, 4, int(rng.integers(L // 3, L - 48))).astype(np.uint8)
+        drafts.append(noisy_copy(rng, tpl, 0.03))
+        read = noisy_copy(rng, tpl, 0.06)
+        cut = int(rng.integers(len(read) // 4, len(read) // 2))
+        if kind == "long_del":
+            read = np.concatenate([read[:cut], read[cut + int(rng.integers(9, 15)):]])
+        elif kind == "long_ins":
+            run = rng.integers(0, 4, int(rng.integers(8, 13))).astype(np.uint8)
+            read = np.concatenate([read[:cut], run, read[cut:]])
+        elif kind == "n_bases":
+            read = read.copy()
+            read[rng.random(len(read)) < 0.05] = 4
+        elif kind == "dead":
+            read = read[:0]
+        elif kind == "unrelated":
+            read = rng.integers(0, 4, len(read)).astype(np.uint8)
+        reads.append(read[:L])
+    r, rl = pack(reads, L)
+    d, dl = pack(drafts, L)
+    return r, rl, d, dl
+
+
+def _kernel_walk(best, planes, reads, W: int, out_len: int):
+    """The kernel's walk, lane by lane in plain Python: seven scalars of
+    state, one plane cell a step, each step's column written directly."""
+    N, L = reads.shape
+    c = W // 2
+    base_at = np.full((N, out_len), pileup.UNCOVERED, np.uint8)
+    ins_cnt = np.zeros((N, out_len), np.int32)
+    ins_base = np.zeros((N, out_len), np.uint8)
+    pos_at = np.full((N, out_len), -1, np.int32)
+    spans = np.zeros((N, 4), np.int32)
+    for n in range(N):
+        score, i0, b0 = (int(x) for x in best[n])
+        jend = i0 - c + b0
+        i, b, mode, pending = i0, b0, 0, 0
+        done = score <= 0 or i0 < 0
+        rstart, fstart = i0 + 1, jend + 1
+        t = 0
+        while t < L + out_len and not done:
+            jrow = i - c + b
+            ci, cb = min(max(i, 0), L - 1), min(max(b, 0), W - 1)
+            p = int(planes[n, ci, cb])
+            d, m = p & 15, p >> 4
+            in_del = pending > 0
+            start_del = not in_del and mode == 0 and m > 0
+            do_del = in_del or start_del
+            new_pending = pending - 1 if in_del else (m - 1 if start_del else 0)
+            choice = pileup._EGAP if mode == 1 else d & 3
+            is_diag = not do_del and choice == pileup._DIAG
+            is_egap = not do_del and choice == pileup._EGAP
+            is_fresh = not do_del and choice == pileup._FRESH
+            if 0 <= jrow < out_len:
+                rb = int(reads[n, ci])
+                if do_del:
+                    base_at[n, jrow] = pileup.DELETION
+                elif is_diag and rb < 4:
+                    base_at[n, jrow], pos_at[n, jrow] = rb, ci
+                elif is_egap and rb < 4:
+                    ins_cnt[n, jrow] += 1
+                    ins_base[n, jrow] = rb
+            e_open = bool(d & pileup._EOPEN_BIT)
+            diag_stop = is_diag and bool(d & pileup._DIAG_STOP_BIT)
+            ni = i - 1 if (is_diag or is_egap) else i
+            nb = b - 1 if do_del else (b + 1 if is_egap else b)
+            if is_diag or is_egap:
+                rstart = i
+            if is_diag or do_del:
+                fstart = jrow
+            mode = 2 if do_del else (1 if is_egap and not e_open else 0)
+            pending = new_pending
+            done = is_fresh or diag_stop or ni < 0 or nb < 0 or nb >= W
+            i, b = ni, nb
+            t += 1
+        spans[n] = (rstart, i0 + 1, fstart, jend + 1)
+    return base_at, ins_cnt, ins_base, pos_at, spans
+
+
+@pytest.mark.parametrize("out_frac", (1.0, 0.75))
+@pytest.mark.parametrize("W", (64, 128))
+def test_kernel_walk_matches_jax_and_plain_steps(W, out_frac):
+    L = 256
+    out_len = int(L * out_frac)
+    reads, rl, drafts, dl = _lanes(7 + W, n=48, L=L)
+    args = tuple(torch.from_numpy(x) for x in (reads, rl, drafts, dl))
+    best, planes = pileup._forward_batch(*args, band_width=W)
+    planes_u16 = planes.numpy().astype(np.uint16)
+    # the cases reach what they are there for
+    assert (planes_u16 >> 4 > 1).any(), "no ref-gap jump of more than one"
+    assert (best[:, 0] <= 0).any() and (best[:, 0] > 0).sum() >= 30
+    assert (reads == 4).any() and (dl < out_len).any()
+
+    got = _kernel_walk(best.numpy(), planes_u16, reads, W, out_len)
+    plain = pileup._traceback_batch(best, planes, args[0], W, out_len)
+    jbest, jplanes = jpileup._forward_batch(reads, rl, drafts, dl, band_width=W)
+    want = jpileup._traceback_batch(jbest, jplanes, reads, W, out_len)
+    for name, g, p, w in zip(COLUMNS, got, plain, want):
+        np.testing.assert_array_equal(p.numpy(), np.asarray(w), err_msg=f"plain {name}")
+        np.testing.assert_array_equal(g, np.asarray(w), err_msg=f"walk {name}")
+    assert (got[1] > 0).any(), "no insertion column"
+    assert (got[0] == pileup.DELETION).any(), "no deletion column"
+
+
+def test_wrapper_refuses_cpu_tensors():
+    reads, rl, drafts, dl = _lanes(3, n=4, L=128)
+    best, planes = pileup._forward_batch(
+        *(torch.from_numpy(x) for x in (reads, rl, drafts, dl)), band_width=64)
+    with pytest.raises(ValueError, match="CUDA"):
+        traceback_kernel.traceback_columns_cuda(best, planes, torch.from_numpy(reads), 64, 128)
+
+
+def test_columns_on_cpu_take_the_plain_traceback():
+    """On CPU tensors ``pileup_columns_batch_auto`` runs the plain forward
+    and the plain steps: no kernel counter moves, and the columns equal
+    ``_traceback_steps`` run to its end."""
+    reads, rl, drafts, dl = _lanes(5, n=12, L=128)
+    sub, sl = torch.from_numpy(reads).reshape(3, 4, 128), torch.from_numpy(rl).reshape(3, 4)
+    dr, drl = torch.from_numpy(drafts[::4].copy()), torch.from_numpy(dl[::4].copy())
+    before = (pileup_kernel.forward_planes_cuda.launches,
+              traceback_kernel.traceback_columns_cuda.launches)
+    got = pileup.pileup_columns_batch_auto(sub, sl, dr, drl, band_width=64)
+    assert (pileup_kernel.forward_planes_cuda.launches,
+            traceback_kernel.traceback_columns_cuda.launches) == before
+    flat = sub.reshape(12, 128)
+    best, planes = pileup._forward_batch(flat, sl.reshape(12), dr.repeat_interleave(4, dim=0),
+                                         drl.repeat_interleave(4), band_width=64)
+    want = lockstep([pileup._traceback_steps(best, planes, flat, 64, 128)])[0]
+    for name, g, w in zip(COLUMNS, got, want):
+        assert torch.equal(g.reshape(w.shape), w), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W", (64, 128))
+def test_kernel_matches_plain_steps_on_card(W):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: kernel B3 has no CPU mode")
+    dev = torch.device("cuda")
+    reads, rl, drafts, dl = (torch.from_numpy(x).to(dev) for x in _lanes(11, n=64, L=256))
+    best, planes = pileup_kernel.forward_planes_cuda(reads, rl, drafts, dl, band_width=W)
+    for out_len in (256, 192):
+        before = traceback_kernel.traceback_columns_cuda.launches
+        got = traceback_kernel.traceback_columns_cuda(best, planes, reads, W, out_len)
+        assert traceback_kernel.traceback_columns_cuda.launches == before + 1
+        want = lockstep([pileup._traceback_steps(best, planes, reads, W, out_len)])[0]
+        for name, g, w in zip(COLUMNS, got, want):
+            assert torch.equal(g, w), name
