@@ -16,7 +16,7 @@ of which fails the script (non-zero exit, no result line):
    package. Phase 8's first run, phase 10's quarantine run and phase 12's
    in-process jobs must ingest through that parser alone (their read
    batches are counted by path);
-2. build: the three kernels (``ont_tcrconsensus_tpu_torch/csrc/*.cu``), one
+2. build: the four kernels (``ont_tcrconsensus_tpu_torch/csrc/*.cu``), one
    ``nvcc`` each, started together; ptxas's registers and spills and each
    instantiation's SASS instruction mix (``cuobjdump``) are printed;
 3. kernel parity: kernel B1 (banded SW stats) at B=2048, W=128 and kernel
@@ -46,14 +46,20 @@ of which fails the script (non-zero exit, no result line):
    largest logit difference, and the positions whose gated decisions
    (0.9 confidence, depth gate) differ, which must be none; the card's
    times (CUDA-event medians of 7) of the features and the network;
-5. error profile: 512 simulated reads of 1.4-2.3 kb (the systematic ONT
-   error model, seed 5) against their reference spans, through the QC
-   error profile's device path on ``cuda`` (plain PyTorch: the JAX
-   package's XLA scans, no Pallas kernel) and its numpy fill: every cs
-   string equal. The device path's seconds (host clock to a synchronized
-   card, two calls) and, from one call on the first 128 reads traced by
-   ``torch.profiler``, its device events (kernel launches and copies) and
-   busy time;
+5. error profile, kernel B4: 512 simulated reads of 1.4-2.3 kb (the
+   systematic ONT error model, seed 5) against their reference spans
+   through the device path (``banded_cs_batch_device`` on ``cuda``, B4
+   inside): every cs string equal to the numpy fill's. Its tile, recorded
+   from that call: kernel B4 (the QC error profile's fill and walk)
+   against the plain ``_device_cs_core`` on the same card tensors, every
+   op log equal up to its walk's stop. B4's time (CUDA-event median of
+   7), the plain version's one call, the bound (the tile's band cells and
+   walk steps over the int32 rate; its bytes) and the design's floor (the
+   tile's slowest read alone, L2 flushed first, with its walk's steps
+   times phase 3's dependent step beside it), and ptxas's registers and
+   spills. Then the device path twice more (host clock), each equal to
+   numpy's, and once traced by ``torch.profiler`` for its device events
+   and busy time;
 6. small e2e: the tests' 4-region lane under ``rnn`` (the default) and
    under ``poa``, each on ``cuda`` and on ``cpu`` (plain versions; each
    CPU run in a process of its own, started first, beside the card's
@@ -76,7 +82,7 @@ of which fails the script (non-zero exit, no result line):
    ``/progress`` names the graph node the run is in;
    ``logs/trace.json`` holds a span for every stage of the stage table,
    on the main thread's row or, for the QC worker's ``*_bg`` stages, on a
-   worker's row; the ``torch.profiler`` trace names the three kernels (its
+   worker's row; the ``torch.profiler`` trace names the four kernels (its
    size and event count are printed); ``python -m
    ont_tcrconsensus_tpu_torch --report`` exits 0 in a subprocess that
    never loads torch; ``robustness_report.json`` holds no watchdog event;
@@ -90,7 +96,8 @@ of which fails the script (non-zero exit, no result line):
    phase 6 (a polish round's host loop costs a lane of any depth about the
    same, so only the small lane keeps the script inside its time limit),
    ``--lane-runs`` rounds (1 by default) of the default config in turns with
-   ``error_profile_sample: 0`` (no QC profile), with ``overlap_qc: false``
+   ``error_profile_sample: 0`` (no QC profile, launches counted: B4 0), with
+   ``overlap_qc: false``
    (the profiles on the main thread), with ``executor: "imperative"``
    (which must not run the graph), as it is and with ``telemetry:
    "off"``, then once under ``poa``. Each default run must have run the
@@ -116,15 +123,19 @@ of which fails the script (non-zero exit, no result line):
    just before the first run (the main path's) and read just after it,
    and again around the ``poa`` run; each kernel must have launched in
    both, B3 as often as B2 (each forward is followed by its traceback),
-   and every run's counts must equal the truth. Each run's stage
+   and every run's counts must equal the truth; B4 launches on the QC
+   profiles' runs and not without them. Each run's stage
    seconds are printed under
    the stage table's names, the error profiles' worker seconds
    (``*_bg``) beside the main thread's wait at their commit. The first
-   run also records each launch's (batch, L, Lr, W), with a host copy of
+   run also records each launch's (batch, L, Lr, W) (B4's (L, N, M,
+   w_pad)), with a host copy of
    each shape's first inputs (off the card, so the run's peak memory is
    the lane's own; the copies are in that run's wall time); after the
    runs each shape's kernel is timed on those inputs, for the launches x
-   (time - bound) the run spent at its real shapes. Peak device memory
+   (time - bound) the run spent at its real shapes; each of B4's tiles is
+   first held to the plain ``_device_cs_core`` on its own inputs (every op
+   log up to its stop; the plain core's one call timed). Peak device memory
    and the polisher's seconds (host clock to its stream synchronized) are
    read per run, and the peak reached inside a polisher call when that
    call raised it;
@@ -151,7 +162,7 @@ of which fails the script (non-zero exit, no result line):
    ``corrupt-input`` drill (three malformed blocks spliced between
    records), launches counted from zero: the truth's counts, every file
    under ``nano_tcr/`` byte-identical to phase 8's first run but the files
-   of timings and :data:`INGEST_DIFFERS`, B1, B2 and B3 launched as often as
+   of timings and :data:`INGEST_DIFFERS`, B1, B2, B3 and B4 launched as often as
    there, at least three ``quarantined`` events with canonical reasons and
    one ``summary``, no contract violated, and ``quarantine.fastq.gz``
    holding exactly the spliced blocks (cut from the corrupted copy at the
@@ -173,7 +184,8 @@ of which fails the script (non-zero exit, no result line):
    counted from zero and by slice: the truth's counts, every file under
    ``nano_tcr/`` byte-identical to phase 6's cuda run but the files of
    timings (and, at data > 1, :data:`MESH_DIFFERS`), every kernel
-   launched on every slice, B3 as often as B2, ``mesh_slice_busy`` for
+   launched, each but B4 (no QC profile is sharded) on every slice, B3 as
+   often as B2, ``mesh_slice_busy`` for
    every slice and ``mesh_config`` in ``history.jsonl``; its seconds and
    reads/s beside phase 6's. Then B1 at
    B=2048, L=2048, W=128, B2 at N=1024, L=2048, W=64 and B3 on those
@@ -203,7 +215,7 @@ of which fails the script (non-zero exit, no result line):
    counts, every file under ``nano_tcr/`` byte-identical to phase 8's run
    0 but the files of timings, which must match by schema and names
    (telemetry keys, stage names, manifest stages, the run entry of
-   ``history.jsonl``), B1, B2 and B3 launched as often as there, 0 kernel
+   ``history.jsonl``), B1, B2, B3 and B4 launched as often as there, 0 kernel
    builds in its ``telemetry.json``; its seconds and reads/s beside run
    0's, its ``wait_s`` and ``dispatch_first_stage_s``, and its peak
    memory beside the admission estimate's byte figures; its ``source:
@@ -250,8 +262,9 @@ of which fails the script (non-zero exit, no result line):
    --eval-clusters 4 --out <tmp>`` must exit 0 on ``cuda``; it shares the
    card, so it starts after the timed parts (the train steps, the networks
    at the tile), beside the rest. ``models/weights/`` must keep every file's
-   sha256. The phase's B2 launches (the CLI's excepted), and B3's, which
-   must equal them, join the kernels line.
+   sha256. The phase's B2 launches (the CLI's excepted), B3's, which
+   must equal them, and B4's (counted from zero; no step computes a QC
+   profile) join the kernels line.
 
 14. the native ingest and the serve load harness on the card: on phase
    8's full lane, the native ``parse_file``, the concatenated
@@ -266,7 +279,7 @@ of which fails the script (non-zero exit, no result line):
    ``cuda:0`` (resident high-water >= 2, disjoint leases) and
    ``sustained`` (its default dataset: 3 regions of 2 molecules of 5-6
    reads, ``poa``; 2 tenants, ``--ledger`` into a temporary file):
-   counts exact, B1, B2 and B3 launched (counted from zero, the prewarm's
+   counts exact, B1, B2, B3 and B4 launched (counted from zero, the prewarm's
    included; in every scenario B3 as often as B2), 0 steady kernel builds; its reads/s, wait and first-stage
    p50/p99 and ``cold_start_s``. Last ``scripts/torch_perf_gate.py`` on
    that ledger in a process where torch cannot be imported: exit 0,
@@ -278,13 +291,14 @@ of which fails the script (non-zero exit, no result line):
    UMI shortlist's threshold of 256) and ``min_reads_per_cluster: 2``,
    held to the medium tier's assertions (``tests/test_lane_scale.py``):
    the heavy region at least 0.96 of the truth and never over it, every
-   other region exact, B3 launched as often as B2; its reads/s, stage
+   other region exact, B1, B2 and B3 launched, B3 as often as B2, and B4
+   not at all (the twin runs without a QC profile); its reads/s, stage
    seconds, peak device memory and launches are printed. The tier's
    "every other region exact" is a property of its size: at 10,000 reads
    the JAX package's own run loses a depth-4 molecule too.
 
 Each phase's start (seconds since the script began) is printed. Then one
-``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+``{"kernels": [...]}`` line (B1, B2, B3, B4), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes every number
 to a JSON file.
 """
@@ -954,23 +968,133 @@ def polisher_parity(seed: int, C: int = 64, S: int = 16, L: int = 2048, W: int =
 # the QC error profile
 
 
-TRACED_READS = 128  # phase 5's traced call
+# int32 operations of one band cell of the fill and one step of the walk,
+# counted from the plain version (qc/error_profile._device_cs_core); loads
+# are not counted, and the scratch plane is not among the bytes
+CS_CELL_OPS = {
+    "source lanes, band tests, diagonal and up": 8,
+    "cell index, validity, match test, substitution": 9,
+    "diagonal, up, best, up-wins direction": 5,
+    "prefix min of best - lane, left": 3,
+    "left vs best, direction, row value, plane cell": 5,
+}
+CS_STEP_OPS = {
+    "band offset, in-band and stop tests": 6,
+    "plane index, diagonal, up, left": 8,
+    "kind, next row and column": 7,
+}
 
 
-def error_profile_phase(seed: int = 5, n: int = 512) -> dict:
-    """The error profile's cs strings of ``n`` simulated reads (1.4-2.3 kb
-    regions, the systematic ONT error model) against their reference
-    spans: the device path on the card against the numpy fill, every
-    string equal. Times: the device path twice (host clock to a
-    synchronized card) and the numpy fill once; then one device call on the
-    first :data:`TRACED_READS` reads traced for its device events and busy
-    time."""
+def _cs_stops(kind: np.ndarray) -> np.ndarray:
+    """Each read's first STOP row of an op log (S, L) (S when none)."""
+    stop = kind == 4
+    return np.where(stop.any(axis=0), stop.argmax(axis=0), kind.shape[0])
+
+
+def _oplog_mismatch(got, want):
+    """The first read whose op log (kind, qb, rb) differs up to and
+    including its walk's first STOP, or None."""
+    gs, ws_ = _cs_stops(got[0]), _cs_stops(want[0])
+    S = min(got[0].shape[0], want[0].shape[0])
+    upto = np.arange(S)[:, None] <= gs[None, :]
+    bad = gs != ws_
+    for g, w in zip(got, want):
+        bad |= ((g[:S] != w[:S]) & upto).any(axis=0)
+    return int(np.flatnonzero(bad)[0]) if bad.any() else None
+
+
+def _cs_costs(arrays, stops: np.ndarray) -> dict:
+    """B4's bound from one tile's own data (numpy inputs qpad, rpad, n, m,
+    lo_all, ws): the band cells of rows 1..n of each read's own band ws and
+    the steps of each walk, at CS_CELL_OPS and CS_STEP_OPS, over the int32
+    rate; bytes: every input read once, the op log written once."""
+    qpad, rpad, n_arr, _, lo_all, ws = arrays
+    L, N = qpad.shape
+    S = N + rpad.shape[1]
+    cells = int((n_arr.astype(np.int64) * ws).sum())
+    steps = int(stops.sum())
+    n_bytes = sum(a.nbytes for a in arrays) + 3 * S * L
+    bound, by = _bound_ms(n_bytes, cells * sum(CS_CELL_OPS.values())
+                          + steps * sum(CS_STEP_OPS.values()))
+    return {"L": L, "N": N, "M": rpad.shape[1], "cells": cells, "steps": steps,
+            "rows_max": int(n_arr.max()), "longest_walk": int(stops.max()),
+            "bound_ms": bound, "bound_by": by}
+
+
+def _cs_lone_read_ms(arrays, w_pad: int, k: int, dev, reps: int = 5) -> float:
+    """Kernel B4 on read ``k`` of a tile alone (its row of every input), the
+    L2 cache (50 MB) overwritten before each of ``reps`` CUDA-event timed
+    launches: the median, the time this design needs for its slowest block
+    when nothing shares the card with it (its inputs cold; the plane rows
+    its fill writes are still in L2 for its walk)."""
+    import torch
+
+    from ont_tcrconsensus_tpu_torch.ops import cs_kernel
+
+    args = [torch.from_numpy(a[k:k + 1].copy()).to(dev) for a in arrays]
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    cs_kernel.error_profile_cs_cuda(*args, w_pad)
+    times = []
+    for _ in range(reps):
+        flush.fill_(1)
+        times.append(_time_ms(lambda: cs_kernel.error_profile_cs_cuda(*args, w_pad), 1))
+    return float(np.median(times))
+
+
+def _cs_shape(qpad, rpad, *rest, w_pad):
+    return (qpad.shape[0], qpad.shape[1], rpad.shape[1], w_pad)
+
+
+def cs_gaps(shapes: dict, dev) -> dict:
+    """:func:`launch_gaps` for kernel B4: each recorded tile shape (L, N, M,
+    w_pad) held to the plain ``_device_cs_core`` on its first launch's own
+    card tensors (every op log up to its stop; the plain core's one call
+    timed) and timed (CUDA-event median of 5 after one warm-up), against
+    the bound of that tile's cells and walks."""
+    from ont_tcrconsensus_tpu_torch.ops import cs_kernel
+    from ont_tcrconsensus_tpu_torch.qc import error_profile
+
+    rows, total = [], 0.0
+    for shape, (calls, host_args, kwargs) in sorted(shapes.items()):
+        args = [a.to(dev) for a in host_args]
+        w_pad = kwargs["w_pad"]
+        got = [x.cpu().numpy() for x in cs_kernel.error_profile_cs_cuda(*args, w_pad)]
+        plain, plain_ms = _timed_once(lambda: error_profile._device_cs_core(
+            *args, w_pad=w_pad, n_fill=int(host_args[2].max())))
+        bad = _oplog_mismatch(got, [x.cpu().numpy() for x in plain])
+        if bad is not None:
+            raise AssertionError(f"B4 at {shape}: read {bad}'s op log differs from the "
+                                 "plain core's")
+        del plain
+        ms = _time_ms(lambda: cs_kernel.error_profile_cs_cuda(*args, w_pad), 5)
+        c = _cs_costs([a.numpy() for a in host_args], _cs_stops(got[0]))
+        gap = calls * (ms - c["bound_ms"])
+        total += gap
+        rows.append({"shape": list(shape), "launches": calls, "ms": ms, "plain_ms": plain_ms,
+                     "oplogs_equal_plain": True,
+                     "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                     "longest_walk": c["longest_walk"], "launches_x_gap_ms": gap})
+        del args
+    return {"shapes": rows, "launches_x_gap_ms": total,
+            "kernel_ms": sum(r["launches"] * r["ms"] for r in rows)}
+
+
+def error_profile_phase(step_ns: float, ptxas: list[str], seed: int = 5, n: int = 512) -> dict:
+    """Kernel B4 on the error profile's tile of ``n`` simulated reads
+    (1.4-2.3 kb regions, the systematic ONT error model) against their
+    reference spans, the tile the device path itself lays out (recorded
+    from its first call): against the plain ``_device_cs_core`` on the
+    same card tensors, every op log up to its stop. The device path's
+    strings (B4 inside) against the numpy fill, its seconds (two more
+    calls, host clock) and one traced call; see the module docstring
+    (phase 5)."""
     import torch
 
     from ont_tcrconsensus_tpu_torch.io import simulator
-    from ont_tcrconsensus_tpu_torch.ops import encode
+    from ont_tcrconsensus_tpu_torch.ops import cs_kernel, encode
     from ont_tcrconsensus_tpu_torch.qc import error_profile
 
+    dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
     ref = simulator.make_reference(rng, num_regions=32, region_len=(1400, 2300))
     names = list(ref)
@@ -985,25 +1109,53 @@ def error_profile_phase(seed: int = 5, n: int = 512) -> dict:
     t0 = time.perf_counter()
     want = error_profile.banded_cs_batch(queries, spans)
     numpy_s = time.perf_counter() - t0
+
+    def device_path():
+        strings = error_profile.banded_cs_batch_device(queries, spans, device="cuda")
+        if strings != want:
+            bad = next(i for i, (a, b) in enumerate(zip(strings, want)) if a != b)
+            raise AssertionError(f"error profile: read {bad}'s cs string differs between "
+                                 f"the device path and numpy: {strings[bad][:80]!r} vs "
+                                 f"{want[bad][:80]!r}")
+
+    with _launch_shapes(error_profile, "cs_core_auto", _cs_shape) as tiles:
+        device_path()
+    ((_, host_args, kwargs),) = tiles.values()
+    w_pad = kwargs["w_pad"]
+    arrays = [a.numpy() for a in host_args]
+    args = [a.to(dev) for a in host_args]
+    got = [x.cpu().numpy() for x in cs_kernel.error_profile_cs_cuda(*args, w_pad)]
+    plain, plain_ms = _timed_once(lambda: error_profile._device_cs_core(
+        *args, w_pad=w_pad, n_fill=int(arrays[2].max())))
+    bad = _oplog_mismatch(got, [x.cpu().numpy() for x in plain])
+    if bad is not None:
+        raise AssertionError(f"B4: read {bad}'s op log differs from the plain core's")
+    for _ in range(2):
+        cs_kernel.error_profile_cs_cuda(*args, w_pad)
+    kernel_ms = _time_ms(lambda: cs_kernel.error_profile_cs_cuda(*args, w_pad), 7)
+    stops = _cs_stops(got[0])
+    costs = _cs_costs(arrays, stops)
+    # the design's floor: the read with the most rows and steps, alone
+    slow = int(np.argmax(arrays[2] + stops))
+    lone_ms = _cs_lone_read_ms(arrays, w_pad, slow, dev)
+    del args, plain
+
     device_s = []
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        got = error_profile.banded_cs_batch_device(queries, spans, device="cuda")
+        device_path()
         torch.cuda.synchronize()
         device_s.append(time.perf_counter() - t0)
-        if got != want:
-            bad = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
-            raise AssertionError(f"error profile: read {bad}'s cs string differs between "
-                                 f"the device path and numpy: {got[bad][:80]!r} vs "
-                                 f"{want[bad][:80]!r}")
-    # the trace's post-processing grows with its events: one call on the
-    # first TRACED_READS reads keeps the phase inside the time limit
-    traced = _device_ms(lambda: error_profile.banded_cs_batch_device(
-        queries[:TRACED_READS], spans[:TRACED_READS], device="cuda"))
+    traced = _device_ms(device_path)
     lens = [len(q) for q in queries]
-    return {"n_reads": n, "read_len": [min(lens), max(lens)], "device_s": device_s,
-            "numpy_s": numpy_s, "traced_reads": TRACED_READS, "device_events": traced["events"],
+    return {"n_reads": n, "read_len": [min(lens), max(lens)], "w_pad": w_pad, "ms": kernel_ms,
+            "plain_ms": plain_ms, "max_abs_err": 0, **costs,
+            "lone_read": {"column": slow, "rows": int(arrays[2][slow]),
+                          "steps": int(stops[slow]), "ms": lone_ms,
+                          "walk_x_step_ms": int(stops[slow]) * step_ns * 1e-6},
+            "design_floor_ms": lone_ms, "ptxas": ptxas, "device_s": device_s,
+            "numpy_s": numpy_s, "device_events": traced["events"],
             "device_busy_ms": traced["device_ms"], "strings_equal": True}
 
 
@@ -1337,12 +1489,13 @@ def observation_phase() -> dict:
         {"worker"} if name.endswith("_bg") else {"MainThread"})]
     if missing or not any(n.endswith("_bg") for n in table):
         raise AssertionError(f"observation: stages without their span on their row: {missing}")
-    # the whole-run profiler trace names the three kernels
+    # the whole-run profiler trace names the four kernels
     (prof_name,) = [f for f in os.listdir(prof_dir) if f.endswith(".pt.trace.json")]
     with open(os.path.join(prof_dir, prof_name), "rb") as fh:
         raw = fh.read()
     kernels_named = {k: k.encode() in raw for k in ("sw_banded_kernel", "pileup_forward_kernel",
-                                                     "pileup_traceback_kernel")}
+                                                     "pileup_traceback_kernel",
+                                                     "error_profile_cs_kernel")}
     if not all(kernels_named.values()):
         raise AssertionError(f"observation: the profiler trace lacks a kernel: {kernels_named}")
     rep = _cli_probe("--report", os.path.dirname(nano))
@@ -1667,8 +1820,9 @@ def full_e2e(kernels, rounds: int, step_ns: float):
     profiles, with them on the main thread, under the imperative order, as
     it is and without telemetry, then once under ``poa``.
     Kernel launches are counted over the first run (recorded by shape for
-    :func:`launch_gaps` and :func:`traceback_gaps`, whose dependent-load
-    floor takes ``step_ns`` a step) and over the ``poa`` run, each from zero. Each
+    :func:`launch_gaps`, :func:`traceback_gaps`, whose dependent-load
+    floor takes ``step_ns`` a step, and :func:`cs_gaps`), over the ``poa``
+    run and over the run without the error profiles, each from zero. Each
     default run's telemetry.json is read back and its roll-up timed.
     Returns the numbers and the full lane's simulated library (its first
     run's output stays in ``build/chip_smoke/lane_full`` for phase 10)."""
@@ -1677,11 +1831,13 @@ def full_e2e(kernels, rounds: int, step_ns: float):
     from ont_tcrconsensus_tpu_torch.io import simulator
     from ont_tcrconsensus_tpu_torch.obs import transfers as obs_transfers
     from ont_tcrconsensus_tpu_torch.ops import pileup, pileup_kernel, sw_kernel
+    from ont_tcrconsensus_tpu_torch.qc import error_profile
 
     dev = torch.device("cuda")
     recorded = {"sw": (sw_kernel, "align_banded_auto", _sw_shape, True),
                 "pileup": (pileup, "forward_auto", _pileup_shape, True),
-                "traceback": (pileup, "_forward_traceback", _traceback_shape, False)}
+                "traceback": (pileup, "_forward_traceback", _traceback_shape, False),
+                "cs": (error_profile, "cs_core_auto", _cs_shape, True)}
     shapes: dict = {}
 
     t0 = time.perf_counter()
@@ -1700,11 +1856,13 @@ def full_e2e(kernels, rounds: int, step_ns: float):
                + ["poa"])
     lanes = ["full"] + ["small"] * (len(methods) - 1)
     seconds, stages, peaks, polisher_runs, launches, diffs = [], [], [], [], {}, {}
+    no_profile: dict[str, int] = {}  # launches of the run without the error profiles
     telemetry: dict[int, dict] = {}
     ingest: dict[str, int] = {}  # run 0's read batches by ingest path
     for run, (lane, method) in enumerate(zip(lanes, methods)):
         root, lib = roots[lane], libs[lane]
-        counted = run == 0 or method == "poa"  # each path's launches, from zero
+        # each path's launches, from zero
+        counted = run == 0 or method in ("poa", "rnn, error_profile_sample 0")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         if counted:
@@ -1752,7 +1910,9 @@ def full_e2e(kernels, rounds: int, step_ns: float):
                 "memory": {"nodes": memory["nodes"], "problems": memory["problems"]}}
         stages.append(stage_s)
         polisher_runs.append(pol)
-        if counted:
+        if method == "rnn, error_profile_sample 0":
+            no_profile = {k.__name__: k.launches for k in kernels}
+        elif counted:
             launches[method] = {k.__name__: k.launches for k in kernels}
         counts = got.get("barcode01") or {}
         diffs.update({f"run {run} ({lane} lane, {method}): {k}": (counts.get(k, 0), lib.true_counts.get(k, 0))
@@ -1765,14 +1925,16 @@ def full_e2e(kernels, rounds: int, step_ns: float):
            "seconds": seconds, "reads_per_s": [n / s for n, s in zip(n_reads, seconds)],
            "counts_exact": not diffs,
            "max_memory_allocated_gb": peaks, "polisher": polisher_runs,
-           "data_s": data_s, "launches": launches, "stage_s": stages,
+           "data_s": data_s, "launches": launches, "launches_no_profile": no_profile,
+           "stage_s": stages,
            "telemetry": telemetry, "ingest_batches": ingest,
            "launch_gaps": {
                "sw": launch_gaps(shapes["sw"], sw_kernel.align_banded_cuda, _sw_costs, dev),
                "pileup": launch_gaps(shapes["pileup"], pileup_kernel.forward_planes_cuda,
                                      _pileup_costs, dev),
                "traceback": traceback_gaps(shapes["traceback"], shapes["pileup"], step_ns,
-                                           dev)}}
+                                           dev),
+               "cs": cs_gaps(shapes["cs"], dev)}}
     if diffs:
         out["count_diffs"] = diffs
     return out, libs["full"]
@@ -1945,6 +2107,9 @@ def ingest_phase(lib, clean: dict, kernels) -> dict:
 # carry other spans (tests/test_torch_mesh_e2e.py holds this to the JAX
 # package, whose sharded and unsharded runs differ in it the same way)
 MESH_DIFFERS = ("barcode01/logs/barcode01_align_error_profile.log",)
+# kernels no sharded call launches: kernel B4 (no QC error profile is
+# sharded, as in the JAX package)
+UNSHARDED = ("error_profile_cs_cuda",)
 PER_PROCESS = ("robustness_report_p{}.json", "telemetry_p{}.json", "history_p{}.jsonl",
                "stack_dumps_p{}.log")
 
@@ -2060,7 +2225,8 @@ def _mesh_drills(lib, kernels, mesh_mod) -> dict:
             if name == "no fault":
                 _same_files(_artifacts(root), unsharded, "mesh drill no fault", MESH_DIFFERS)
                 ok = (events == [] and busy == {"cuda:0": 1.0, "cuda:1": 1.0}
-                      and all(sorted(by) == ["cuda:0", "cuda:1"] for _, by in launches.values()))
+                      and all(sorted(by) == ["cuda:0", "cuda:1"]
+                              for name, (_, by) in launches.items() if name not in UNSHARDED))
             elif name == "mesh.device_lost":
                 ok = (detail == [{"node": "round1_polish", "data_from": 2, "data_to": 1}]
                       and ("polish.dispatch", "device_lost", "escalated") in events
@@ -2173,7 +2339,8 @@ def mesh_phase(small: dict, small_tree: dict, kernels) -> dict:
     if got.get("barcode01") != lib.true_counts:
         raise AssertionError(f"mesh: small lane counts differ from the truth: {got}")
     labels = [f"cuda:{i}" for i in range(n_cards)]
-    if not all(launches.values()) or any(sorted(s) != labels for s in by_slice.values()):
+    if not all(launches.values()) or any(sorted(s) != labels for name, s in by_slice.items()
+                                         if name not in UNSHARDED):
         raise AssertionError(f"mesh: a kernel did not launch on every slice: {by_slice}")
     if not _b3_follows_b2(launches):
         raise AssertionError(f"mesh: B3 did not follow every B2 launch: {launches}")
@@ -2724,7 +2891,7 @@ def training_phase(tile_feats) -> dict:
 
     from ont_tcrconsensus_tpu_torch import convert
     from ont_tcrconsensus_tpu_torch.models import polisher, train
-    from ont_tcrconsensus_tpu_torch.ops import pileup_kernel, sw_kernel, traceback_kernel
+    from ont_tcrconsensus_tpu_torch.ops import cs_kernel, pileup_kernel, sw_kernel, traceback_kernel
 
     t_phase = time.perf_counter()
     out: dict = {}
@@ -2736,6 +2903,7 @@ def training_phase(tile_feats) -> dict:
     sw_kernel.align_banded_cuda.launches = 0
     b2.launches = 0
     b3.launches = 0
+    cs_kernel.error_profile_cs_cuda.launches = 0
 
     def b2_since(start):
         return b2.launches - start
@@ -2854,6 +3022,7 @@ def training_phase(tile_feats) -> dict:
         out["b2_launches"] = b2.launches
         out["b3_launches"] = b3.launches
         out["b1_launches"] = sw_kernel.align_banded_cuda.launches
+        out["b4_launches"] = cs_kernel.error_profile_cs_cuda.launches
         if b3.launches != b2.launches:
             raise AssertionError(f"training: B3 launched {b3.launches} times, B2 {b2.launches}")
 
@@ -3145,7 +3314,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     try:
         from ont_tcrconsensus_tpu_torch.device import resolve_device
-        from ont_tcrconsensus_tpu_torch.ops import (_build, pileup_kernel, sw_kernel,
+        from ont_tcrconsensus_tpu_torch.ops import (_build, cs_kernel, pileup_kernel, sw_kernel,
                                                     traceback_kernel)
     except ImportError as exc:
         return _fail(f"the port is not beside this script ({exc})")
@@ -3264,14 +3433,24 @@ def main(argv=None) -> int:
         return _fail(f"polisher decisions differ between cuda and cpu: {pol['flips']}")
 
     phase("5 error profile")
-    # 5. the QC error profile's device path against numpy
-    ep = report["error_profile"] = error_profile_phase()
-    print(f"error profile ({ep['n_reads']} reads of {ep['read_len'][0]}-{ep['read_len'][1]} nt): "
-          f"every cs string equal on the card and in numpy; device path "
-          + ", ".join(f"{t:.2f}" for t in ep["device_s"])
-          + f" s (traced on {ep['traced_reads']} reads: {ep['device_events']} device events, "
-          f"busy {ep['device_busy_ms']:.1f} ms), "
-          f"numpy {ep['numpy_s']:.2f} s", flush=True)
+    # 5. kernel B4 against the plain core and numpy, the device path
+    b4_ptxas = [line.strip() for line in logs.get("error_profile_cs", "").splitlines()
+                if "registers" in line or "spill" in line]
+    ep = report["error_profile"] = error_profile_phase(step_ns, b4_ptxas)
+    lone = ep["lone_read"]
+    print(f"parity error profile B4 ({ep['n_reads']} reads of {ep['read_len'][0]}-"
+          f"{ep['read_len'][1]} nt; the device path's tile L={ep['L']} N={ep['N']} M={ep['M']} "
+          f"w_pad={ep['w_pad']}): every op log equal to the plain core's up to its stop; kernel {ep['ms']:.3f} ms, plain {ep['plain_ms']:.1f} ms, "
+          f"bound {ep['bound_ms']:.4f} ms ({ep['bound_by']}, {ep['cells']} band cells, "
+          f"{ep['steps']} walk steps); design floor {ep['design_floor_ms']:.3f} ms (tile column "
+          f"{lone['column']} alone, L2 flushed first: {lone['rows']} rows, {lone['steps']} "
+          f"steps; its walk x {step_ns:.1f} ns = {lone['walk_x_step_ms']:.3f} ms); ptxas "
+          f"{'; '.join(ep['ptxas']) or 'not rebuilt'}", flush=True)
+    print(f"error profile device path (B4 inside, to strings): "
+          + ", ".join(f"{t:.3f}" for t in ep["device_s"])
+          + f" s, every cs string equal to numpy's; traced: {ep['device_events']} device "
+          f"events, busy {ep['device_busy_ms']:.2f} ms; numpy {ep['numpy_s']:.2f} s",
+          flush=True)
 
     phase("6 small e2e")
     # 6. small e2e, cuda vs cpu, under both polish methods
@@ -3296,7 +3475,7 @@ def main(argv=None) -> int:
           + f"; trace.json {obs['trace_events']} events ({obs['trace_bytes']} B), a span for "
           f"each of {len(obs['stages'])} stages on its row; profiler trace "
           f"{obs['profiler_trace_bytes']} B, {obs['profiler_trace_events']} events, names "
-          f"the three kernels; --report exit 0 without torch ({obs['report_lines']} lines); no "
+          f"the four kernels; --report exit 0 without torch ({obs['report_lines']} lines); no "
           f"watchdog event; kernel builds {obs['compile']['count']}; device high-water "
           f"{obs['hbm_high_water_bytes']} B", flush=True)
     pd = obs["dispatch"].get("polish.dispatch", {})
@@ -3310,7 +3489,7 @@ def main(argv=None) -> int:
     # overlapped, under the imperative order and without telemetry, then the
     # poa path), and the plants' cost
     kernels = (sw_kernel.align_banded_cuda, pileup_kernel.forward_planes_cuda,
-               traceback_kernel.traceback_columns_cuda)
+               traceback_kernel.traceback_columns_cuda, cs_kernel.error_profile_cs_cuda)
     full, full_lib = full_e2e(kernels, max(args.lane_runs, 0), step_ns)
     report["full_e2e"] = full
     plants = report["plant_cost_us"] = plant_cost(dev)
@@ -3333,11 +3512,14 @@ def main(argv=None) -> int:
               + f"; polisher {full['polisher'][run]['s']:.2f} (peak inside it: "
               f"{full['polisher'][run]['peak_gb']} GB)" + (f"; {qc}" if qc else ""), flush=True)
     for key, gaps in full["launch_gaps"].items():
-        dims = "(batch, L, Lr, W, out_len)" if key == "traceback" else "(batch, L, Lr, W)"
+        dims = {"traceback": "(batch, L, Lr, W, out_len)",
+                "cs": "(L, N, M, w_pad)"}.get(key, "(batch, L, Lr, W)")
         print(f"full e2e run 0 {key} launches by {dims}: " + ", ".join(
               f"{tuple(r['shape'])} x{r['launches']} {r['ms']:.3f} ms (bound {r['bound_ms']:.4f}"
               + (f", dependent-load floor {r['dependent_load_floor_ms']:.3f}"
-                 if "dependent_load_floor_ms" in r else "") + ")"
+                 if "dependent_load_floor_ms" in r else "")
+              + (f"; every op log equal to the plain core's, plain {r['plain_ms']:.1f} ms"
+                 if "plain_ms" in r else "") + ")"
               for r in gaps["shapes"]), flush=True)
         print(f"full e2e run 0 {key}: kernel {gaps['kernel_ms']:.1f} ms in all, launches x "
               f"(time - bound) {gaps['launches_x_gap_ms']:.1f} ms", flush=True)
@@ -3408,8 +3590,14 @@ def main(argv=None) -> int:
                      f"than 1%: {mem_off}")
     if not full["counts_exact"]:
         return _fail(f"full e2e counts differ from the truth: {full.get('count_diffs')}")
+    b4 = {path: n["error_profile_cs_cuda"] for path, n in full["launches"].items()}
+    b4_off = full["launches_no_profile"].get("error_profile_cs_cuda")
+    print(f"full e2e B4 launches: {b4} (run 0 the full lane), without the QC profiles "
+          f"{'not run' if b4_off is None else b4_off}", flush=True)
     if not all(n for path in full["launches"].values() for n in path.values()):
         return _fail(f"a kernel of a path never launched: {full['launches']}")
+    if b4_off:
+        return _fail(f"B4 launched without the QC profiles: {full['launches_no_profile']}")
     if not all(_b3_follows_b2(path) for path in full["launches"].values()):
         return _fail(f"B3 did not follow every B2 launch: {full['launches']}")
     _check_ingest_path(full["ingest_batches"], parser, "full e2e run 0")
@@ -3507,7 +3695,8 @@ def main(argv=None) -> int:
           f"{sv['warmup_s']}); prewarm {pw['seconds']} s, {pw['compiled']} ok, {pw['failed']} "
           f"failed, kernel build/load {pw['build_s']} s; entries " + ", ".join(
               f"{e['kind']} w={e['width']} b={e['batch']} {e['seconds']} s "
-              f"B1 {e['launches']['B1']} B2 {e['launches']['B2']} B3 {e['launches']['B3']}"
+              f"B1 {e['launches']['B1']} B2 {e['launches']['B2']} B3 {e['launches']['B3']} "
+              f"B4 {e['launches']['B4']}"
               for e in pw["entries"]),
           flush=True)
     j1 = sv["job1"]
@@ -3563,7 +3752,7 @@ def main(argv=None) -> int:
     print(f"training CLI on the card: exit {tr['cli']['rc']} in {tr['cli']['seconds']:.1f} s; "
           f"B2 launches of the phase (in this process) {tr['b2_launches']}, B3 "
           f"{tr['b3_launches']}, B1 "
-          f"{tr['b1_launches']}; models/weights/ unchanged; phase {tr['seconds']:.1f} s",
+          f"{tr['b1_launches']}, B4 {tr['b4_launches']}; models/weights/ unchanged; phase {tr['seconds']:.1f} s",
           flush=True)
     _dump(args.out, report)
 
@@ -3654,6 +3843,20 @@ def main(argv=None) -> int:
             **({"dependent_load_floor_ms": r["dependent_load_floor_ms"]}
                if key == "traceback" else {}),
         })
+    # B4's training and lane-scale counts are read in phases 13 and 15 (no
+    # training step and no lane-scale run computes a QC profile: 0 there)
+    entries.append({
+        "name": "error_profile_cs", "route": "cuda",
+        "source": "ont_tcrconsensus_tpu_torch/csrc/error_profile_cs.cu",
+        "replaces": "ont_tcrconsensus_tpu/qc/error_profile.py:294",
+        "launches": full["launches"]["rnn"][cs_kernel.error_profile_cs_cuda.__name__],
+        "launches_training": tr["b4_launches"],
+        "launches_serve_load": il["launches"][cs_kernel.error_profile_cs_cuda.__name__],
+        "launches_lane_scale": art["kernel_launches"]["B4"],
+        "max_abs_err": ep["max_abs_err"], "ms": ep["ms"], "plain_ms": ep["plain_ms"],
+        "bound_ms": ep["bound_ms"], "bound_by": ep["bound_by"], "library_ms": None,
+        "design_floor_ms": ep["design_floor_ms"],
+    })
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -3700,7 +3903,9 @@ def lane_scale_phase() -> dict:
         (f"other regions differ: {rest}", bool(rest)),
         (f"exit {proc.returncode} with counts_exact {art['counts_exact']}",
          proc.returncode != (0 if art["counts_exact"] else 1)),
-        (f"launches {b}", not all(b.values()) or b["B3"] != b["B2"]),
+        (f"launches {b}", not all(b[k] for k in ("B1", "B2", "B3")) or b["B3"] != b["B2"]),
+        # the twin runs with error_profile_sample 0: no QC profile, no B4
+        (f"B4 launched {b['B4']} times without a QC profile", b["B4"] != 0),
     ) if bad]
     if problems:
         raise AssertionError(f"lane scale: {'; '.join(problems)}")

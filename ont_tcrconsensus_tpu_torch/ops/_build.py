@@ -27,13 +27,14 @@ DEFAULT_BUILD_DIR = os.path.join(
     "build", "torch_kernels",
 )
 BUILD_DIR = DEFAULT_BUILD_DIR  # where libraries are built and looked up
-KERNELS = ("sw_banded", "pileup_forward", "pileup_traceback")
+KERNELS = ("sw_banded", "pileup_forward", "pileup_traceback", "error_profile_cs")
 # each launcher's C signature: its pointers, its ints, then the stream
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "sw_banded": [_P] * 6 + [_I] * 8 + [_P],
     "pileup_forward": [_P] * 6 + [_I] * 8 + [_P],
     "pileup_traceback": [_P] * 8 + [_I] * 4 + [_P],
+    "error_profile_cs": [_P] * 10 + [_I] * 4 + [_P],
 }
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 CUDA_NVCC = "/usr/local/cuda/bin/nvcc"  # the toolkit's home when not on PATH

@@ -14,12 +14,14 @@ in cs syntax:
 
 Two routes give the same strings. On the CPU, numpy: :func:`banded_cs`
 read by read and :func:`banded_cs_batch` over a batch. On the card,
-:func:`banded_cs_batch_device`: the DP fill as a loop over rows and its
-traceback as a loop over steps, each row or step a few PyTorch operations
-over a tile of reads, computed as the JAX package's ``_device_cs_core``
-computes them (an XLA scan there, no Pallas kernel, so plain PyTorch here);
-only a per-step op log comes back to the host. :func:`profile_store`
-samples a read store and picks the route from the device.
+:func:`banded_cs_batch_device`: the DP fill and its traceback over a tile
+of reads, computed as the JAX package's ``_device_cs_core`` computes them
+(two XLA scans there), as kernel B4 (``csrc/error_profile_cs.cu``, one
+launch a tile, :func:`cs_core_auto`); its plain twin, the fill as a loop
+over rows and the traceback as a loop over steps of a few PyTorch
+operations each (:func:`_device_cs_core`), takes CPU tensors. Only a
+per-step op log comes back to the host. :func:`profile_store` samples a
+read store and picks the route from the device.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import numpy as np
 import torch
 
 from ont_tcrconsensus_tpu_torch.device import resolve_device
-from ont_tcrconsensus_tpu_torch.ops import encode
+from ont_tcrconsensus_tpu_torch.ops import cs_kernel, encode
 from ont_tcrconsensus_tpu_torch.robustness import watchdog
 
 _BASE = "acgtn"  # cs syntax is lowercase
@@ -280,11 +282,12 @@ def banded_cs_batch(queries: list[np.ndarray], refs: list[np.ndarray],
 
 
 # ---------------------------------------------------------------------------
-# device cs path: the fill and the traceback on the run's device; only a
-# compact per-step op log (kind + the two base codes) returns to the host,
-# where the cs string is assembled per contiguous segment instead of per
-# base. Output equals banded_cs_batch string for string
-# (tests/test_torch_qc.py, and chip_smoke.py on the card).
+# device cs path: the fill and the traceback on the run's device (kernel B4
+# on the card, the plain loops on CPU tensors); only a compact per-step op
+# log (kind + the two base codes) returns to the host, where the cs string
+# is assembled per contiguous segment instead of per base. Output equals
+# banded_cs_batch string for string (tests/test_torch_qc.py,
+# tests/test_torch_error_profile_kernel.py, and chip_smoke.py on the card).
 
 _K_MATCH, _K_SUB, _K_INS, _K_DEL, _K_STOP = 0, 1, 2, 3, 4
 _BIG = 1 << 20
@@ -292,10 +295,22 @@ _BIG = 1 << 20
 _TB_CHECK_EVERY = 64
 
 
-def _device_cs_core(qpad, rpad, n_arr, m_arr, lo_all, ws, *, w_pad: int, n_fill: int):
-    """Banded unit-cost DP fill + traceback on the tensors' device.
+def cs_core_auto(qpad, rpad, n_arr, m_arr, lo_all, ws, *, w_pad: int):
+    """The op log of one tile: the plain :func:`_device_cs_core` for CPU
+    tensors, kernel B4 (:func:`..ops.cs_kernel.error_profile_cs_cuda`,
+    uint8 codes) for CUDA tensors, launched once. Both log the walks equal
+    up to each walk's first STOP; B4's log has all N + M rows."""
+    if qpad.device.type == "cpu":
+        return _device_cs_core(qpad, rpad, n_arr, m_arr, lo_all, ws, w_pad=w_pad,
+                               n_fill=int(n_arr.max()))
+    return cs_kernel.error_profile_cs_cuda(qpad, rpad, n_arr, m_arr, lo_all, ws, w_pad)
 
-    Args: qpad (L, N) and rpad (L, M) int32 codes, n_arr/m_arr (L,) int32,
+
+def _device_cs_core(qpad, rpad, n_arr, m_arr, lo_all, ws, *, w_pad: int, n_fill: int):
+    """Banded unit-cost DP fill + traceback on the tensors' device, the
+    plain version of kernel B4.
+
+    Args: qpad (L, N) and rpad (L, M) integer codes, n_arr/m_arr (L,) int32,
     lo_all (L, N+1) int32 per-row band starts, ws (L,) int32 per-read band
     widths; ``w_pad`` >= ws.max(); ``n_fill`` = n_arr.max() (rows past
     every read's end only carry the previous row, so the fill stops there).
@@ -309,6 +324,7 @@ def _device_cs_core(qpad, rpad, n_arr, m_arr, lo_all, ws, *, w_pad: int, n_fill:
     M = rpad.shape[1]
     dev = qpad.device
     i32, u8 = torch.int32, torch.uint8
+    qpad, rpad = qpad.to(i32), rpad.to(i32)
     lanes = torch.arange(w_pad, dtype=i32, device=dev)[None, :]
     lanes1 = torch.arange(w_pad + 1, dtype=i32, device=dev)[None, :]
     lane_ok = lanes < ws[:, None]
@@ -418,6 +434,47 @@ def _cs_from_oplog(kind: np.ndarray, qb: np.ndarray, rb: np.ndarray) -> str:
     return "".join(out)
 
 
+def _bucket(x: int, q: int) -> int:
+    return -(-x // q) * q
+
+
+def _tile_inputs(qs: list[np.ndarray], rs: list[np.ndarray], part: list[int],
+                 halves_all: np.ndarray):
+    """One tile's inputs to the fill + traceback, numpy: codes qpad (L_pad,
+    N) and rpad (L_pad, M) uint8, n, m (L_pad,) int32, the band starts
+    lo_all (L_pad, N+1) int32 (float64 ``np.rint`` of the interpolated
+    diagonal, as the JAX package rounds), ws (L_pad,) int32, and w_pad.
+    Lengths are bucketed to 256 and band lanes to 64; the read axis is
+    padded to 64 with one-base pad rows whose walks are discarded."""
+    L = len(part)
+    ns = np.array([len(qs[b]) for b in part], np.int32)
+    ms = np.array([len(rs[b]) for b in part], np.int32)
+    halves = halves_all[part]
+    ws = 2 * halves + 1
+    N = _bucket(int(ns.max()), 256)
+    M = _bucket(int(ms.max()), 256)
+    w_pad = _bucket(int(ws.max()), 64)
+    L_pad = _bucket(L, 64)
+    qpad = np.zeros((L_pad, N), np.uint8)
+    rpad = np.zeros((L_pad, M), np.uint8)
+    for k, b in enumerate(part):
+        qpad[k, : ns[k]] = qs[b]
+        rpad[k, : ms[k]] = rs[b]
+    n_full = np.ones(L_pad, np.int32)  # pad rows: 1-base walks, discarded
+    m_full = np.ones(L_pad, np.int32)
+    n_full[:L] = ns
+    m_full[:L] = ms
+    ws_full = np.full(L_pad, ws.max() if L else 1, np.int32)
+    ws_full[:L] = ws
+    rows = np.arange(N + 1, dtype=np.int32)[None, :]
+    centers = np.rint(rows * m_full[:, None] / n_full[:, None]).astype(np.int32)
+    halves_full = np.ones(L_pad, np.int32)
+    halves_full[:L] = halves
+    lo_all = np.clip(centers - halves_full[:, None], 0, None)
+    lo_all = np.minimum(lo_all, m_full[:, None]).astype(np.int32)
+    return qpad, rpad, n_full, m_full, lo_all, ws_full, w_pad
+
+
 def banded_cs_batch_device(queries: list[np.ndarray], refs: list[np.ndarray],
                            band: int = 96, tile: int = 512,
                            device: str | torch.device | None = None) -> list[str]:
@@ -425,10 +482,9 @@ def banded_cs_batch_device(queries: list[np.ndarray], refs: list[np.ndarray],
     ``device`` (the card when None).
 
     The degenerate-row and band-outlier fallbacks reuse the host paths
-    verbatim; live reads run the fill + traceback in tiles of ``tile``
-    reads, lengths bucketed to 256 and band lanes to 64, the read axis
-    padded to 64 with one-base pad rows whose walks are discarded: the JAX
-    package's tiling.
+    verbatim; live reads run the fill + traceback (:func:`cs_core_auto`,
+    kernel B4 on the card) in tiles of ``tile`` reads, as
+    :func:`_tile_inputs` lays them out: the JAX package's tiling.
     """
     device = resolve_device(device)
     B = len(queries)
@@ -452,44 +508,14 @@ def banded_cs_batch_device(queries: list[np.ndarray], refs: list[np.ndarray],
         else:
             live.append(b)
 
-    def bucket(x: int, q: int) -> int:
-        return -(-x // q) * q
-
     def up(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(device)
 
     for s in range(0, len(live), tile):
         part = live[s : s + tile]
-        L = len(part)
-        n_arr = ns[part]
-        m_arr = ms[part]
-        halves = halves_all[part]
-        ws = 2 * halves + 1
-        N = bucket(int(n_arr.max()), 256)
-        M = bucket(int(m_arr.max()), 256)
-        w_pad = bucket(int(ws.max()), 64)
-        L_pad = bucket(L, 64)
-        qpad = np.zeros((L_pad, N), np.int32)
-        rpad = np.zeros((L_pad, M), np.int32)
-        for k, b in enumerate(part):
-            qpad[k, : ns[b]] = qs[b]
-            rpad[k, : ms[b]] = rs[b]
-        n_full = np.ones(L_pad, np.int32)  # pad rows: 1-base walks, discarded
-        m_full = np.ones(L_pad, np.int32)
-        n_full[:L] = n_arr
-        m_full[:L] = m_arr
-        ws_full = np.full(L_pad, ws.max() if L else 1, np.int32)
-        ws_full[:L] = ws
-        rows = np.arange(N + 1, dtype=np.int32)[None, :]
-        centers = np.rint(rows * m_full[:, None] / n_full[:, None]).astype(np.int32)
-        halves_full = np.ones(L_pad, np.int32)
-        halves_full[:L] = halves
-        lo_all = np.clip(centers - halves_full[:, None], 0, None)
-        lo_all = np.minimum(lo_all, m_full[:, None]).astype(np.int32)
-        kind, qb, rb = (x.cpu().numpy() for x in _device_cs_core(
-            up(qpad), up(rpad), up(n_full), up(m_full), up(lo_all), up(ws_full),
-            w_pad=w_pad, n_fill=int(n_full.max()),
-        ))
+        *arrays, w_pad = _tile_inputs(qs, rs, part, halves_all)
+        kind, qb, rb = (x.cpu().numpy() for x in cs_core_auto(
+            *(up(a) for a in arrays), w_pad=w_pad))
         for k, b in enumerate(part):
             out[b] = _cs_from_oplog(kind[:, k], qb[:, k], rb[:, k])
     return [s_ if s_ is not None else "" for s_ in out]

@@ -23,7 +23,8 @@ candidate selection without a candidate):
 The report keeps the JAX package's schema (``kind``, ``batch``, ``width``,
 ``ok``, ``seconds``; ``compiled``/``failed`` count the entries that warmed
 or failed) and adds, per entry, the kernel launches it made (``launches``:
-``{"B1": n, "B2": n, "B3": n}``, from the wrappers' counters; 0 on the CPU, whose
+``{"B1": n, "B2": n, "B3": n, "B4": n}``, from the wrappers' counters (B4, the
+QC error profile's, 0 in a prewarm); 0 on the CPU, whose
 plain versions launch no kernel) and, for the whole prewarm, the seconds
 the process had spent making kernel libraries ready (``build_s``). An
 entry that fails is reported ``ok: false`` with its error, exactly as in
@@ -38,7 +39,8 @@ import time
 import numpy as np
 
 from ont_tcrconsensus_tpu_torch.io import bucketing
-from ont_tcrconsensus_tpu_torch.ops import _build, pileup_kernel, sw_kernel, traceback_kernel
+from ont_tcrconsensus_tpu_torch.ops import (_build, cs_kernel, pileup_kernel, sw_kernel,
+                                            traceback_kernel)
 from ont_tcrconsensus_tpu_torch.ops.encode import PAD_CODE
 
 
@@ -53,7 +55,8 @@ def declared_width_buckets(cfg) -> list[int]:
 def _launch_counts() -> dict[str, int]:
     return {"B1": sw_kernel.align_banded_cuda.launches,
             "B2": pileup_kernel.forward_planes_cuda.launches,
-            "B3": traceback_kernel.traceback_columns_cuda.launches}
+            "B3": traceback_kernel.traceback_columns_cuda.launches,
+            "B4": cs_kernel.error_profile_cs_cuda.launches}
 
 
 def _launches_since(before: dict[str, int]) -> dict[str, int]:

@@ -121,11 +121,13 @@ def _precision_at_depth(logs_dir: str):
 
 
 def _launches() -> dict[str, int]:
-    from ont_tcrconsensus_tpu_torch.ops import pileup_kernel, sw_kernel, traceback_kernel
+    from ont_tcrconsensus_tpu_torch.ops import (cs_kernel, pileup_kernel, sw_kernel,
+                                                traceback_kernel)
 
     return {"B1": sw_kernel.align_banded_cuda.launches,
             "B2": pileup_kernel.forward_planes_cuda.launches,
-            "B3": traceback_kernel.traceback_columns_cuda.launches}
+            "B3": traceback_kernel.traceback_columns_cuda.launches,
+            "B4": cs_kernel.error_profile_cs_cuda.launches}
 
 
 def _check_out(path: str) -> None:
