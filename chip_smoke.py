@@ -34,9 +34,13 @@ of which fails the script (non-zero exit, no result line):
    L=2048 and 3072 at W=64, and L=3072 at W=128 (out_len L), against the
    plain ``_traceback_steps`` on the same card tensors: every column and
    the spans exactly equal; its bound (a 32-byte sector a step of every
-   walk, the columns written once) and beside it the dependent-load
-   floor (the longest walk's steps times one step of a lone lane through
-   cold planes, measured first). Then one polish round at a main-path
+   walk, the columns written once) and beside it the design's floor: the
+   larger of the bytes it stages (the walked lanes' chunks of whole rows)
+   over the HBM rate and the longest walk's steps times one staged step of
+   a lone lane through cold planes, measured first. B3 also on seeded
+   random direction fields (``dp_cases.random_planes``, N=128, L=2048) at
+   W=64 and 128 with out_len L and 3L/4: every output equal to the plain
+   steps'. Then one polish round at a main-path
    tile, split into the B2 forward, the B3 traceback and the vote, beside
    one call of the plain traceback's host loop, and traced once with
    ``torch.profiler`` for the card's busy share;
@@ -56,10 +60,13 @@ of which fails the script (non-zero exit, no result line):
    7), the plain version's one call, the bound (the tile's band cells and
    walk steps over the int32 rate; its bytes) and the design's floor (the
    tile's slowest read alone, L2 flushed first, with its walk's steps
-   times phase 3's dependent step beside it), and ptxas's registers and
-   spills. Then the device path twice more (host clock), each equal to
-   numpy's, and once traced by ``torch.profiler`` for its device events
-   and busy time;
+   times phase 3's staged step beside it), the bytes the design stages,
+   and ptxas's registers, spills and shared memory. B4 also on the tests'
+   tiles and crafted band starts (``dp_cases.cs_tiles`` at w_pad 128 and
+   320, ``dp_cases.cs_crafted``): every op log equal to the plain core's.
+   Then the device path twice more (host clock), each equal to numpy's,
+   and once traced by ``torch.profiler`` for its device events and busy
+   time;
 6. small e2e: the tests' 4-region lane under ``rnn`` (the default) and
    under ``poa``, each on ``cuda`` and on ``cpu`` (plain versions; each
    CPU run in a process of its own, started first, beside the card's
@@ -653,16 +660,17 @@ TRACEBACK_STEP_OPS = {
     "spans, stop test, state": 10,
 }
 SECTOR_BYTES = 32  # the least a load moves from device memory
+TB_CHUNK_ROWS = 32  # csrc/pileup_traceback.cu kRows: plane rows a staged chunk
 
 
-def dependent_step_ns(dev, L: int = 3072, W: int = 64, reps: int = 5) -> float:
-    """One step of a lone lane's walk through cold planes, in ns: kernel B3
-    on one lane whose planes are all plain diagonal cells, walked from row
-    L - 1 to row 0 (L steps, one new 128- or 256-byte row a step, each
-    address known only once the last cell is read). The L2 cache (50 MB)
-    is overwritten before each of ``reps`` CUDA-event timed launches; the
-    median over L is the time a walk pays a step when nothing hides the
-    load, the unit of the design's dependent-load floor."""
+def staged_step_ns(dev, L: int = 3072, W: int = 64, reps: int = 5) -> float:
+    """One step of a lone lane's walk in kernel B3, in ns: one lane whose
+    planes are all plain diagonal cells, walked from row L - 1 to row 0 (L
+    steps, each a new row; the rows come through the kernel's staged
+    chunks, the first one cold). The L2 cache (50 MB) is overwritten before
+    each of ``reps`` CUDA-event timed launches; the median over L is the
+    time a walk pays a step when nothing else runs, the unit of the
+    design's walk floor."""
     import torch
 
     from ont_tcrconsensus_tpu_torch.ops import traceback_kernel
@@ -680,39 +688,78 @@ def dependent_step_ns(dev, L: int = 3072, W: int = 64, reps: int = 5) -> float:
     return float(np.median(times)) * 1e6 / L
 
 
+def _traceback_parity(label: str, args, N: int):
+    """Kernel B3 against the plain ``_traceback_steps`` on the same card
+    tensors (best, planes, reads, W, out_len): every output equal. Returns
+    the plain columns and the plain call's CUDA-event ms."""
+    from ont_tcrconsensus_tpu_torch.ops import pileup, traceback_kernel
+    from ont_tcrconsensus_tpu_torch.parallel.mesh import lockstep
+
+    import torch
+
+    got = traceback_kernel.traceback_columns_cuda(*args)
+    want, plain_ms = _timed_once(lambda: lockstep([pileup._traceback_steps(*args)])[0])
+    for name, a, b in zip(("base_at", "ins_cnt", "ins_base", "pos_at", "spans"), got, want):
+        if not torch.equal(a, b):
+            bad = (a != b).reshape(N, -1).any(dim=1).nonzero()[0, 0]
+            raise AssertionError(f"B3 {label}: {name} differs (first lane {int(bad)})")
+    return want, plain_ms
+
+
 def check_traceback(dev, seed: int, N: int, L: int, W: int, step_ns: float) -> dict:
     """Kernel B3 on B2's planes of a ``dp_batch`` (out_len = L) against the
     plain ``_traceback_steps`` on the same card tensors: every output equal."""
     import torch
 
     from ont_tcrconsensus_tpu_torch.io import dp_cases
-    from ont_tcrconsensus_tpu_torch.ops import pileup, pileup_kernel, traceback_kernel
-    from ont_tcrconsensus_tpu_torch.parallel.mesh import lockstep
+    from ont_tcrconsensus_tpu_torch.ops import pileup_kernel, traceback_kernel
 
     reads, rl, refs, tl, _ = (torch.from_numpy(x).to(dev)
                               for x in dp_cases.dp_batch(N, L, W, seed, offsets=False))
     best, planes = pileup_kernel.forward_planes_cuda(reads, rl, refs, tl, band_width=W)
     args = (best, planes, reads, W, L)
-    got = traceback_kernel.traceback_columns_cuda(*args)
-    want, plain_ms = _timed_once(lambda: lockstep([pileup._traceback_steps(*args)])[0])
-    for name, a, b in zip(("base_at", "ins_cnt", "ins_base", "pos_at", "spans"), got, want):
-        if not torch.equal(a, b):
-            bad = (a != b).reshape(N, -1).any(dim=1).nonzero()[0, 0]
-            raise AssertionError(f"B3 L={L} W={W}: {name} differs (first lane {int(bad)})")
+    want, plain_ms = _traceback_parity(f"L={L} W={W}", args, N)
     for _ in range(2):
         traceback_kernel.traceback_columns_cuda(*args)
     ms = _time_ms(lambda: traceback_kernel.traceback_columns_cuda(*args), 7)
     return {"L": L, "N": N, "W": W, "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
-            **_traceback_costs(want[4], N, L, step_ns),
+            **_traceback_costs(best, want[4], N, L, W, L, step_ns),
             "aligned_lanes": int((best[:, 0] > 0).sum())}
 
 
-def _traceback_costs(spans, N: int, out_len: int, step_ns: float) -> dict:
+def check_traceback_random(dev, seed: int, N: int, L: int, W: int) -> list[dict]:
+    """Kernel B3 on a seeded random direction field (``dp_cases.
+    random_planes``: long walks over many chunks, deletion runs up to 40,
+    walks at slot 0 and W - 1, N bases, dead lanes) with out_len L and 3L/4,
+    against the plain steps on the same card tensors: every output equal."""
+    import torch
+
+    from ont_tcrconsensus_tpu_torch.io import dp_cases
+
+    best, planes, reads = (torch.from_numpy(x).to(dev)
+                           for x in dp_cases.random_planes(seed, N, L, W))
+    rows = []
+    for out_len in (L, 3 * L // 4):
+        want, _ = _traceback_parity(f"random planes L={L} W={W} out_len={out_len}",
+                                    (best, planes, reads, W, out_len), N)
+        s = want[4].long()
+        rows.append({"N": N, "L": L, "W": W, "out_len": out_len, "equal": True,
+                     "longest_walk": int(torch.maximum(s[:, 1] - s[:, 0], s[:, 3] - s[:, 2])
+                                         .clamp(min=0).max()),
+                     "insertion_columns": int((want[1] > 0).sum()),
+                     "deletion_columns": int((want[0] == 4).sum())})
+    return rows
+
+
+def _traceback_costs(best, spans, N: int, L: int, W: int, out_len: int, step_ns: float) -> dict:
     """B3's bound and floor from the walks' spans: a lane takes at least
     max(read span, draft span) steps (each step consumes a read base, a
     draft column or both). Bytes: a 32-byte sector a step, the columns
-    written once, best and spans; the dependent-load floor: the longest
-    walk's steps, one after another, at ``step_ns`` each."""
+    written once, best and spans. The design's floor: the larger of the
+    bytes it stages (each walked lane's chunks of TB_CHUNK_ROWS whole rows,
+    from its first row's chunk to one past its last row's, and the chunks'
+    read bases) over the HBM rate and the longest walk's steps at
+    ``step_ns`` each."""
     import torch
 
     s = spans.long()
@@ -720,9 +767,18 @@ def _traceback_costs(spans, N: int, out_len: int, step_ns: float) -> dict:
     total = int(steps.sum())
     n_bytes = SECTOR_BYTES * total + N * out_len * (1 + 4 + 1 + 4) + N * 4 * 4 + N * 3 * 4
     bound, by = _bound_ms(n_bytes, total * sum(TRACEBACK_STEP_OPS.values()))
+    live = (best[:, 0] > 0) & (best[:, 1] >= 0)
+    top = best[:, 1].long().clamp(max=L - 1)
+    rows_walked = (top - s[:, 0] + 2).clamp(min=1)  # the last row's chunk and its lookahead
+    chunks = (rows_walked + TB_CHUNK_ROWS - 1) // TB_CHUNK_ROWS + 1
+    staged_rows = torch.minimum(chunks * TB_CHUNK_ROWS, top + 1)
+    staged = int(torch.where(live, staged_rows * (W * 2 + 1), 0).sum())
     longest = int(steps.max()) if N else 0
+    walk_ms = longest * step_ns * 1e-6
+    staged_ms = staged / HBM_BYTES_PER_S * 1e3
     return {"steps": total, "longest_walk": longest, "bound_ms": bound, "bound_by": by,
-            "step_ns": step_ns, "dependent_load_floor_ms": longest * step_ns * 1e-6}
+            "step_ns": step_ns, "staged_bytes": staged, "staged_bytes_ms": staged_ms,
+            "walk_floor_ms": walk_ms, "design_floor_ms": max(walk_ms, staged_ms)}
 
 
 @contextlib.contextmanager
@@ -770,9 +826,7 @@ def traceback_gaps(shapes: dict, forward_shapes: dict, step_ns: float, dev) -> d
     (batch, L, Lr, W, out_len) replays B2 on the first forward's inputs of
     its (batch, L, Lr, W), recorded by the same run, and times B3 on those
     planes (CUDA-event median of 5 after one warm-up), against the bound
-    and the dependent-load floor of this output's walks."""
-    import torch
-
+    and the design's floor of this output's walks."""
     from ont_tcrconsensus_tpu_torch.ops import pileup_kernel, traceback_kernel
 
     rows, total = [], 0.0
@@ -784,12 +838,12 @@ def traceback_gaps(shapes: dict, forward_shapes: dict, step_ns: float, dev) -> d
         spans = traceback_kernel.traceback_columns_cuda(best, planes, reads, W, out_len)[4]
         ms = _time_ms(lambda: traceback_kernel.traceback_columns_cuda(
             best, planes, reads, W, out_len), 5)
-        c = _traceback_costs(spans, N, out_len, step_ns)
+        c = _traceback_costs(best, spans, N, L, W, out_len, step_ns)
         gap = calls * (ms - c["bound_ms"])
         total += gap
         rows.append({"shape": list(shape), "launches": calls, "ms": ms,
                      "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-                     "dependent_load_floor_ms": c["dependent_load_floor_ms"],
+                     "design_floor_ms": c["design_floor_ms"],
                      "launches_x_gap_ms": gap})
         del best, planes
     return {"shapes": rows, "launches_x_gap_ms": total,
@@ -1016,9 +1070,15 @@ def _cs_costs(arrays, stops: np.ndarray) -> dict:
     n_bytes = sum(a.nbytes for a in arrays) + 3 * S * L
     bound, by = _bound_ms(n_bytes, cells * sum(CS_CELL_OPS.values())
                           + steps * sum(CS_STEP_OPS.values()))
+    # the design's own traffic: each read's codes and band starts staged
+    # whole, its packed plane rows 0..n written and staged back for the walk
+    w_pad = -(-int(ws.max()) // 64) * 64
+    staged = L * (N + rpad.shape[1] + 4 * (N + 1)) + int((n_arr.astype(np.int64) + 1).sum()) \
+        * w_pad // 4 * 2
     return {"L": L, "N": N, "M": rpad.shape[1], "cells": cells, "steps": steps,
             "rows_max": int(n_arr.max()), "longest_walk": int(stops.max()),
-            "bound_ms": bound, "bound_by": by}
+            "bound_ms": bound, "bound_by": by, "staged_bytes": staged,
+            "staged_bytes_ms": staged / HBM_BYTES_PER_S * 1e3}
 
 
 def _cs_lone_read_ms(arrays, w_pad: int, k: int, dev, reps: int = 5) -> float:
@@ -1050,7 +1110,8 @@ def cs_gaps(shapes: dict, dev) -> dict:
     w_pad) held to the plain ``_device_cs_core`` on its first launch's own
     card tensors (every op log up to its stop; the plain core's one call
     timed) and timed (CUDA-event median of 5 after one warm-up), against
-    the bound of that tile's cells and walks."""
+    the bound of that tile's cells and walks and the design's floor (the
+    tile's slowest read alone, :func:`_cs_lone_read_ms`)."""
     from ont_tcrconsensus_tpu_torch.ops import cs_kernel
     from ont_tcrconsensus_tpu_torch.qc import error_profile
 
@@ -1067,16 +1128,52 @@ def cs_gaps(shapes: dict, dev) -> dict:
                                  "plain core's")
         del plain
         ms = _time_ms(lambda: cs_kernel.error_profile_cs_cuda(*args, w_pad), 5)
-        c = _cs_costs([a.numpy() for a in host_args], _cs_stops(got[0]))
+        arrays = [a.numpy() for a in host_args]
+        stops = _cs_stops(got[0])
+        c = _cs_costs(arrays, stops)
         gap = calls * (ms - c["bound_ms"])
         total += gap
         rows.append({"shape": list(shape), "launches": calls, "ms": ms, "plain_ms": plain_ms,
                      "oplogs_equal_plain": True,
                      "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                     "design_floor_ms": _cs_lone_read_ms(
+                         arrays, w_pad, int(np.argmax(arrays[2] + stops)), dev),
                      "longest_walk": c["longest_walk"], "launches_x_gap_ms": gap})
         del args
     return {"shapes": rows, "launches_x_gap_ms": total,
             "kernel_ms": sum(r["launches"] * r["ms"] for r in rows)}
+
+
+def check_cs_tiles(dev) -> list[dict]:
+    """Kernel B4 on the tests' tiles (``dp_cases.cs_tiles``: ragged reads
+    with N bases, leading insertions and paths far off the diagonal at
+    w_pad 128; |n - m| up to 120 at w_pad 320) and on crafted band starts
+    (``dp_cases.cs_crafted``: a band jump the walks leave by, a band
+    moving back that forces the tail insertion), against the plain core on
+    the same card tensors: every op log up to its stop."""
+    import torch
+
+    from ont_tcrconsensus_tpu_torch.io import dp_cases
+    from ont_tcrconsensus_tpu_torch.ops import cs_kernel
+    from ont_tcrconsensus_tpu_torch.qc import error_profile
+
+    tiles = [(label, *dp_cases.cs_tile_arrays(qs, rs))
+             for label, (qs, rs) in dp_cases.cs_tiles().items()]
+    tiles += [(case, *dp_cases.cs_crafted(case)) for case in dp_cases.CS_CRAFTED]
+    rows = []
+    for label, arrays, w_pad in tiles:
+        args = [torch.from_numpy(a).to(dev) for a in arrays]
+        got = [x.cpu().numpy() for x in cs_kernel.error_profile_cs_cuda(*args, w_pad)]
+        want = [x.cpu().numpy() for x in error_profile._device_cs_core(
+            *args, w_pad=w_pad, n_fill=int(arrays[2].max()))]
+        bad = _oplog_mismatch(got, want)
+        if bad is not None:
+            raise AssertionError(f"B4 on the {label} tile: read {bad}'s op log differs from "
+                                 "the plain core's")
+        rows.append({"tile": label, "w_pad": w_pad, "reads": int(arrays[0].shape[0]),
+                     "rows_max": int(arrays[2].max()), "walk_steps": int(_cs_stops(got[0]).sum()),
+                     "oplogs_equal_plain": True})
+    return rows
 
 
 def error_profile_phase(step_ns: float, ptxas: list[str], seed: int = 5, n: int = 512) -> dict:
@@ -1155,6 +1252,7 @@ def error_profile_phase(step_ns: float, ptxas: list[str], seed: int = 5, n: int 
                           "steps": int(stops[slow]), "ms": lone_ms,
                           "walk_x_step_ms": int(stops[slow]) * step_ns * 1e-6},
             "design_floor_ms": lone_ms, "ptxas": ptxas, "device_s": device_s,
+            "tiles": check_cs_tiles(dev),
             "numpy_s": numpy_s, "device_events": traced["events"],
             "device_busy_ms": traced["device_ms"], "strings_equal": True}
 
@@ -1820,8 +1918,8 @@ def full_e2e(kernels, rounds: int, step_ns: float):
     profiles, with them on the main thread, under the imperative order, as
     it is and without telemetry, then once under ``poa``.
     Kernel launches are counted over the first run (recorded by shape for
-    :func:`launch_gaps`, :func:`traceback_gaps`, whose dependent-load
-    floor takes ``step_ns`` a step, and :func:`cs_gaps`), over the ``poa``
+    :func:`launch_gaps`, :func:`traceback_gaps`, whose walk floor takes
+    ``step_ns`` a step, and :func:`cs_gaps`), over the ``poa``
     run and over the run without the error profiles, each from zero. Each
     default run's telemetry.json is read back and its roll-up timed.
     Returns the numbers and the full lane's simulated library (its first
@@ -3390,10 +3488,12 @@ def main(argv=None) -> int:
     report["pileup"] = [check_pileup(dev, 10 + seed, N, L, W)
                         for seed, (N, L, W) in
                         enumerate(((1024, 2048, 64), (1024, 3072, 64), (1024, 3072, 128)))]
-    step_ns = report["dependent_step_ns"] = dependent_step_ns(dev)
+    step_ns = report["staged_step_ns"] = staged_step_ns(dev)
     report["traceback"] = [check_traceback(dev, 10 + seed, N, L, W, step_ns)
                            for seed, (N, L, W) in
                            enumerate(((1024, 2048, 64), (1024, 3072, 64), (1024, 3072, 128)))]
+    report["traceback_random"] = [row for seed, W in enumerate((64, 128))
+                                  for row in check_traceback_random(dev, 30 + seed, 128, 2048, W)]
     for key in ("sw", "pileup"):
         for r in report[key]:
             print(f"parity {key} L={r['L']} W={r['W']}: exact; kernel {r['ms']:.3f} ms, plain "
@@ -3401,14 +3501,20 @@ def main(argv=None) -> int:
                   f"{r['fn_ops_per_cell']} ops a cell); design floor {r['design_bound_ms']:.3f} ms "
                   f"({r['design_ops_per_cell']} ops, {r['design_shuffles_per_cell']:.2f} "
                   f"shuffles a cell)", flush=True)
-    print(f"B3 dependent step (one lane, cold planes, L=3072, W=64): {step_ns:.1f} ns a step",
+    print(f"B3 staged step (one lane, cold planes, L=3072, W=64): {step_ns:.1f} ns a step",
           flush=True)
     for r in report["traceback"]:
         print(f"parity traceback N={r['N']} L={r['L']} W={r['W']} (out_len L, B2's planes): "
               f"exact; kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.1f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['steps']} steps at least, 32 B a "
-              f"step); dependent-load floor {r['dependent_load_floor_ms']:.3f} ms (longest "
-              f"walk {r['longest_walk']} steps x {r['step_ns']:.1f} ns)", flush=True)
+              f"step); design floor {r['design_floor_ms']:.3f} ms (staged {r['staged_bytes']} B "
+              f"= {r['staged_bytes_ms']:.3f} ms; longest walk {r['longest_walk']} steps x "
+              f"{r['step_ns']:.1f} ns = {r['walk_floor_ms']:.3f} ms)", flush=True)
+    for r in report["traceback_random"]:
+        print(f"parity traceback on random planes N={r['N']} L={r['L']} W={r['W']} out_len "
+              f"{r['out_len']}: every output equal to the plain steps' (longest walk "
+              f"{r['longest_walk']} steps, {r['insertion_columns']} insertion and "
+              f"{r['deletion_columns']} deletion columns)", flush=True)
     split = report["polish_split"] = polish_split(dev, 20)
     print(f"polish round (C={split['C']} S={split['S']} L={split['L']} W={split['W']}): "
           f"B2 forward {split['forward_ms']:.1f} ms, B3 traceback {split['traceback_ms']:.1f} ms "
@@ -3444,8 +3550,13 @@ def main(argv=None) -> int:
           f"bound {ep['bound_ms']:.4f} ms ({ep['bound_by']}, {ep['cells']} band cells, "
           f"{ep['steps']} walk steps); design floor {ep['design_floor_ms']:.3f} ms (tile column "
           f"{lone['column']} alone, L2 flushed first: {lone['rows']} rows, {lone['steps']} "
-          f"steps; its walk x {step_ns:.1f} ns = {lone['walk_x_step_ms']:.3f} ms); ptxas "
+          f"steps; its walk x B3's staged step {step_ns:.1f} ns = {lone['walk_x_step_ms']:.3f} "
+          f"ms); staged {ep['staged_bytes']} B = {ep['staged_bytes_ms']:.3f} ms; ptxas "
           f"{'; '.join(ep['ptxas']) or 'not rebuilt'}", flush=True)
+    for r in ep["tiles"]:
+        print(f"parity error profile B4 on the {r['tile']} tile ({r['reads']} reads, w_pad "
+              f"{r['w_pad']}, up to {r['rows_max']} rows, {r['walk_steps']} walk steps): every "
+              "op log equal to the plain core's up to its stop", flush=True)
     print(f"error profile device path (B4 inside, to strings): "
           + ", ".join(f"{t:.3f}" for t in ep["device_s"])
           + f" s, every cs string equal to numpy's; traced: {ep['device_events']} device "
@@ -3516,8 +3627,8 @@ def main(argv=None) -> int:
                 "cs": "(L, N, M, w_pad)"}.get(key, "(batch, L, Lr, W)")
         print(f"full e2e run 0 {key} launches by {dims}: " + ", ".join(
               f"{tuple(r['shape'])} x{r['launches']} {r['ms']:.3f} ms (bound {r['bound_ms']:.4f}"
-              + (f", dependent-load floor {r['dependent_load_floor_ms']:.3f}"
-                 if "dependent_load_floor_ms" in r else "")
+              + (f", design floor {r['design_floor_ms']:.3f}"
+                 if "design_floor_ms" in r else "")
               + (f"; every op log equal to the plain core's, plain {r['plain_ms']:.1f} ms"
                  if "plain_ms" in r else "") + ")"
               for r in gaps["shapes"]), flush=True)
@@ -3840,7 +3951,7 @@ def main(argv=None) -> int:
             "max_abs_err": max(x["max_abs_err"] for x in report[key]),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
-            **({"dependent_load_floor_ms": r["dependent_load_floor_ms"]}
+            **({"design_floor_ms": r["design_floor_ms"], "staged_bytes": r["staged_bytes"]}
                if key == "traceback" else {}),
         })
     # B4's training and lane-scale counts are read in phases 13 and 15 (no
@@ -3855,7 +3966,7 @@ def main(argv=None) -> int:
         "launches_lane_scale": art["kernel_launches"]["B4"],
         "max_abs_err": ep["max_abs_err"], "ms": ep["ms"], "plain_ms": ep["plain_ms"],
         "bound_ms": ep["bound_ms"], "bound_by": ep["bound_by"], "library_ms": None,
-        "design_floor_ms": ep["design_floor_ms"],
+        "design_floor_ms": ep["design_floor_ms"], "staged_bytes": ep["staged_bytes"],
     })
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -1,9 +1,11 @@
-"""Seeded inputs for the banded DPs (kernels B1 and B2 and their plain twins).
+"""Seeded inputs for the banded DPs and their walks (kernels B1-B4 and
+their plain twins).
 
 Every case is made with numpy from a seed, so the JAX reference, the plain
 PyTorch versions and the CUDA kernels can be fed the same bytes: the
 parity tests use :func:`dp_case` at small sizes, ``chip_smoke.py`` uses
-:func:`dp_batch` at the main path's shapes.
+:func:`dp_batch` at the main path's shapes; both walk B3 over
+:func:`random_planes` and B4 over :func:`cs_tiles` and :func:`cs_crafted`.
 """
 
 from __future__ import annotations
@@ -111,3 +113,163 @@ def dp_batch(n: int, L: int, W: int, seed: int, offsets: bool = True):
     if not offsets:
         offs = np.zeros_like(offs)
     return reads, rl, refs, tl, offs
+
+
+def random_planes(seed: int, N: int, L: int, W: int):
+    """A seeded random direction field for the polish traceback (kernel B3):
+    (best (N, 3) int32, planes (N, L, W) int16 holding the u16 cells
+    ``tdir | fjump << 4``, reads (N, L) uint8).
+
+    Cells are mostly diagonal, 8% insertion (half of them closing the
+    insertion run), 0.2% fresh starts and 0.2% diagonal stops; 2% start a
+    deletion run of 1-40 columns. Reads carry 5% N bases. Lanes cycle over
+    starts: the last row at the band's centre (long walks that cross many
+    chunks), the last row at slot 0 or W - 1 (walks that leave the band at
+    once or soon), a random row and slot, and dead lanes (score <= 0 or
+    row -1), so that the walks reach b = 0 and W - 1."""
+    rng = np.random.default_rng(seed)
+    planes = np.empty((N, L, W), np.int16)
+    for n in range(N):  # a lane at a time: the main path's shapes stay small in memory
+        u = rng.random((L, W))
+        tdir = np.where(u < 0.002, 3, np.where(u < 0.082, 1, 0))
+        diag_stop = (tdir == 0) & (rng.random((L, W)) < 0.002)
+        e_open = rng.random((L, W)) < 0.5
+        jump = np.where(rng.random((L, W)) < 0.02, rng.integers(1, 41, (L, W)), 0)
+        planes[n] = tdir | diag_stop * 4 | e_open * 8 | jump << 4
+    reads = rng.integers(0, 4, (N, L)).astype(np.uint8)
+    reads[rng.random((N, L)) < 0.05] = 4
+    best = np.zeros((N, 3), np.int32)
+    for n in range(N):
+        kind = n % 6
+        score = int(rng.integers(1, 500))
+        if kind in (0, 1):
+            row, slot = L - 1, W // 2 + int(rng.integers(-4, 5))
+        elif kind == 2:
+            row, slot = L - 1 - int(rng.integers(0, 8)), 0
+        elif kind == 3:
+            row, slot = L - 1 - int(rng.integers(0, 8)), W - 1
+        elif kind == 4:
+            row, slot = int(rng.integers(0, L)), int(rng.integers(0, W))
+        else:
+            score, row, slot = (-int(rng.integers(0, 3)), int(rng.integers(0, L)), W // 2) \
+                if n % 12 == 5 else (score, -1, W // 2)
+        best[n] = score, row, slot
+    return best, planes, reads
+
+
+# ---------------------------------------------------------------------------
+# the QC error profile's tiles (kernel B4)
+
+
+def cs_ragged(rng: np.random.Generator, k: int):
+    """Noisy reads of 1-400 nt (substitutions, deletions, insertions),
+    some with N bases in the query or the reference."""
+    qs, rs = [], []
+    for _ in range(k):
+        r = rng.integers(0, 4, int(rng.integers(1, 400))).astype(np.uint8)
+        q = noisy_copy(rng, r, 0.08) if len(r) > 1 else r.copy()
+        if rng.random() < 0.3 and len(q):
+            q[rng.random(len(q)) < 0.05] = 4
+        if rng.random() < 0.2:
+            r = r.copy()
+            r[rng.random(len(r)) < 0.05] = 4
+        qs.append(q if len(q) else r[:1].copy())
+        rs.append(r)
+    return qs, rs
+
+
+def cs_leading_insertions(rng: np.random.Generator, k: int):
+    """Queries with 3-12 extra bases before the reference: walks that reach
+    j == 0 with i > 0."""
+    qs, rs = [], []
+    for _ in range(k):
+        r = rng.integers(0, 4, int(rng.integers(40, 200))).astype(np.uint8)
+        qs.append(np.concatenate([rng.integers(0, 4, int(rng.integers(3, 13))).astype(np.uint8),
+                                  noisy_copy(rng, r, 0.03)]))
+        rs.append(r)
+    return qs, rs
+
+
+def cs_far_from_diagonal(rng: np.random.Generator, k: int):
+    """A 55-70 base deletion early and as long an insertion late: equal
+    lengths, but the true path runs farther from the interpolated diagonal
+    than the band's half (48), so the band's edge shapes the alignment."""
+    qs, rs = [], []
+    for _ in range(k):
+        r = rng.integers(0, 4, int(rng.integers(280, 360))).astype(np.uint8)
+        cut = int(rng.integers(55, 71))
+        q = np.concatenate([r[:30], r[30 + cut: 230],
+                            rng.integers(0, 4, cut).astype(np.uint8), r[230:]])
+        qs.append(q)
+        rs.append(r)
+    return qs, rs
+
+
+def cs_wide_bands(rng: np.random.Generator):
+    """|n - m| up to the live cap of 120 (ws 257, w_pad 320), on short
+    reads whose band start moves 7-13 positions a row, both ways round."""
+    qs, rs = [], []
+    for n, m in ((10, 130), (15, 135), (20, 140), (130, 10), (140, 22), (380, 260),
+                 (250, 370), (90, 200)):
+        long_ = rng.integers(0, 4, max(n, m)).astype(np.uint8)
+        short = long_[np.sort(rng.choice(max(n, m), min(n, m), replace=False))]
+        q, r = (short, long_) if n < m else (long_, short.copy())
+        flip = rng.random(len(r)) < 0.05  # substitutions, lengths kept
+        r[flip] = (r[flip] + 1) % 4
+        qs.append(q)
+        rs.append(r)
+    return qs, rs
+
+
+def cs_tiles():
+    """{label: (queries, refs)} of the two profile tiles, made from seed 13:
+    ``ragged_n_leading_far`` (34 live reads, pad reads filling its 64 rows)
+    and ``wide_bands`` (w_pad 320)."""
+    rng = np.random.default_rng(13)
+    ragged = cs_ragged(rng, 24)
+    lead = cs_leading_insertions(rng, 6)
+    far = cs_far_from_diagonal(rng, 4)
+    wide = cs_wide_bands(rng)
+    return {
+        "ragged_n_leading_far": tuple(a + b + c for a, b, c in zip(ragged, lead, far)),
+        "wide_bands": wide,
+    }
+
+
+def cs_tile_arrays(qs, rs):
+    """A tile's inputs to kernel B4 as ``banded_cs_batch_device`` lays them
+    out (its band halves, ``_tile_inputs``): ([qpad, rpad, n, m, lo_all,
+    ws], w_pad), numpy."""
+    from ont_tcrconsensus_tpu_torch.qc.error_profile import _tile_inputs
+
+    qs16 = [np.asarray(q, np.int16) for q in qs]
+    rs16 = [np.asarray(r, np.int16) for r in rs]
+    ns, ms = np.array([len(q) for q in qs]), np.array([len(r) for r in rs])
+    halves = np.maximum(48, np.abs(ns - ms) + 8)
+    *arrays, w_pad = _tile_inputs(qs16, rs16, list(range(len(qs))), halves)
+    return arrays, w_pad
+
+
+CS_CRAFTED = ("negative_shift", "band_jump")
+
+
+def cs_crafted(case: str):
+    """A tile whose band starts are not the host's: ([qpad, rpad, n, m,
+    lo_all, ws], w_pad). ``band_jump`` moves each read's first n / 2 rows
+    right by more than the band: row n / 2 cannot reach them (a shift below
+    -ws), every cell below holds BIG or more, and the walk leaves the band
+    there. ``negative_shift`` does that to rows 0 and 1 of reads with
+    leading insertions: from row 2 down, lane 0 (j == 0) is out of reach of
+    the row above and its direction is 0, so the walk takes the tail
+    insertion (i > 0, j == 0, p != 1) up to row 1. Host band starts are
+    monotone and wide enough for neither to happen; the kernel takes any."""
+    if case not in CS_CRAFTED:
+        raise ValueError(case)
+    rng = np.random.default_rng(5)
+    qs, rs = cs_leading_insertions(rng, 8) if case == "negative_shift" else cs_ragged(rng, 12)
+    arrays, w_pad = cs_tile_arrays(qs, rs)
+    lo, ws = arrays[4], arrays[5]
+    ns = arrays[2]
+    for k in range(len(qs)):
+        lo[k, : 2 if case == "negative_shift" else ns[k] // 2] += ws[k] + 3
+    return arrays, w_pad

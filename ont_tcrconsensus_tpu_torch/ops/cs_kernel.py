@@ -7,7 +7,8 @@ In the port it runs every tile of a profile on the card, reached through
 :func:`..qc.error_profile.cs_core_auto` from ``banded_cs_batch_device``.
 Same contract as the plain :func:`..qc.error_profile._device_cs_core`: the
 op log (kind, qb, rb), (N + M, L) uint8 in reverse order, equal to the
-plain one up to each walk's first STOP and STOP after it.
+plain one up to each walk's first STOP; kind is STOP after it, and qb and rb
+past it are not written.
 """
 
 from __future__ import annotations
@@ -43,10 +44,12 @@ def error_profile_cs_cuda(qpad, rpad, n_arr, m_arr, lo_all, ws, w_pad: int):
             L, (L,), (L,), (L,), (L, N + 1)):
         raise ValueError("qpad, rpad, n_arr, m_arr, ws and lo_all must share the read axis, "
                          "and lo_all have N + 1 rows")
-    plane = torch.empty((L, N + 1, w_pad), dtype=torch.uint8, device=dev)
+    # B4's private scratch: each row's directions packed to 2 bits a cell
+    plane = torch.empty((L, N + 1, w_pad // 4), dtype=torch.uint8, device=dev)
+    # the kernel writes each walk's log up to its stop; kind reads STOP after it
     kind = torch.full((N + M, L), _K_STOP, dtype=torch.uint8, device=dev)
-    qb = torch.zeros((N + M, L), dtype=torch.uint8, device=dev)
-    rb = torch.zeros((N + M, L), dtype=torch.uint8, device=dev)
+    qb = torch.empty((N + M, L), dtype=torch.uint8, device=dev)
+    rb = torch.empty((N + M, L), dtype=torch.uint8, device=dev)
     if L:
         lib = _build.load("error_profile_cs")
         with torch.cuda.device(dev):

@@ -21,8 +21,6 @@ def traceback_columns_cuda(best, planes, reads, band_width: int, out_len: int):
     """Launch kernel B3 on CUDA tensors: best (N, 3) int32, planes (N, L, W)
     int16 as B2 writes them (read as u16), reads (N, L) uint8. Returns
     (base_at, ins_cnt, ins_base, pos_at, spans)."""
-    from ont_tcrconsensus_tpu_torch.ops.pileup import UNCOVERED
-
     if reads.device.type != "cuda":
         raise ValueError(f"traceback_columns_cuda needs CUDA tensors, got {reads.device}")
     if band_width not in BAND_WIDTHS:
@@ -36,10 +34,12 @@ def traceback_columns_cuda(best, planes, reads, band_width: int, out_len: int):
     planes = planes.to(dev).contiguous()
     if best.shape != (N, 3) or planes.shape != (N, L, band_width):
         raise ValueError("best, planes and reads must share the lane axis and the width")
-    base_at = torch.full((N, out_len), UNCOVERED, dtype=torch.uint8, device=dev)
-    ins_cnt = torch.zeros((N, out_len), dtype=torch.int32, device=dev)
-    ins_base = torch.zeros((N, out_len), dtype=torch.uint8, device=dev)
-    pos_at = torch.full((N, out_len), -1, dtype=torch.int32, device=dev)
+    # the kernel writes every element, its fill values (UNCOVERED, 0, 0, -1)
+    # first: one launch a call
+    base_at = torch.empty((N, out_len), dtype=torch.uint8, device=dev)
+    ins_cnt = torch.empty((N, out_len), dtype=torch.int32, device=dev)
+    ins_base = torch.empty((N, out_len), dtype=torch.uint8, device=dev)
+    pos_at = torch.empty((N, out_len), dtype=torch.int32, device=dev)
     spans = torch.empty((N, 4), dtype=torch.int32, device=dev)
     if N:
         lib = _build.load("pileup_traceback")

@@ -1,16 +1,21 @@
 """Kernel B3 (the polish traceback, ``csrc/pileup_traceback.cu``): a scalar
-walk written the way the kernel walks a lane (one lane at a time, its rows
-written as it goes, ``ins_base`` overwritten) against the JAX package's
-scan-log ``_traceback_batch`` and the port's plain ``_traceback_steps``, on
-planes from the forward; the wrapper's CPU refusal and the CPU dispatch;
-and, on a card, the kernel against the plain steps. Tolerance: exact."""
+walk written the way the kernel walks a lane (its row filled first, the
+cells read from chunks of rows staged into a double buffer, the columns
+written through a chunk's slots, the insertion run counted in a register)
+against the JAX package's scan-log ``_traceback_batch`` and the port's plain
+``_traceback_steps``, on planes from the forward and on seeded random
+direction fields; a chunk staged one row short caught; the wrapper's CPU
+refusal and the CPU dispatch; and, on a card, the kernel against the plain
+steps. Tolerance: exact."""
+
+from collections import Counter
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from ont_tcrconsensus_tpu_torch.io.dp_cases import noisy_copy, pack  # noqa: E402
+from ont_tcrconsensus_tpu_torch.io.dp_cases import noisy_copy, pack, random_planes  # noqa: E402
 
 try:  # the JAX reference; a card machine without JAX runs the gpu case only
     from ont_tcrconsensus_tpu.ops import pileup as jpileup
@@ -55,58 +60,124 @@ def _lanes(seed: int, n: int, L: int):
     return r, rl, d, dl
 
 
-def _kernel_walk(best, planes, reads, W: int, out_len: int):
-    """The kernel's walk, lane by lane in plain Python: seven scalars of
-    state, one plane cell a step, each step's column written directly."""
+K_ROWS = 32  # csrc/pileup_traceback.cu kRows: plane rows a staged chunk
+POISON = 0xAB  # what an output row holds before the warp's first write
+
+
+def _kernel_walk(best, planes, reads, W: int, out_len: int, chunk_rows: int = K_ROWS,
+                 stats: Counter | None = None):
+    """Kernel B3's walk, lane by lane in plain Python, in its order: the
+    warp writes its lane's whole row with the fill values; the walk reads
+    each cell from a double buffer of staged chunks (rows [hi - K_ROWS + 1,
+    hi], the next chunk staged as the walk enters the current one, a slot's
+    old rows kept until a chunk overwrites them), keeps the scan's seven
+    scalars of state and writes each step's columns to the chunk's column
+    slots (j0 - j), the insertion run counted in a register; as it leaves a
+    chunk the slots go out to the row and back to the fill values, the open
+    column's run carried. ``chunk_rows`` is how many rows a chunk stages
+    (K_ROWS in the kernel; one fewer is a mutation). ``stats`` counts the
+    chunks each walk entered, the slots it stood in and the deletion
+    runs."""
     N, L = reads.shape
     c = W // 2
-    base_at = np.full((N, out_len), pileup.UNCOVERED, np.uint8)
-    ins_cnt = np.zeros((N, out_len), np.int32)
-    ins_base = np.zeros((N, out_len), np.uint8)
-    pos_at = np.full((N, out_len), -1, np.int32)
+    cols = K_ROWS + W + 1
+    base_at = np.full((N, out_len), POISON, np.uint8)
+    ins_cnt = np.full((N, out_len), -POISON, np.int32)
+    ins_base = np.full((N, out_len), POISON, np.uint8)
+    pos_at = np.full((N, out_len), -POISON, np.int32)
     spans = np.zeros((N, 4), np.int32)
+    stats = Counter() if stats is None else stats
+    fill = (pileup.UNCOVERED, 0, 0, -1)
     for n in range(N):
+        base_at[n], ins_cnt[n], ins_base[n], pos_at[n] = fill
+        slots = [np.array([v] * (cols + 1)) for v in fill]  # base, icnt, ibase, pos
         score, i0, b0 = (int(x) for x in best[n])
         jend = i0 - c + b0
         i, b, mode, pending = i0, b0, 0, 0
-        done = score <= 0 or i0 < 0
+        done = score <= 0 or i0 < 0 or L <= 0
         rstart, fstart = i0 + 1, jend + 1
-        t = 0
-        while t < L + out_len and not done:
-            jrow = i - c + b
-            ci, cb = min(max(i, 0), L - 1), min(max(b, 0), W - 1)
-            p = int(planes[n, ci, cb])
-            d, m = p & 15, p >> 4
-            in_del = pending > 0
-            start_del = not in_del and mode == 0 and m > 0
-            do_del = in_del or start_del
-            new_pending = pending - 1 if in_del else (m - 1 if start_del else 0)
-            choice = pileup._EGAP if mode == 1 else d & 3
-            is_diag = not do_del and choice == pileup._DIAG
-            is_egap = not do_del and choice == pileup._EGAP
-            is_fresh = not do_del and choice == pileup._FRESH
-            if 0 <= jrow < out_len:
-                rb = int(reads[n, ci])
-                if do_del:
-                    base_at[n, jrow] = pileup.DELETION
-                elif is_diag and rb < 4:
-                    base_at[n, jrow], pos_at[n, jrow] = rb, ci
-                elif is_egap and rb < 4:
-                    ins_cnt[n, jrow] += 1
-                    ins_base[n, jrow] = rb
-            e_open = bool(d & pileup._EOPEN_BIT)
-            diag_stop = is_diag and bool(d & pileup._DIAG_STOP_BIT)
-            ni = i - 1 if (is_diag or is_egap) else i
-            nb = b - 1 if do_del else (b + 1 if is_egap else b)
-            if is_diag or is_egap:
-                rstart = i
-            if is_diag or do_del:
-                fstart = jrow
-            mode = 2 if do_del else (1 if is_egap and not e_open else 0)
-            pending = new_pending
-            done = is_fresh or diag_stop or ni < 0 or nb < 0 or nb >= W
-            i, b = ni, nb
-            t += 1
+        ins_j, ins_n, ins_b = -1, 0, 0
+        ring = np.full((2, K_ROWS, W), 0xFFFF, np.int64)  # never-staged cells
+        ring_read = np.full((2, K_ROWS), 5, np.int64)
+
+        def stage(slot, lo, hi):
+            first = max(lo, 0)
+            last = min(hi, first + chunk_rows - 1)
+            for r in range(first, last + 1):
+                ring[slot, r - first] = planes[n, r]
+                ring_read[slot, r - first] = reads[n, r]
+
+        t, T = 0, L + out_len
+        if not done:
+            hi = min(i0, L - 1)
+            lo = hi - K_ROWS + 1
+            j0 = jend
+            stage(0, lo, hi)
+            k = 0
+            while not done and t < T:
+                buf = k & 1
+                stage(buf ^ 1, lo - K_ROWS, hi - K_ROWS)
+                base = max(lo, 0)
+                stats["chunks"] += 1
+                del_run = 0
+                while t < T and not done:
+                    ci = min(max(i, 0), L - 1)
+                    if ci < lo:
+                        break
+                    jrow = i - c + b
+                    cb = min(max(b, 0), W - 1)
+                    p = int(ring[buf, ci - base, cb])
+                    d, m = p & 15, p >> 4
+                    in_del = pending > 0
+                    start_del = not in_del and mode == 0 and m > 0
+                    do_del = in_del or start_del
+                    new_pending = pending - 1 if in_del else (m - 1 if start_del else 0)
+                    choice = pileup._EGAP if mode == 1 else d & 3
+                    is_diag = not do_del and choice == pileup._DIAG
+                    is_egap = not do_del and choice == pileup._EGAP
+                    is_fresh = not do_del and choice == pileup._FRESH
+                    slot = min(j0 - jrow, cols)
+                    stats["max_slot"] = max(stats["max_slot"], slot)
+                    rb = int(ring_read[buf, ci - base])
+                    known = rb < 4
+                    if do_del or (is_diag and known):
+                        slots[0][slot] = pileup.DELETION if do_del else rb
+                    if is_diag and known:
+                        slots[3][slot] = ci
+                    if is_egap and known:
+                        ins_n = ins_n + 1 if jrow == ins_j else 1
+                        ins_j, ins_b = jrow, rb
+                        slots[1][slot], slots[2][slot] = ins_n, rb
+                    del_run = del_run + 1 if do_del else 0
+                    stats["longest_deletion_run"] = max(stats["longest_deletion_run"], del_run)
+                    stats["b0_reached"] += b == 0
+                    stats["bW_reached"] += b == W - 1
+                    e_open = bool(d & pileup._EOPEN_BIT)
+                    diag_stop = is_diag and bool(d & pileup._DIAG_STOP_BIT)
+                    ni = i - 1 if (is_diag or is_egap) else i
+                    nb = b - 1 if do_del else (b + 1 if is_egap else b)
+                    if is_diag or is_egap:
+                        rstart = i
+                    if is_diag or do_del:
+                        fstart = jrow
+                    mode = 2 if do_del else (1 if is_egap and not e_open else 0)
+                    pending = new_pending
+                    done = is_fresh or diag_stop or ni < 0 or nb < 0 or nb >= W
+                    i, b = ni, nb
+                    t += 1
+                jc = i - c + b
+                for s_ in range(min(j0 - jc, cols - 1) + 1):
+                    col = j0 - s_
+                    if 0 <= col < out_len:
+                        base_at[n, col], ins_cnt[n, col] = slots[0][s_], slots[1][s_]
+                        ins_base[n, col], pos_at[n, col] = slots[2][s_], slots[3][s_]
+                    for arr, v in zip(slots, fill):
+                        arr[s_] = v
+                if ins_j == jc:
+                    slots[1][0], slots[2][0] = ins_n, ins_b
+                j0 = jc
+                hi, lo, k = hi - K_ROWS, lo - K_ROWS, k + 1
+            stats["most_chunks"] = max(stats["most_chunks"], k)
         spans[n] = (rstart, i0 + 1, fstart, jend + 1)
     return base_at, ins_cnt, ins_base, pos_at, spans
 
@@ -134,6 +205,53 @@ def test_kernel_walk_matches_jax_and_plain_steps(W, out_frac):
         np.testing.assert_array_equal(g, np.asarray(w), err_msg=f"walk {name}")
     assert (got[1] > 0).any(), "no insertion column"
     assert (got[0] == pileup.DELETION).any(), "no deletion column"
+
+
+def _columns_of_all_three(best, planes, reads, W: int, out_len: int, **model):
+    """The model's columns, the plain steps' and JAX's, as numpy."""
+    got = _kernel_walk(best, planes.astype(np.uint16), reads, W, out_len, **model)
+    plain = pileup._traceback_batch(torch.from_numpy(best), torch.from_numpy(planes),
+                                    torch.from_numpy(reads), W, out_len)
+    want = jpileup._traceback_batch(best, planes.astype(np.uint16), reads, W, out_len)
+    return got, [x.numpy() for x in plain], [np.asarray(x) for x in want]
+
+
+@pytest.mark.parametrize("out_frac", (1.0, 0.75))
+@pytest.mark.parametrize("W", (64, 128))
+def test_kernel_walk_on_random_planes_matches_jax_and_plain_steps(W, out_frac):
+    """Seeded random direction fields (``dp_cases.random_planes``): walks
+    that cross many staged chunks, deletion runs up to 40 columns, walks
+    that stand at slot 0 and slot W - 1, N bases, dead lanes."""
+    L = 256
+    out_len = int(L * out_frac)
+    best, planes, reads = random_planes(31 + W, 36, L, W)
+    stats = Counter()
+    got, plain, want = _columns_of_all_three(best, planes, reads, W, out_len, stats=stats)
+    for name, g, p, w in zip(COLUMNS, got, plain, want):
+        np.testing.assert_array_equal(p, w, err_msg=f"plain {name}")
+        np.testing.assert_array_equal(g, w, err_msg=f"walk {name}")
+    assert stats["most_chunks"] >= 5, "no walk crossed four chunk edges"
+    assert stats["longest_deletion_run"] >= 20
+    assert stats["b0_reached"] and stats["bW_reached"], "no walk stood at slot 0 and W - 1"
+    assert stats["max_slot"] >= 40, "no chunk moved the column down 40 times"
+    assert (got[1] > 1).any() and (got[0] == pileup.DELETION).any()
+
+
+@pytest.mark.parametrize("case", ("lanes", "random_planes"))
+def test_a_chunk_staged_one_row_short_changes_the_columns(case):
+    """Mutation: each chunk staged one row short (its top row stays what
+    the buffer held two chunks before) gives other columns than JAX's on
+    the B2 planes of ``_lanes`` and on random planes, so the parity tests
+    above would catch it."""
+    W, L = 64, 256
+    if case == "lanes":
+        reads, rl, drafts, dl = _lanes(7 + W, n=48, L=L)
+        best, planes = (x.numpy() for x in pileup._forward_batch(
+            *(torch.from_numpy(x) for x in (reads, rl, drafts, dl)), band_width=W))
+    else:
+        best, planes, reads = random_planes(31 + W, 36, L, W)
+    got, _, want = _columns_of_all_three(best, planes, reads, W, L, chunk_rows=K_ROWS - 1)
+    assert any(not np.array_equal(g, w) for g, w in zip(got, want))
 
 
 def test_wrapper_refuses_cpu_tensors():
