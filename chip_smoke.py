@@ -43,7 +43,11 @@ of which fails the script (non-zero exit, no result line):
    steps'. Then one polish round at a main-path
    tile, split into the B2 forward, the B3 traceback and the vote, beside
    one call of the plain traceback's host loop, and traced once with
-   ``torch.profiler`` for the card's busy share;
+   ``torch.profiler`` for the card's busy share; at that tile, two vote
+   rounds fused (``ops/consensus._pair_program``: both rounds, their end
+   extensions and flags on the card, one readback) beside two unfused
+   rounds (a readback and the host extension each), host clock, median
+   of 3, their drafts equal;
 4. polisher parity: at the same tile, the vote rounds' kept final pileup
    (recomputed against the final drafts if the rounds ran out), then the
    features and the served (v3) bi-GRU on ``cuda`` and on ``cpu``: the
@@ -145,7 +149,16 @@ of which fails the script (non-zero exit, no result line):
    log up to its stop; the plain core's one call timed). Peak device memory
    and the polisher's seconds (host clock to its stream synchronized) are
    read per run, and the peak reached inside a polisher call when that
-   call raised it;
+   call raised it. The host/device overlaps: after every run no thread of
+   :data:`OVERLAP_THREADS` (assign's prefetch worker and readback thread,
+   polish's pack worker) may be alive; for the first run, the
+   ``consensus.get`` readbacks (one a pair of vote rounds), the
+   ``assign.dispatch`` and ``polish.dispatch`` host and blocked seconds
+   and the ``round1_fused_assign``, ``round2_fused_assign`` and
+   ``round1_polish`` seconds are printed on one line, beside the card's
+   busy share in the ``round1_fused_assign`` window of one more run of
+   the full lane (in a directory of its own, that window traced by
+   ``torch.profiler``, counts equal to the truth);
 9. robustness on the card: the small lane under ``poa`` (no retry
    back-off), one chaos drill a run: a transient fault
    at ``assign.dispatch`` and ``polish.dispatch`` (retried), an out of
@@ -513,13 +526,20 @@ def _device_ms(fn) -> dict:
     milliseconds in which the card ran a kernel, copy or set (the device
     events' intervals merged), and the number of those events."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return _busy(prof)
+
+
+def _busy(prof) -> dict:
+    """A finished ``torch.profiler`` run's device milliseconds (the CUDA
+    events' intervals merged) and its number of device events."""
+    from torch.autograd import DeviceType
+
     # the profiler's raw records: ``prof.events()`` builds a Python event
     # tree from them, tens of seconds at the 10^5 events of a traced call,
     # for the same device intervals (it drops the hidden records too)
@@ -898,7 +918,8 @@ def polish_split(dev, seed: int, C: int = 64, S: int = 16, L: int = 2048, W: int
     and the vote, beside one call of the plain scan-log traceback (the
     host loop B3 replaced); then the whole round once more under
     ``torch.profiler``, whose device time over the round's unprofiled wall
-    time is the card's busy share in polish."""
+    time is the card's busy share in polish; and two rounds fused against
+    unfused (:func:`fused_pair_split`)."""
     import torch
 
     from ont_tcrconsensus_tpu_torch.ops import consensus, pileup
@@ -935,9 +956,52 @@ def polish_split(dev, seed: int, C: int = 64, S: int = 16, L: int = 2048, W: int
     round_ms = _host_ms(one_round, 1)
     traced = _device_ms(one_round)
     busy = traced["device_ms"] / round_ms if traced["events"] else None
+    pair = fused_pair_split(dev, reads, rl, drafts, dl, W)
     return {"C": C, "S": S, "L": L, "W": W, "forward_ms": fwd_ms, "traceback_ms": tb_ms,
-            "plain_traceback_ms": plain_tb_ms, "vote_ms": vote_ms, "round_ms": round_ms, "device_ms": traced["device_ms"],
-            "device_events": traced["events"], "busy_share": busy}
+            "plain_traceback_ms": plain_tb_ms, "vote_ms": vote_ms, "round_ms": round_ms,
+            "device_ms": traced["device_ms"], "device_events": traced["events"],
+            "busy_share": busy, **pair}
+
+
+def fused_pair_split(dev, reads, rl, drafts, dl, W: int) -> dict:
+    """Two vote rounds at the polish tile as ``ops/consensus`` runs them:
+    fused (``_pair_program``: both rounds, their end extensions and flags
+    on the card, one readback) beside unfused (each round's pileup and
+    vote, a readback, the ends extended on the host). Both from the tile's
+    drafts, host clock, median of 3; the drafts of both must be equal."""
+    import torch
+
+    from ont_tcrconsensus_tpu_torch.obs import device as obs_device
+    from ont_tcrconsensus_tpu_torch.ops import consensus, pileup
+    from ont_tcrconsensus_tpu_torch.parallel.mesh import lockstep
+
+    L = reads.shape[2]
+    sub_t, rl_t = torch.from_numpy(reads).to(dev), torch.from_numpy(rl).to(dev)
+
+    def fused():
+        out = lockstep([consensus._pair_program(
+            sub_t, rl_t, torch.from_numpy(drafts).to(dev), torch.from_numpy(dl).to(dev), W,
+            False)])[0]
+        return obs_device.to_host(out[:5])
+
+    def unfused():
+        d, n = drafts.copy(), dl.copy()
+        for _ in range(2):
+            td, tn = torch.from_numpy(d).to(dev), torch.from_numpy(n).to(dev)
+            cols = pileup.pileup_columns_batch_auto(sub_t, rl_t, td, tn, band_width=W, out_len=L)
+            nd, nn = consensus.vote_columns_batch(*cols[:3], td, tn)
+            nd, nn, spans = obs_device.to_host((nd[:, :L], nn, cols[4]))
+            d, n = consensus._extend_ends_batch(nd.copy(), nn.astype(np.int32), reads, rl,
+                                                spans, n)
+        return d, n
+
+    got, want = fused(), unfused()
+    if got[2].any() or got[3].any():
+        raise AssertionError("fused pair: a draft grew past the padded width")
+    if not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])):
+        raise AssertionError("fused pair: its drafts differ from two unfused rounds'")
+    return {"pair_fused_ms": _host_ms(fused, 3), "pair_unfused_ms": _host_ms(unfused, 3),
+            "pair_stable": int(got[4].sum())}
 
 
 # float32 operations of the polisher network a position (a multiply-add
@@ -1842,6 +1906,57 @@ def _rollup_clock(stats: dict):
             setattr(mod, name, fn)
 
 
+@contextlib.contextmanager
+def _traced_stage(name: str, out: dict):
+    """While the block runs, trace the run's first ``name`` stage window
+    with ``torch.profiler`` (CUDA activity, every thread's streams): ``out``
+    gets the window's wall milliseconds (the profiler running), the device
+    milliseconds and events in it (:func:`_busy`) and their ratio, the
+    card's busy share there (the StageTimer method the run calls is
+    wrapped; the stage's work is untouched)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ont_tcrconsensus_tpu_torch.qc import timing
+
+    real = timing.StageTimer.stage
+
+    @contextlib.contextmanager
+    def stage(self, stage_name):
+        if stage_name != name or out:
+            with real(self, stage_name):
+                yield
+            return
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            with real(self, stage_name):
+                yield
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3
+        busy = _busy(prof)
+        out.update(window_ms=window_ms, **busy, busy_share=busy["device_ms"] / window_ms)
+
+    timing.StageTimer.stage = stage
+    try:
+        yield
+    finally:
+        timing.StageTimer.stage = real
+
+
+# the threads of the host/device overlaps: assign's prefetch worker and
+# readback thread, polish's pack worker; none may outlive a run
+OVERLAP_THREADS = ("assign-prefetch", "assign-readback", "polish-pack")
+
+
+def _overlap_threads() -> dict[str, int]:
+    """The live threads of :data:`OVERLAP_THREADS`, by name prefix."""
+    import threading
+
+    names = [t.name for t in threading.enumerate()]
+    return {p: sum(n.startswith(p) for n in names) for p in OVERLAP_THREADS}
+
+
 # the counters the run's plants add to, one a call
 PLANT_COUNTERS = ("assign.batches", "cluster.batched", "polish.chunks")
 
@@ -1954,6 +2069,7 @@ def full_e2e(kernels, rounds: int, step_ns: float):
                + ["poa"])
     lanes = ["full"] + ["small"] * (len(methods) - 1)
     seconds, stages, peaks, polisher_runs, launches, diffs = [], [], [], [], {}, {}
+    threads: list[dict[str, int]] = []  # the overlaps' live threads after each run
     no_profile: dict[str, int] = {}  # launches of the run without the error profiles
     telemetry: dict[int, dict] = {}
     ingest: dict[str, int] = {}  # run 0's read batches by ingest path
@@ -1982,6 +2098,9 @@ def full_e2e(kernels, rounds: int, step_ns: float):
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
         peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+        threads.append(_overlap_threads())
+        if any(threads[-1].values()):
+            raise AssertionError(f"full e2e run {run}: threads outlived the run: {threads[-1]}")
         if method == "rnn, executor imperative":
             with open(os.path.join(root, "fastq_pass", "nano_tcr", "telemetry.json")) as fh:
                 if "graph" in json.load(fh):
@@ -2016,6 +2135,19 @@ def full_e2e(kernels, rounds: int, step_ns: float):
         diffs.update({f"run {run} ({lane} lane, {method}): {k}": (counts.get(k, 0), lib.true_counts.get(k, 0))
                       for k in set(counts) | set(lib.true_counts)
                       if counts.get(k, 0) != lib.true_counts.get(k, 0)})
+    # the full lane once more, in a directory of its own (run 0's output
+    # stays for phase 10), its round-1 assign window traced
+    traced_root = os.path.join(WORK, "lane_full_traced")
+    shutil.rmtree(traced_root, ignore_errors=True)
+    shutil.copytree(roots["full"], traced_root,
+                    ignore=lambda d, names: ["nano_tcr"] if "nano_tcr" in names else [])
+    assign_window: dict = {}
+    with _traced_stage("round1_fused_assign", assign_window):
+        traced = _run_lane(traced_root, {**FULL_KNOBS, **LANE_RUNS["rnn"]}, "cuda")
+    torch.cuda.synchronize()
+    if (traced.get("barcode01") or {}) != libs["full"].true_counts or not assign_window:
+        raise AssertionError("full e2e: the traced run's counts differ from the truth, or its "
+                             "round1_fused_assign window was not traced")
     n_reads = [len(libs[lane].reads) for lane in lanes]
     out = {"n_reads": len(libs["full"].reads), "n_regions": len(libs["full"].reference),
            "small_n_reads": len(libs["small"].reads),
@@ -2026,6 +2158,7 @@ def full_e2e(kernels, rounds: int, step_ns: float):
            "data_s": data_s, "launches": launches, "launches_no_profile": no_profile,
            "stage_s": stages,
            "telemetry": telemetry, "ingest_batches": ingest,
+           "overlap_threads": threads, "assign_window": assign_window,
            "launch_gaps": {
                "sw": launch_gaps(shapes["sw"], sw_kernel.align_banded_cuda, _sw_costs, dev),
                "pileup": launch_gaps(shapes["pileup"], pileup_kernel.forward_planes_cuda,
@@ -3522,6 +3655,10 @@ def main(argv=None) -> int:
           f"vote {split['vote_ms']:.1f} ms; whole round {split['round_ms']:.1f} ms, device "
           f"{split['device_ms']:.1f} ms over {split['device_events']} traced events, busy share "
           f"{split['busy_share']}", flush=True)
+    print(f"vote round pair at the same tile: fused (one readback) {split['pair_fused_ms']:.1f} "
+          f"ms, two unfused rounds (a readback and the host extension each) "
+          f"{split['pair_unfused_ms']:.1f} ms; drafts equal, {split['pair_stable']} of "
+          f"{split['C']} clusters stable at round 2", flush=True)
 
     phase("4 polisher")
     # 4. the polisher, cuda vs cpu
@@ -3622,6 +3759,19 @@ def main(argv=None) -> int:
               + ", ".join(f"{k} {v:.2f}" for k, v in stage_s.items())
               + f"; polisher {full['polisher'][run]['s']:.2f} (peak inside it: "
               f"{full['polisher'][run]['peak_gb']} GB)" + (f"; {qc}" if qc else ""), flush=True)
+    tel0, win = full["telemetry"][0]["dispatch"], full["assign_window"]
+    print("full e2e run 0 overlaps: consensus.get gets "
+          f"{tel0.get('consensus.get', {}).get('gets')}; "
+          + ", ".join(f"{site} host {tel0[site]['host_s']} s / blocked {tel0[site]['block_s']} s"
+                      for site in ("assign.dispatch", "polish.dispatch") if site in tel0)
+          + "; stages (s) " + ", ".join(
+              f"{k} {full['stage_s'][0].get(k, 0.0):.3f}"
+              for k in ("round1_fused_assign", "round2_fused_assign", "round1_polish"))
+          + "; live threads after each run " + ", ".join(
+              f"{k} {max(t[k] for t in full['overlap_threads'])}" for k in OVERLAP_THREADS)
+          + f"; round1_fused_assign traced (a run of its own): device {win['device_ms']:.1f} ms "
+          f"of {win['window_ms']:.1f} ms, {win['events']} events, busy share "
+          f"{win['busy_share']:.4f}", flush=True)
     for key, gaps in full["launch_gaps"].items():
         dims = {"traceback": "(batch, L, Lr, W, out_len)",
                 "cs": "(L, N, M, w_pad)"}.get(key, "(batch, L, Lr, W)")

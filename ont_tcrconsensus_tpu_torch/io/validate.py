@@ -327,9 +327,9 @@ class IngestGuard:
         self.quarantine_path = quarantine_path if policy == "quarantine" else None
         self._fh = None
         self._finalized = False
-        # the JAX package feeds bad records from its ingest prefetch worker
-        # while reset() (the transient-retry hook) runs on the main thread;
-        # the port's ingest runs on the calling thread, the lock is kept
+        # bad records arrive from the ingest prefetch worker
+        # (pipeline/assign._prefetch) while reset() (the transient-retry
+        # hook) runs on the main thread
         self._lock = lockcheck.make_lock()
         self.reset()
 

@@ -23,8 +23,10 @@ the work it queued is waited for by the readback that needs it. A
 credits its wait to the enclosing site (``polish.dispatch`` owns the
 readbacks its chunk makes in ops/consensus and the polisher); a frameless
 get records under its own site (``assign.dispatch``'s readbacks, made
-after their scope as in the JAX package). Disarmed, both are one
-module-attribute check (a get still returns its host copy).
+after their scope on assign's readback thread as in the JAX package;
+that thread waits for each batch's :func:`record_ready` events, not for
+its current stream, which holds the next batch's launches). Disarmed,
+both are one module-attribute check (a get still returns its host copy).
 
 What the split cannot see: a wait the code makes without
 :func:`timed_get` (a ``.item()``, ``.cpu()`` or ``.tolist()`` inside the
@@ -122,28 +124,93 @@ def dispatch(site: str, bucket=None):
         )
 
 
-def to_host(value):
+def to_host(value, side_streams: dict | None = None):
     """The host copy of a tree of tensors (dict, list, tuple): each tensor
-    becomes a numpy array; other leaves pass through."""
+    becomes a numpy array; other leaves pass through. With
+    ``side_streams`` (a dict, filled as it goes) a CUDA tensor is copied on
+    a side stream of its device, not on the calling thread's current one."""
     if isinstance(value, torch.Tensor):
+        if side_streams is not None and value.is_cuda:
+            stream = side_streams.get(value.device)
+            if stream is None:
+                stream = side_streams[value.device] = _side_stream(value.device)
+            with torch.cuda.stream(stream):
+                # the allocator must not hand the block to the producer's
+                # stream while this stream still reads it
+                value.record_stream(stream)
+                return value.cpu().numpy()
         return value.cpu().numpy()
     if isinstance(value, dict):
-        return {k: to_host(v) for k, v in value.items()}
+        return {k: to_host(v, side_streams) for k, v in value.items()}
     if isinstance(value, (list, tuple)):
-        return type(value)(to_host(v) for v in value)
+        return type(value)(to_host(v, side_streams) for v in value)
     return value
 
 
-def timed_get(site: str, value):
+def _side_stream(device: torch.device):
+    """The calling thread's readback stream on ``device`` (one a thread and
+    device, from the high-priority pool, so no stream of the run's own
+    work: a copy there queues behind nothing)."""
+    streams = getattr(_tls, "side_streams", None)
+    if streams is None:
+        streams = _tls.side_streams = {}
+    if device not in streams:
+        streams[device] = torch.cuda.Stream(device=device, priority=-1)
+    return streams[device]
+
+
+def _devices(value) -> list:
+    if isinstance(value, torch.Tensor):
+        return [value.device]
+    if isinstance(value, dict):
+        value = list(value.values())
+    if isinstance(value, (list, tuple)):
+        return [d for v in value for d in _devices(v)]
+    return []
+
+
+def record_ready(value) -> list:
+    """One CUDA event a CUDA device holding a tensor of ``value`` (a tree
+    as :func:`to_host` takes), recorded on the calling thread's current
+    stream there: the mark that the work queued so far for those outputs
+    is done, for their readback on another thread (``timed_get``'s
+    ``ready``). Outputs gathered from other devices' slices count: the
+    gather's copy makes that stream wait for them. Empty when no tensor is
+    on a CUDA device (the CPU's work is done when its call returns)."""
+    events = []
+    for dev in dict.fromkeys(_devices(value)):
+        if dev.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(dev))
+            events.append(ev)
+    return events
+
+
+def _readback(value, ready):
+    if ready is None:
+        return to_host(value)
+    for ev in ready:
+        ev.synchronize()
+    return to_host(value, side_streams={})
+
+
+def timed_get(site: str, value, ready: list | None = None):
     """The host copy of ``value`` (:func:`to_host`), with the seconds the
     calling thread waited for its stream and the copy credited to the
-    enclosing :func:`dispatch` frame (or to ``site`` when frameless)."""
+    enclosing :func:`dispatch` frame (or to ``site`` when frameless).
+
+    ``ready`` (from :func:`record_ready` on the thread that queued the
+    work) replaces the wait for the calling thread's current stream: the
+    get waits for those events alone and copies on a side stream, so a
+    readback thread neither waits for nor queues behind the launches made
+    after the events."""
     reg = metrics._ARMED
     if reg is None:
-        return to_host(value)
+        return _readback(value, ready)
     t0 = time.monotonic()
-    _wait_current_stream()
-    out = to_host(value)
+    if ready is None:
+        _wait_current_stream()
+    out = _readback(value, ready)
     dt = time.monotonic() - t0
     frames = getattr(_tls, "frames", None)
     if frames:

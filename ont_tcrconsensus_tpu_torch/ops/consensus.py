@@ -15,10 +15,14 @@ code. An insertion is spliced when strictly more than half of the covering
 subreads report one; the inserted base is the plurality ``ins_base`` (ties:
 smaller code).
 
-The JAX package fuses rounds in pairs into one device program; a cluster
-whose draft did not change is a deterministic fixed point, so running the
-rounds one at a time over the still-changing clusters gives the same
-drafts.
+:func:`consensus_clusters_batch` runs rounds in pairs with one readback a
+pair where the JAX package fuses them (on the card, under a mesh, at widths
+of 1024 and up, or with ``force_fused``): each half of the pair is a round
+plus the host loop's bookkeeping on the device (dead-cluster restore,
+overflow flag, :func:`_extend_ends_device`, stability). A cluster whose
+draft did not change is a deterministic fixed point, so the pair's round-2
+pileup is the final draft's pileup for every cluster stable at round 2,
+and a pair gives the drafts two single rounds give.
 
 :func:`pileup_features` and :func:`pileup_features_v4` turn a (C, S, W)
 pileup tile into the bi-GRU polisher's per-position features
@@ -55,7 +59,8 @@ def vote_columns_batch(base_at, ins_cnt, ins_base, drafts, draft_lens):
     covered = base_at != pileup.UNCOVERED
     depth = covered.sum(dim=1)                                        # (C, Ld)
     counts = torch.stack([(base_at == code).sum(dim=1) for code in range(5)], dim=1)
-    order_bonus = torch.tensor([4, 3, 2, 1, 0], device=dev)[None, :, None]
+    # made on the device: a host constant's upload would wait for the stream
+    order_bonus = torch.arange(4, -1, -1, device=dev)[None, :, None]
     winner = torch.argmax(counts * 8 + order_bonus, dim=1).to(torch.uint8)
     in_draft = torch.arange(Ld, device=dev)[None, :] < draft_lens.to(dev)[:, None]
     keep_base = torch.where(depth > 0, winner, drafts[:, :Ld].to(torch.uint8))
@@ -118,6 +123,79 @@ def _extend_ends_batch(drafts, dlens, subreads, subread_lens, spans, aligned_dle
         drafts[do, dlens[do]] = win[do]
         dlens[do] += 1
     return drafts, dlens
+
+
+def _extend_ends_device(drafts, dlens, subreads, subread_lens, spans, aligned_dlens):
+    """:func:`_extend_ends_batch` on device tensors, equal bit for bit: the
+    same boundary, majority and width gates, the right end after the left,
+    and the first-max tie-break (each base's votes times 4 plus a bonus
+    that favours the smaller code, so no two candidates tie). Both ends'
+    votes are counted at once, in a few launches. Returns (drafts, dlens)
+    without mutating."""
+    C, S, W = subreads.shape
+    dev = drafts.device
+    r_start, r_end, f_start, f_end = spans.unbind(2)
+    dlens = dlens.to(torch.int32)
+    # (C, 2, S): the subreads at the left and right boundary, those with a
+    # read base beyond it, and that base
+    at = torch.stack([f_start == 0, f_end == aligned_dlens.to(f_end.dtype)[:, None]], dim=1)
+    more = at & torch.stack([r_start > 0, r_end < subread_lens], dim=1)
+    idx = torch.stack([torch.clamp(r_start - 1, min=0), torch.clamp(r_end, max=W - 1)], dim=2)
+    bases = subreads.gather(2, idx.long()).transpose(1, 2)
+    votes = ((bases[..., None] == torch.arange(4, device=dev)) & more[..., None]).sum(dim=2)
+    win = torch.argmax(votes * 4 + torch.arange(3, -1, -1, device=dev), dim=2).to(torch.uint8)
+    n_at = at.sum(dim=2)
+    ok = (n_at > 0) & (more.sum(dim=2) * 2 > n_at) & (votes.sum(dim=2) > 0)
+
+    do = ok[:, 0] & (dlens < W)
+    drafts = torch.where(do[:, None], torch.cat([win[:, :1], drafts[:, :-1]], dim=1), drafts)
+    dlens = dlens + do.to(torch.int32)
+    # right end (spans were computed against the pre-vote draft)
+    do = ok[:, 1] & (dlens < W)
+    pos = torch.arange(W, device=dev)[None, :]
+    drafts = torch.where(do[:, None] & (pos == dlens[:, None]), win[:, 1:], drafts)
+    dlens = dlens + do.to(torch.int32)
+    return drafts, dlens
+
+
+def _half_round(sub, slens, drafts, dlens, band_width: int):
+    """One round of a fused pair and the host loop's bookkeeping, on the
+    device, as a generator for :func:`..parallel.mesh.lockstep`: the pileup
+    (kernels B2 and B3 on the card), the vote, the dead-cluster restore,
+    the overflow flag, the end extension and the stability flag. Returns
+    (drafts, dlens, over, stable, base_at, ins_cnt, ins_base, pos_at)."""
+    C, S, W = sub.shape
+    reads = sub.reshape(C * S, W)
+    refs = drafts.repeat_interleave(S, dim=0)
+    reflens = dlens.repeat_interleave(S)
+    cols = yield from pileup._forward_traceback(reads, slens.reshape(C * S), refs, reflens,
+                                                band_width, W)
+    base_at, ins_cnt, ins_base, pos_at = (x.reshape(C, S, W) for x in cols[:4])
+    spans = cols[4].reshape(C, S, 4)
+    nd, nl = vote_columns_batch(base_at, ins_cnt, ins_base, drafts, dlens)
+    live = dlens > 0
+    # empty and padding clusters keep their draft
+    nd = torch.where(live[:, None], nd[:, :W], drafts)
+    nl = torch.where(live, nl, dlens)
+    over = live & (nl > W)
+    d_ext, l_ext = _extend_ends_device(nd, nl, sub, slens, spans, dlens)
+    stable = (l_ext == dlens) & (d_ext == drafts).all(dim=1)
+    return d_ext, l_ext, over, stable, base_at, ins_cnt, ins_base, pos_at
+
+
+def _pair_program(sub, slens, drafts, dlens, band_width: int, with_pos: bool):
+    """Two consensus rounds with no readback between them (the JAX
+    package's ``_fused_pair_fn``), a generator for
+    :func:`..parallel.mesh.lockstep`. Returns (drafts2, dlens2, over1,
+    over2, stable2, base_at, ins_cnt, ins_base, pos_at or None): the
+    overflow flags of both rounds, round 2's fixed-point flag and round
+    2's pileup, which is the final draft's exactly where ``stable2``."""
+    slens = slens.to(torch.int32)
+    d1, l1, over1, *_ = yield from _half_round(sub, slens, drafts, dlens.to(torch.int32),
+                                               band_width)
+    d2, l2, over2, stable2, ba, ic, ib, pa = yield from _half_round(sub, slens, d1, l1,
+                                                                    band_width)
+    return d2, l2, over1, over2, stable2, ba, ic, ib, pa if with_pos else None
 
 
 def _extend_ends(draft, draft_len, subreads, subread_lens, spans, aligned_draft_len):
@@ -200,10 +278,17 @@ def consensus_cluster(subreads: np.ndarray, subread_lens: np.ndarray, rounds: in
     return draft, int(draft_len)
 
 
+def _use_fused(force_fused: bool, mesh, device: torch.device, W: int) -> bool:
+    """Whether rounds run in pairs: the JAX package's ``use_fused`` rule
+    (an accelerator, a mesh, widths of 1024 and up, or ``force_fused``)."""
+    return force_fused or mesh is not None or device.type != "cpu" or W >= 1024
+
+
 def consensus_clusters_batch(subreads: np.ndarray, subread_lens: np.ndarray,
                              rounds: int = 4, band_width: int = POLISH_BAND_WIDTH,
                              keep_final_pileup: bool = False, keep_pos: bool = True,
-                             device: str | torch.device | None = None, mesh=None):
+                             device: str | torch.device | None = None, mesh=None,
+                             force_fused: bool = False):
     """Consensus of C same-shape clusters on ``device`` (the card when
     None); returns (drafts (C, W) uint8, draft_lens (C,) int32), numpy,
     and with ``keep_final_pileup`` a third item, the final pileup.
@@ -211,6 +296,13 @@ def consensus_clusters_batch(subreads: np.ndarray, subread_lens: np.ndarray,
     Args: subreads (C, S, W) uint8 dense codes in canonical orientation
     (0-length rows are padding); subread_lens (C, S). The draft seed is the
     subread of lower-median length (stable pick).
+
+    Rounds run in pairs, one readback a pair (:func:`_pair_program`), on
+    the card, under a mesh, at widths of 1024 and up, or with
+    ``force_fused``: the JAX package's ``use_fused`` rule. An odd last
+    round, and every round on the CPU below width 1024, runs alone: the
+    pileup and vote on the device, one readback, the ends extended on the
+    host. Both give the same drafts and the same kept pileup.
 
     ``keep_final_pileup``: also return ``(base_at, ins_cnt, ins_base,
     pos_at)``, each (C, S, W) on ``device``: every cluster's pileup from
@@ -222,9 +314,10 @@ def consensus_clusters_batch(subreads: np.ndarray, subread_lens: np.ndarray,
     changing.
 
     ``mesh`` splits each round's pileup lanes and the vote's cluster axis
-    over the mesh's data slices (:mod:`..parallel.mesh`); ``device`` is
-    the first slice's, where the pileup gathers. The mesh is dropped when
-    C does not divide the data-axis size. A round under a mesh runs the
+    (a pair: its clusters) over the mesh's data slices
+    (:mod:`..parallel.mesh`); ``device`` is the first slice's, where the
+    pileup gathers. The mesh is dropped when C does not divide the
+    data-axis size. A round under a mesh runs the
     still-changing clusters padded to a power of two (at least the
     data-axis size; padding repeats cluster 0 and is never read), or all
     C clusters when the axis is not a power of two or the padding would
@@ -236,14 +329,22 @@ def consensus_clusters_batch(subreads: np.ndarray, subread_lens: np.ndarray,
     if mesh is not None and C % mesh_mod.mesh_data_size(mesh) != 0:
         mesh = None
     n_data = mesh_mod.mesh_data_size(mesh) if mesh is not None else 1
+    use_fused = _use_fused(force_fused, mesh, device, W)
     # compaction needs power-of-two sub-batches to divide the data axis
     can_compact = (n_data & (n_data - 1)) == 0
+    with_pos = keep_final_pileup and keep_pos
     vote = vote_columns_batch
+
+    def pair(*args):
+        return mesh_mod.lockstep([_pair_program(*args, band_width, with_pos)])[0]
+
     if mesh is not None:
-        d2, d3 = mesh_mod.P("data", None), mesh_mod.P("data", None, None)
+        d1, d2, d3 = mesh_mod.P("data"), mesh_mod.P("data", None), mesh_mod.P("data", None, None)
         vote = mesh_mod.shard_map_compat(vote_columns_batch, mesh,
-                                         in_specs=(d3, d3, d3, d2, mesh_mod.P("data")),
-                                         out_specs=(d2, mesh_mod.P("data")))
+                                         in_specs=(d3, d3, d3, d2, d1), out_specs=(d2, d1))
+        pair = mesh_mod.shard_map_compat(
+            lambda *a: _pair_program(*a, band_width, with_pos), mesh,
+            in_specs=(d3, d2, d2, d1), out_specs=(d2, d1, d1, d1, d1, d3, d3, d3, d3))
     subread_lens = np.asarray(subread_lens)
     real = subread_lens > 0
     nreal = real.sum(axis=1)
@@ -259,12 +360,12 @@ def consensus_clusters_batch(subreads: np.ndarray, subread_lens: np.ndarray,
 
     d_sub = torch.from_numpy(np.ascontiguousarray(subreads)).to(device)
     d_lens = torch.from_numpy(np.ascontiguousarray(subread_lens, dtype=np.int32)).to(device)
-    with_pos = keep_final_pileup and keep_pos
     pile_parts = []  # (cluster indices, planes) of each round's converged clusters
     active = np.where(nreal > 0)[0]
-    for _ in range(rounds):
-        if len(active) == 0:
-            break
+    rounds_left = rounds
+    while rounds_left > 0 and len(active):
+        take = 2 if use_fused and rounds_left >= 2 else 1
+        rounds_left -= take
         # the round's clusters: ``idx``, whose positions ``sel`` hold the
         # active ones (the rest is mesh padding or, in a full round,
         # clusters that already converged)
@@ -282,22 +383,35 @@ def consensus_clusters_batch(subreads: np.ndarray, subread_lens: np.ndarray,
         drafts_a, dlens_a = drafts[idx], dlens[idx]
         t_drafts = torch.from_numpy(drafts_a).to(device)
         t_dlens = torch.from_numpy(dlens_a).to(device)
-        base_at, ins_cnt, ins_base, pos_at, spans = pileup.pileup_columns_batch_auto(
-            sub_a, lens_a, t_drafts, t_dlens, band_width=band_width, out_len=W, mesh=mesh,
-        )
-        new_drafts, new_lens = vote(base_at, ins_cnt, ins_base, t_drafts, t_dlens)
-        # one coalesced readback a round; its wait credits the enclosing
-        # dispatch frame (polish.dispatch)
-        new_drafts, new_lens, spans = obs_device.timed_get(
-            "consensus.get", (new_drafts[:, :W], new_lens, spans))
-        new_drafts, new_lens, spans = new_drafts[sel], new_lens[sel].astype(np.int32), spans[sel]
-        drafts_a, dlens_a = drafts_a[sel], dlens_a[sel]
-        if (new_lens > W).any():
-            raise ValueError("consensus grew past the padded width")
-        new_drafts, new_lens = _extend_ends_batch(
-            new_drafts, new_lens, subreads[active], subread_lens[active], spans, dlens_a,
-        )
-        stable = (new_lens == dlens_a) & (new_drafts == drafts_a).all(axis=1)
+        if take == 2:
+            # two rounds, their extensions, overflow and stability on the
+            # device: the pair's one readback, credited like a round's
+            new_drafts, new_lens, over1, over2, stable, *planes = pair(
+                sub_a, lens_a, t_drafts, t_dlens)
+            base_at, ins_cnt, ins_base, pos_at = planes
+            new_drafts, new_lens, over1, over2, stable = obs_device.timed_get(
+                "consensus.get", (new_drafts, new_lens, over1, over2, stable))
+            if over1.any() or over2.any():
+                raise ValueError("consensus grew past the padded width")
+            new_drafts, new_lens, stable = new_drafts[sel], new_lens[sel], stable[sel]
+        else:
+            base_at, ins_cnt, ins_base, pos_at, spans = pileup.pileup_columns_batch_auto(
+                sub_a, lens_a, t_drafts, t_dlens, band_width=band_width, out_len=W, mesh=mesh,
+            )
+            new_drafts, new_lens = vote(base_at, ins_cnt, ins_base, t_drafts, t_dlens)
+            # one coalesced readback a round; its wait credits the enclosing
+            # dispatch frame (polish.dispatch)
+            new_drafts, new_lens, spans = obs_device.timed_get(
+                "consensus.get", (new_drafts[:, :W], new_lens, spans))
+            new_drafts, new_lens, spans = (new_drafts[sel], new_lens[sel].astype(np.int32),
+                                           spans[sel])
+            if (new_lens > W).any():
+                raise ValueError("consensus grew past the padded width")
+            new_drafts, new_lens = _extend_ends_batch(
+                new_drafts, new_lens, subreads[active], subread_lens[active], spans,
+                dlens_a[sel],
+            )
+            stable = (new_lens == dlens_a[sel]) & (new_drafts == drafts_a[sel]).all(axis=1)
         drafts[active] = new_drafts
         dlens[active] = new_lens
         if keep_final_pileup and stable.any():

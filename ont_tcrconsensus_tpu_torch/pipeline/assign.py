@@ -19,7 +19,9 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import queue
 import sys
+import threading
 from collections import defaultdict
 
 import numpy as np
@@ -604,6 +606,59 @@ class AssignEngine:
         return fn(*args, *consts, min_len)
 
 
+_PREFETCH_DONE = object()
+
+
+def _prefetch(iterator, depth: int = 2):
+    """Run ``iterator`` on a worker thread, ``depth`` items ahead.
+
+    Batch building (parse, encode, pad) overlaps the device: the native
+    parser runs through ``ctypes``, which releases the GIL. The worker's
+    exception is raised here, at the item it would have been. Abandoning
+    the generator (a break, an exception in the caller, ``close()``)
+    stops the worker too: every put is a timed wait on a stop event that
+    the ``finally`` sets, and the ``finally`` then JOINS the worker, which
+    may be mid-pull routing bad records to an ``IngestGuard``: a retrying
+    caller resets that guard as soon as this generator unwinds, and a
+    worker still feeding it would count records twice. The join is
+    bounded: the worker stops at its next put once its pull returns.
+    """
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+
+    def put_until_stop(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.5)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            for item in iterator:
+                if not put_until_stop(item) or stop.is_set():
+                    return
+            put_until_stop(_PREFETCH_DONE)
+        except BaseException as exc:  # raised in the consumer
+            put_until_stop(exc)
+
+    thread = threading.Thread(target=worker, name="assign-prefetch", daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is _PREFETCH_DONE:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        thread.join()
+
+
 def _batches_from_source(source, batch_size, widths, subsample, counters=None, guard=None):
     """Batch iterator from a file path (the native C++ parser when it
     builds, the Python parsers otherwise), an :class:`EncodedRecords`
@@ -688,6 +743,7 @@ def run_assign(
     blast_id_threshold: float | None = None,
     collect_qc: list | None = None,
     subsample: int | None = None,
+    prefetch_depth: int = 2,
     dispatch=None,
     guard=None,
 ) -> tuple[ReadStore, AlignStats]:
@@ -700,12 +756,21 @@ def run_assign(
     the consensus-filter QC artifacts. ``dispatch(batch, max_ee_rate,
     min_len)`` overrides the per-batch device call (round 2's targeted
     pass; it returns the outputs on the device); every filter step is
-    shared. Batches run one after another on this thread, in the JAX
-    package's batch order, so the store's row order is the same. Each batch
-    is one ``assign.dispatch`` scope (the launches) and one frameless
-    readback under the same site (the wait and the copy), the JAX package's
-    split. The ingest, partition and store conservation contracts are
-    checked at the end.
+    shared.
+
+    The drive is the JAX package's pipeline of three threads: a prefetch
+    worker (:func:`_prefetch`, ``prefetch_depth`` batches ahead) parses
+    and pads; this thread only launches each batch (one
+    ``assign.dispatch`` scope) and records its CUDA events
+    (``obs_device.record_ready``); a readback thread waits for those
+    events alone, copies the outputs to the host (one frameless get under
+    ``assign.dispatch``) and runs the filters and the survivor compaction
+    (``consume``), in batch order, so the store's row order is the JAX
+    package's. A 2-permit semaphore, taken before a dispatch and given
+    back after its consume, holds the device outputs alive at two batches.
+    An exception of the worker, of ``consume`` or of the dispatch reaches
+    the caller once both threads have ended. The ingest, partition and
+    store conservation contracts are checked at the end.
 
     A path streams through the native parser in chunks when it builds
     (:func:`_batches_from_source`). ``guard`` (an
@@ -817,30 +882,71 @@ def run_assign(
 
     source_desc = (source if isinstance(source, (str, bytes)) or hasattr(source, "__fspath__")
                    else "<records>")
-    batches = _batches_from_source(source, batch_size, widths, subsample,
-                                   counters=counters, guard=guard)
-    for batch in batches:
-        # liveness: one heartbeat per batch; a wedged parser or dispatch
-        # stops them, and the stage's watchdog guard cancels into the
-        # transient retry of the whole idempotent pass
-        watchdog.heartbeat("assign.batch")
-        # chaos site: a transient fault on the fused-pass dispatch raises
-        # out of run_assign into the retry of the whole idempotent pass
-        faults.inject("assign.dispatch")
-        obs_metrics.counter_add("assign.batches")
-        with obs_device.dispatch("assign.dispatch", bucket=batch.width):
-            if dispatch is not None:
-                out_dev = dispatch(batch, max_ee_rate, min_len)
-            else:
-                # overlap_frac arms the SW fast path only when no blast-id
-                # gate runs (round 1): round 2's gate needs true blast-ids
-                out_dev = engine.run_batch_async(
-                    batch, max_ee_rate, min_len,
-                    overlap_frac=minimal_region_overlap if blast_id_threshold is None else None,
-                )
-        # the readback records under its own site, outside the frame, as
-        # the JAX package's consumer thread does
-        consume(batch, obs_device.timed_get("assign.dispatch", out_dev))
+    inflight: queue.Queue = queue.Queue()
+    permits = threading.Semaphore(2)
+    consumer_err: list[BaseException] = []
+
+    def consumer_loop():
+        while True:
+            item = inflight.get()
+            if item is _PREFETCH_DONE:
+                return
+            batch, out_dev, ready = item
+            try:
+                # this thread holds no dispatch frame: the wait and the copy
+                # record under the site itself, the device half of the split
+                consume(batch, obs_device.timed_get("assign.dispatch", out_dev, ready=ready))
+            except BaseException as exc:
+                consumer_err.append(exc)
+                return
+            finally:
+                permits.release()
+
+    def acquire_permit() -> bool:
+        """A timed acquire, so a dead readback thread cannot hang the drive."""
+        while not permits.acquire(timeout=1.0):
+            if consumer_err or not consumer.is_alive():
+                return False
+        return True
+
+    consumer = threading.Thread(target=consumer_loop, name="assign-readback", daemon=True)
+    consumer.start()
+    # closed in the finally: a generator left open would keep its worker
+    # feeding the guard while the retry wrapper resets it
+    batches = _prefetch(_batches_from_source(source, batch_size, widths, subsample,
+                                             counters=counters, guard=guard),
+                        depth=prefetch_depth)
+    try:
+        for batch in batches:
+            # liveness: one heartbeat per batch; a wedged parser or dispatch
+            # stops them, and the stage's watchdog guard cancels into the
+            # transient retry of the whole idempotent pass
+            watchdog.heartbeat("assign.batch")
+            if not acquire_permit():
+                break
+            # chaos site: a transient fault on the fused-pass dispatch raises
+            # out of run_assign into the retry of the whole idempotent pass
+            faults.inject("assign.dispatch")
+            obs_metrics.counter_add("assign.batches")
+            with obs_device.dispatch("assign.dispatch", bucket=batch.width):
+                if dispatch is not None:
+                    out_dev = dispatch(batch, max_ee_rate, min_len)
+                else:
+                    # overlap_frac arms the SW fast path only when no blast-id
+                    # gate runs (round 1): round 2's gate needs true blast-ids
+                    out_dev = engine.run_batch_async(
+                        batch, max_ee_rate, min_len,
+                        overlap_frac=minimal_region_overlap if blast_id_threshold is None else None,
+                    )
+            # the mark the readback waits for (under a mesh the outputs are
+            # gathered on the first slice's device, after every slice's work)
+            inflight.put((batch, out_dev, obs_device.record_ready(out_dev)))
+    finally:
+        batches.close()  # stops and joins the prefetch worker
+        inflight.put(_PREFETCH_DONE)
+        consumer.join()
+    if consumer_err:
+        raise consumer_err[0]
 
     blocks = []
     for width in sorted(acc):

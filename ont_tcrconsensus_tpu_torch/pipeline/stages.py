@@ -12,10 +12,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import sys
 import time
 from collections import defaultdict
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -544,9 +546,11 @@ def polish_clusters_all(
     polished ``cluster_batch`` at a time (from the memory budget unless
     given). ``polisher`` (``models.polisher.make_pipeline_polisher``), when
     given, runs on each chunk after the vote rounds, on their kept final
-    pileup. A transient fault retries the chunk on the same device under
-    the retry policy; a CUDA out-of-memory error re-derives a smaller batch
-    from a halved budget and requeues the chunk and the rest of its bucket;
+    pileup. One ``polish-pack`` worker packs each chunk's tile while the
+    chunk before it runs. A transient fault retries the chunk on the same
+    device under the retry policy; a CUDA out-of-memory error re-derives a
+    smaller batch from a halved budget and requeues the chunk and the rest
+    of its bucket;
     results do not depend on the batch. Any other failure of a chunk (and a
     transient or out-of-memory error the ladder cannot absorb) degrades:
     the chunk's groups are reported failed and the other chunks complete;
@@ -624,6 +628,28 @@ def polish_clusters_all(
         for s_bucket, width, cl, codes, lens, quals, strands in group_prepared:
             prepared[(s_bucket, width)].append((group_name, cl, codes, lens, quals, strands))
 
+    # one-slot pack prefetch: one worker stacks the next chunk's tile
+    # (numpy only, no CUDA state) while the current chunk runs; heartbeats,
+    # faults, metrics, uploads and every launch stay on this thread
+    packer = ThreadPoolExecutor(max_workers=1, thread_name_prefix="polish-pack")
+    try:
+        _polish_bucket_loop(prepared, by_group, failed, packer, rounds=rounds,
+                            band_width=band_width, polisher=polisher,
+                            cluster_batch=cluster_batch, budget=budget,
+                            keep_codes=keep_codes, device=device, mesh=mesh)
+    finally:
+        packer.shutdown(wait=True)
+    for entries in by_group.values():
+        entries.sort(key=lambda kv: int(kv[0].rsplit("_cluster", 1)[1].split("_")[0]))
+    return by_group, failed
+
+
+def _polish_bucket_loop(prepared, by_group, failed, packer, *, rounds, band_width, polisher,
+                        cluster_batch, budget, keep_codes, device, mesh) -> None:
+    """The chunk drive of :func:`polish_clusters_all`, bucket by bucket:
+    each chunk dispatches while ``packer`` packs the next one of its
+    worklist entry (the entry's first chunk packs inline); an
+    out-of-memory requeue cancels the pending pack."""
     keep_pos = bool(getattr(polisher, "wants_v4", False))
     # the cluster axis splits over the data slices: chunks must divide it
     n_data = mesh_mod.mesh_data_size(mesh) if mesh is not None else None
@@ -644,16 +670,30 @@ def polish_clusters_all(
         worklist: list[tuple[list, int, int]] = [(items, cb, 0)]
         while worklist:
             run_items, cb_run, shrink = worklist.pop(0)
+
+            def pack_at(start, run_items=run_items, cb_run=cb_run):
+                return _pack_polish_chunk(run_items[start : start + cb_run], cb_run,
+                                          s_bucket, width)
+
+            next_packed = None
             for start in range(0, len(run_items), cb_run):
                 chunk = run_items[start : start + cb_run]
+                # the pack is pure, so a retried chunk reuses its tile
+                this_packed = (next_packed.result if next_packed is not None
+                               else _once(functools.partial(pack_at, start)))
+                following = start + cb_run
+                next_packed = (packer.submit(pack_at, following)
+                               if following < len(run_items) else None)
                 seqs = _dispatch_polish_retried(
-                    chunk, cb_run, s_bucket, width, shrink, rounds=rounds, eff_band=eff_band,
-                    keep_pos=keep_pos, polisher=polisher, budget=budget,
+                    chunk, this_packed, cb_run, s_bucket, width, shrink, rounds=rounds,
+                    eff_band=eff_band, keep_pos=keep_pos, polisher=polisher, budget=budget,
                     keep_codes=keep_codes, device=device, mesh=mesh,
                 )
                 if isinstance(seqs, int):
                     # out of memory: requeue the failing chunk AND the
                     # untried remainder at the smaller batch
+                    if next_packed is not None:
+                        next_packed.cancel()
                     worklist.append((run_items[start:], seqs, shrink + 1))
                     break
                 # counted once the chunk settles (done or failed): a retried
@@ -669,17 +709,27 @@ def polish_clusters_all(
                     by_group[group_name].append(
                         (f"{group_name}_cluster{cl.cluster_id}_{len(cl.members)}", seq)
                     )
-    for entries in by_group.values():
-        entries.sort(key=lambda kv: int(kv[0].rsplit("_cluster", 1)[1].split("_")[0]))
-    return by_group, failed
 
 
-def _dispatch_polish_retried(chunk, cb_run, s_bucket, width, shrink, *, rounds, eff_band,
-                             keep_pos, polisher, budget, keep_codes, device, mesh):
-    """Dispatch one chunk under the retry policy: the chunk's sequences;
-    the smaller cluster batch to requeue at after an out-of-memory error
-    (an int); or, for a failure the chunk cannot recover from, the
-    exception (its groups degrade). A transient fault retries the same
+def _once(fn):
+    """``fn``'s result, computed at the first call and kept."""
+    kept = []
+
+    def get():
+        if not kept:
+            kept.append(fn())
+        return kept[0]
+
+    return get
+
+
+def _dispatch_polish_retried(chunk, pack, cb_run, s_bucket, width, shrink, *, rounds,
+                             eff_band, keep_pos, polisher, budget, keep_codes, device, mesh):
+    """Dispatch one chunk under the retry policy (``pack()`` gives its
+    packed tile, :func:`_pack_polish_chunk`'s, from the packer or inline):
+    the chunk's sequences; the smaller cluster batch to requeue at after an
+    out-of-memory error (an int); or, for a failure the chunk cannot
+    recover from, the exception (its groups degrade). A transient fault retries the same
     chunk on the same device; a lost device is recorded and raised.
     Outcomes land in the robustness report under ``polish.dispatch``."""
     attempt = 1
@@ -694,7 +744,7 @@ def _dispatch_polish_retried(chunk, cb_run, s_bucket, width, shrink, *, rounds, 
                 # running out of memory
                 faults.inject("mesh.device_lost")
                 faults.inject("mesh.slice_oom")
-            packed = _pack_polish_chunk(chunk, cb_run, s_bucket, width)
+            packed = pack()
             # the dispatch split of the dominant stage: the readbacks in
             # ops/consensus and the polisher credit their waits to this
             # frame; the pack above sits outside it, as in the JAX package

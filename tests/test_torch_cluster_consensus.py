@@ -131,8 +131,8 @@ def _cluster_tile(seed: int, C: int, S: int, W: int, err: float):
 
 @pytest.mark.parametrize("band,W", [(64, 512), (128, 512), (64, 1024)])
 def test_consensus_clusters_batch_matches_jax(band, W):
-    """At W=1024 the JAX package runs its fused round-pair program; the
-    port's round-at-a-time loop must give the same drafts."""
+    """At W=1024 both packages run their fused round pairs on the CPU
+    (below it, one round a readback); the drafts must be equal."""
     sub, lens = _cluster_tile(band, C=5, S=6, W=W, err=0.08)
     jd, jl = jconsensus.consensus_clusters_batch(sub, lens, rounds=4, band_width=band)
     td, tl = consensus.consensus_clusters_batch(sub, lens, rounds=4, band_width=band,

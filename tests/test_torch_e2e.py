@@ -24,7 +24,6 @@ fingerprint. Both packages run their default executor, the graph;
 ``poa`` with both under ``executor: "imperative"``."""
 
 import json
-import math
 
 import pytest
 
@@ -57,13 +56,6 @@ TIMING = "barcode01/logs/stage_timing.tsv"
 NAME_MAPS = {"stages", "dispatch", "dispatch_by_stage", "compile.by_stage", "counters",
              "gauges", "histograms", "transfers.sites", "transfers.edges",
              "robustness_events"}
-# A dispatch site whose counts cannot match: the JAX package dispatches two
-# consensus rounds in one program on an accelerator and at polish widths of
-# 1024 and up on the CPU (ops/consensus.py's ``use_fused``), one readback a
-# pair; the port extends each round's ends on the host, so it reads back
-# every round. Per chunk the JAX count is ceil(port count / 2) there and
-# equal below 1024.
-COUNT_DIFFERS = {"consensus.get"}
 
 
 def _tree(root) -> dict[str, bytes]:
@@ -265,10 +257,14 @@ def test_obs_files_carry_the_jax_names_and_counts(runs):
     for site, d in tel["dispatch"].items():
         jd = jtel["dispatch"][site]
         assert d["dispatches"] == jd["dispatches"], site
-        if site in COUNT_DIFFERS:
-            assert math.ceil(d["gets"] / 2) <= jd["gets"] <= d["gets"], site
-        else:
-            assert d["gets"] == jd["gets"], site
+        assert d["gets"] == jd["gets"], site
+    # by stage: assign's readbacks run on a thread outside every stage span
+    # in both packages (their label is "")
+    by_stage, jby_stage = tel["dispatch_by_stage"], jtel["dispatch_by_stage"]
+    assert sorted(by_stage) == sorted(jby_stage)
+    for stage, d in by_stage.items():
+        assert (d["dispatches"], d["gets"]) == (jby_stage[stage]["dispatches"],
+                                                jby_stage[stage]["gets"]), stage
     assert tel["histograms"] == jtel["histograms"]  # the polish chunks' sizes
     assert sorted(tel["counters"]) == sorted(jtel["counters"])
     for name in ("assign.batches", "cluster.batched", "polish.chunks", "donation.audit"):
