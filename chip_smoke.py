@@ -16,7 +16,7 @@ of which fails the script (non-zero exit, no result line):
    package. Phase 8's first run, phase 10's quarantine run and phase 12's
    in-process jobs must ingest through that parser alone (their read
    batches are counted by path);
-2. build: the four kernels (``ont_tcrconsensus_tpu_torch/csrc/*.cu``), one
+2. build: the six kernels (``ont_tcrconsensus_tpu_torch/csrc/*.cu``), one
    ``nvcc`` each, started together; ptxas's registers and spills and each
    instantiation's SASS instruction mix (``cuobjdump``) are printed;
 3. kernel parity: kernel B1 (banded SW stats) at B=2048, W=128 and kernel
@@ -47,7 +47,16 @@ of which fails the script (non-zero exit, no result line):
    rounds fused (``ops/consensus._pair_program``: both rounds, their end
    extensions and flags on the card, one readback) beside two unfused
    rounds (a readback and the host extension each), host clock, median
-   of 3, their drafts equal;
+   of 3, their drafts equal. Kernel B5 (the fuzzy match) at the lane's two
+   call shapes, the primer trim (P=8 patterns of m=47 over B=2048 windows
+   of 150) and the UMI windows (P=2, m=32, B=2048, Lw=81), and kernel B6
+   (the UMI dovetail distance) on 8192 pairs of width 128 (lengths 58-68)
+   at k_end 8 and 16 and on the 256 x 256 full matrix at k_end 8, all on
+   seeded cases (``dp_cases.fuzzy_case``, ``dovetail_case``: planted
+   instances with edits, IUPAC codes, empty and short windows, ties on the
+   end and the start; empty sequences, a_len > b_len), against the plain
+   versions on the same card tensors: every output exactly equal; times,
+   plain times and the bound (the cells these inputs need) as above;
 4. polisher parity: at the same tile, the vote rounds' kept final pileup
    (recomputed against the final drafts if the rounds ran out), then the
    features and the served (v3) bi-GRU on ``cuda`` and on ``cpu``: the
@@ -93,7 +102,7 @@ of which fails the script (non-zero exit, no result line):
    ``/progress`` names the graph node the run is in;
    ``logs/trace.json`` holds a span for every stage of the stage table,
    on the main thread's row or, for the QC worker's ``*_bg`` stages, on a
-   worker's row; the ``torch.profiler`` trace names the four kernels (its
+   worker's row; the ``torch.profiler`` trace names the six kernels (its
    size and event count are printed); ``python -m
    ont_tcrconsensus_tpu_torch --report`` exits 0 in a subprocess that
    never loads torch; ``robustness_report.json`` holds no watchdog event;
@@ -135,7 +144,7 @@ of which fails the script (non-zero exit, no result line):
    and again around the ``poa`` run; each kernel must have launched in
    both, B3 as often as B2 (each forward is followed by its traceback),
    and every run's counts must equal the truth; B4 launches on the QC
-   profiles' runs and not without them. Each run's stage
+   profiles' runs and not without them; B5 and B6 on every run counted. Each run's stage
    seconds are printed under
    the stage table's names, the error profiles' worker seconds
    (``*_bg``) beside the main thread's wait at their commit. The first
@@ -158,7 +167,11 @@ of which fails the script (non-zero exit, no result line):
    ``round1_polish`` seconds are printed on one line, beside the card's
    busy share in the ``round1_fused_assign`` window of one more run of
    the full lane (in a directory of its own, that window traced by
-   ``torch.profiler``, counts equal to the truth);
+   ``torch.profiler``, counts equal to the truth); and one line of what
+   kernels B5 and B6 serve: their launches, the ``assign.dispatch`` and
+   ``cluster.batched_dispatch`` host seconds, the ``round1_fused_assign``
+   and ``round1_umi_cluster`` seconds and that window's device events and
+   busy share;
 9. robustness on the card: the small lane under ``poa`` (no retry
    back-off), one chaos drill a run: a transient fault
    at ``assign.dispatch`` and ``polish.dispatch`` (retried), an out of
@@ -208,8 +221,8 @@ of which fails the script (non-zero exit, no result line):
    often as B2, ``mesh_slice_busy`` for
    every slice and ``mesh_config`` in ``history.jsonl``; its seconds and
    reads/s beside phase 6's. Then B1 at
-   B=2048, L=2048, W=128, B2 at N=1024, L=2048, W=64 and B3 on those
-   planes split over a
+   B=2048, L=2048, W=128, B2 at N=1024, L=2048, W=64, B3 on those
+   planes and B6 on 8192 pairs at k_end 8 split over a
    ``data=2`` mesh of two slices of ONE card (``cuda:0`` twice), each bit
    for bit the unsplit launch, both timed (CUDA-event medians of 5). Then
    the small lane under ``poa`` without the QC error profiles at
@@ -229,7 +242,7 @@ of which fails the script (non-zero exit, no result line):
 12. the warm-serving daemon (``serve/``): a ``Daemon`` in this process on
    a thread, on ``cuda``, phase 8's full-lane config (the default config)
    as its template, prewarm on: the prewarm report (each warm-up launch's
-   bucket, seconds and B1/B2/B3 launches; the kernel build/load seconds) and
+   bucket, seconds and B1-B6 launches; the kernel build/load seconds) and
    ``warmup_s``. Then phase 8's full lane as job 1 over real HTTP
    (``POST /jobs``), launches counted from zero: done with the truth's
    counts, every file under ``nano_tcr/`` byte-identical to phase 8's run
@@ -237,7 +250,7 @@ of which fails the script (non-zero exit, no result line):
    (telemetry keys, stage names, manifest stages, the run entry of
    ``history.jsonl``), B1, B2, B3 and B4 launched as often as there, 0 kernel
    builds in its ``telemetry.json``; its seconds and reads/s beside run
-   0's, its ``wait_s`` and ``dispatch_first_stage_s``, and its peak
+   0's (B5 and B6 among them), its ``wait_s`` and ``dispatch_first_stage_s``, and its peak
    memory beside the admission estimate's byte figures; its ``source:
    "serve"`` ledger entry carries the daemon's ``warmup_s``
    (``tests/test_torch_serve.py`` holds a later entry without it). Drills
@@ -311,14 +324,14 @@ of which fails the script (non-zero exit, no result line):
    UMI shortlist's threshold of 256) and ``min_reads_per_cluster: 2``,
    held to the medium tier's assertions (``tests/test_lane_scale.py``):
    the heavy region at least 0.96 of the truth and never over it, every
-   other region exact, B1, B2 and B3 launched, B3 as often as B2, and B4
-   not at all (the twin runs without a QC profile); its reads/s, stage
+   other region exact, B1, B2, B3, B5 and B6 launched, B3 as often as B2,
+   and B4 not at all (the twin runs without a QC profile); its reads/s, stage
    seconds, peak device memory and launches are printed. The tier's
    "every other region exact" is a property of its size: at 10,000 reads
    the JAX package's own run loses a depth-4 molecule too.
 
 Each phase's start (seconds since the script began) is printed. Then one
-``{"kernels": [...]}`` line (B1, B2, B3, B4), the ``nvidia-smi`` line, and last
+``{"kernels": [...]}`` line (B1-B6), the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes every number
 to a JSON file.
 """
@@ -799,6 +812,121 @@ def _traceback_costs(best, spans, N: int, L: int, W: int, out_len: int, step_ns:
     return {"steps": total, "longest_walk": longest, "bound_ms": bound, "bound_by": by,
             "step_ns": step_ns, "staged_bytes": staged, "staged_bytes_ms": staged_ms,
             "walk_floor_ms": walk_ms, "design_floor_ms": max(walk_ms, staged_ms)}
+
+
+# ---------------------------------------------------------------------------
+# kernels B5 (the fuzzy match) and B6 (the UMI dovetail distance)
+
+# int32 operations a DP cell of each needs, one per two-input add, compare,
+# select, min or logical op, counted from the plain versions' recurrences
+# (ops/fuzzy_match._final_row, ops/edit_distance.pairwise_dovetail_plain)
+# written as min(diag + sub, min(up, prev) + 1); loads and per-row or
+# per-column terms (the overhangs past k_end) are not counted
+FUZZY_CELL_OPS = {"match test: and, compare": 2,
+                  "recurrence: add, min, add, min": 4}
+DOVETAIL_CELL_OPS = {"match test: compare": 1, "recurrence: add, min, add, min": 4,
+                     "candidate: add the row's overhang, min": 2}
+# the lane's two call shapes (P, m, B, Lw): the primer trim (4 bundled
+# primers and their reverse complements, m = 47, over 2 x 1024 windows of
+# trim_window 150) and the UMI windows (2 patterns of 32 over 2 x 1024
+# windows of 81)
+FUZZY_SHAPES = ((8, 47, 2048, 150), (2, 32, 2048, 81))
+# B6's: the shortlist's distance chunk (cluster/umi._PAIR_CHUNK pairs at
+# pad width 128) at the UMI path's k_end 8 and the rescue's 16, and the full
+# matrix of 256 x 256
+DOVETAIL_PAIRS, DOVETAIL_L, DOVETAIL_GRID = 8192, 128, 256
+
+
+def _exact(label: str, got, want) -> int:
+    """Every output equal, else raise naming the first difference; the
+    largest absolute difference (0)."""
+    import torch
+
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.shape != b.shape or not torch.equal(a, b):
+            bad = tuple((a != b).nonzero()[0].tolist()) if a.shape == b.shape else ()
+            raise AssertionError(f"{label}: output {i} differs at {bad}: kernel "
+                                 f"{a[bad].tolist()}, plain {b[bad].tolist()}")
+    return 0
+
+
+def check_fuzzy(dev, seed: int, P: int, m: int, B: int, Lw: int) -> dict:
+    """Kernel B5 against the plain version on the same card tensors
+    (``dp_cases.fuzzy_case``): dist, start and end exactly equal. The bound
+    counts the cells these inputs need: p_len rows over each window's
+    columns (pass 1) and over its prefix [0, end) (pass 2)."""
+    import torch
+
+    from ont_tcrconsensus_tpu_torch.io import dp_cases
+    from ont_tcrconsensus_tpu_torch.ops import fuzzy_kernel, fuzzy_match
+
+    args = [torch.from_numpy(x).to(dev) for x in dp_cases.fuzzy_case(seed, P, m, B, Lw)]
+    got = fuzzy_kernel.fuzzy_find_multi_cuda(*args)
+    want, plain_ms = _timed_once(lambda: fuzzy_match.fuzzy_find_multi_plain(*args))
+    err = _exact(f"B5 P={P} m={m} B={B} Lw={Lw}", got, want)
+    for _ in range(2):
+        fuzzy_kernel.fuzzy_find_multi_cuda(*args)
+    ms = _time_ms(lambda: fuzzy_kernel.fuzzy_find_multi_cuda(*args), 7)
+    rows = args[1].clamp(0, m).long()
+    cols = args[3].clamp(0, Lw).long()[None, :] + want[2].long()
+    cells = int((rows[:, None] * cols).sum())
+    n_bytes = P * m + 4 * P + B * Lw + 4 * B + 3 * 4 * P * B
+    bound, by = _bound_ms(n_bytes, cells * sum(FUZZY_CELL_OPS.values()))
+    return {"P": P, "m": m, "B": B, "Lw": Lw, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "cells": cells, "bound_ms": bound, "bound_by": by,
+            "fn_ops_per_cell": sum(FUZZY_CELL_OPS.values()),
+            "exact_hits": int((want[0] == 0).sum())}
+
+
+def check_dovetail(dev, seed: int, k_end: int, grid: bool) -> dict:
+    """Kernel B6 against the plain version on the same card tensors
+    (``dp_cases.dovetail_case``, lengths 58-68 at width 128): the
+    shortlist's 8192 pairs, or (``grid``) the 256 x 256 full matrix, whose
+    plain yardstick runs on the repeated pairs. The bound counts the cells
+    these inputs need: rows 1..a_len over columns 1..b_len of each pair
+    (the border row and column take no DP step)."""
+    import torch
+
+    from ont_tcrconsensus_tpu_torch.io import dp_cases
+    from ont_tcrconsensus_tpu_torch.ops import dovetail_kernel, edit_distance
+
+    L = DOVETAIL_L
+    a, al, b, bl = (torch.from_numpy(x).to(dev) for x in dp_cases.dovetail_case(
+        seed, DOVETAIL_GRID if grid else DOVETAIL_PAIRS, L))
+    Q = T = DOVETAIL_GRID
+
+    def kernel():
+        if grid:
+            return dovetail_kernel.many_vs_many_dovetail_cuda(a, al, b, bl, k_end)
+        return dovetail_kernel.pairwise_dovetail_cuda(a, al, b, bl, k_end)
+
+    def plain():
+        if grid:  # the grid's pairs repeated, as the plain many-vs-many makes them
+            return edit_distance.pairwise_dovetail_plain(
+                a.repeat_interleave(T, dim=0), al.repeat_interleave(T), b.repeat(Q, 1),
+                bl.repeat(Q), k_end).reshape(Q, T)
+        return edit_distance.pairwise_dovetail_plain(a, al, b, bl, k_end)
+
+    rows = al.clamp(0, L).long()
+    cols = bl.clamp(0, L).long()
+    if grid:
+        rows, cols = rows[:, None], cols[None, :]
+        n_pairs, n_bytes = Q * T, (Q + T) * (L + 4) + 4 * Q * T
+    else:
+        n_pairs = DOVETAIL_PAIRS
+        n_bytes = n_pairs * (2 * L + 8) + 4 * n_pairs
+    got = kernel()
+    want, plain_ms = _timed_once(plain)
+    err = _exact(f"B6 {'grid' if grid else 'pairs'} k_end={k_end}", [got], [want])
+    for _ in range(2):
+        kernel()
+    ms = _time_ms(kernel, 7)
+    cells = int((rows * cols).sum())
+    bound, by = _bound_ms(n_bytes, cells * sum(DOVETAIL_CELL_OPS.values()))
+    return {"shape": f"{Q} x {T}" if grid else f"{n_pairs} pairs", "L": L, "k_end": k_end,
+            "pairs": n_pairs, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "cells": cells, "bound_ms": bound, "bound_by": by,
+            "fn_ops_per_cell": sum(DOVETAIL_CELL_OPS.values())}
 
 
 @contextlib.contextmanager
@@ -1651,13 +1779,14 @@ def observation_phase() -> dict:
         {"worker"} if name.endswith("_bg") else {"MainThread"})]
     if missing or not any(n.endswith("_bg") for n in table):
         raise AssertionError(f"observation: stages without their span on their row: {missing}")
-    # the whole-run profiler trace names the four kernels
+    # the whole-run profiler trace names the six kernels
     (prof_name,) = [f for f in os.listdir(prof_dir) if f.endswith(".pt.trace.json")]
     with open(os.path.join(prof_dir, prof_name), "rb") as fh:
         raw = fh.read()
     kernels_named = {k: k.encode() in raw for k in ("sw_banded_kernel", "pileup_forward_kernel",
                                                      "pileup_traceback_kernel",
-                                                     "error_profile_cs_kernel")}
+                                                     "error_profile_cs_kernel",
+                                                     "fuzzy_match_kernel", "dovetail_kernel")}
     if not all(kernels_named.values()):
         raise AssertionError(f"observation: the profiler trace lacks a kernel: {kernels_named}")
     rep = _cli_probe("--report", os.path.dirname(nano))
@@ -2366,14 +2495,15 @@ def _same_files(tree: dict, other: dict, label: str, but=()) -> int:
 
 
 def _sharded_kernels(dev, mesh_mod) -> dict:
-    """B1, B2 and B3 at main-path shapes split over a data=2 mesh of two
+    """B1, B2, B3 and B6 at main-path shapes split over a data=2 mesh of two
     slices of ONE card, against the unsplit launch: bit for bit."""
     import dataclasses
 
     import torch
 
     from ont_tcrconsensus_tpu_torch.io import dp_cases
-    from ont_tcrconsensus_tpu_torch.ops import pileup_kernel, sw_kernel, traceback_kernel
+    from ont_tcrconsensus_tpu_torch.ops import (edit_distance, pileup_kernel, sw_kernel,
+                                                traceback_kernel)
 
     def sw_fields(*a, band_width):
         return dataclasses.astuple(sw_kernel.align_banded_cuda(*a, band_width=band_width))
@@ -2405,9 +2535,22 @@ def _sharded_kernels(dev, mesh_mod) -> dict:
             if not torch.equal(a, b):
                 raise AssertionError(f"mesh: {key} output {i} split over two slices differs "
                                      "from the unsplit launch")
-        out[key] = {"B": B, "L": L, "W": W, "max_abs_err": 0,
+        out[key] = {"shape": f"B={B} L={L} W={W}", "max_abs_err": 0,
                     "whole_ms": _time_ms(lambda: fn(*args, band_width=W), 5),
                     "split_ms": _time_ms(lambda: sharded(*args), 5)}
+    # B6 on the shortlist's distance chunk, its pair axis split
+    args = [torch.from_numpy(x).to(dev)
+            for x in dp_cases.dovetail_case(40, DOVETAIL_PAIRS, DOVETAIL_L)]
+    whole = edit_distance.pairwise_dovetail(*args)
+    sharded = mesh_mod.shard_map_compat(edit_distance.pairwise_dovetail, m,
+                                        in_specs=(d2, d1, d2, d1), out_specs=d1)
+    if not torch.equal(whole, sharded(*args)):
+        raise AssertionError("mesh: dovetail split over two slices differs from the unsplit "
+                             "launch")
+    out["dovetail"] = {"shape": f"{DOVETAIL_PAIRS} pairs L={DOVETAIL_L} k_end 8",
+                       "max_abs_err": 0,
+                       "whole_ms": _time_ms(lambda: edit_distance.pairwise_dovetail(*args), 5),
+                       "split_ms": _time_ms(lambda: sharded(*args), 5)}
     return out
 
 
@@ -2899,7 +3042,8 @@ def serve_phase(full_lib, full: dict, kernels) -> dict:
     fused = [e for e in entries if e["kind"] == "fused_assign"]
     pol = [e for e in entries if e["kind"] == "polisher"]
     if (outcome or not entries or not all(e["ok"] for e in entries)
-            or not all(e["launches"]["B1"] > 0 for e in fused)
+            or not all(e["launches"]["B1"] > 0 and e["launches"]["B5"] > 0 for e in fused)
+            or not (fused and fused[0]["launches"]["B6"] > 0)
             or not (pol and pol[0]["launches"]["B2"] > 0
                     and pol[0]["launches"]["B3"] == pol[0]["launches"]["B2"])):
         raise AssertionError(f"serve: prewarm {out['prewarm']} (loop {outcome})")
@@ -3122,7 +3266,8 @@ def training_phase(tile_feats) -> dict:
 
     from ont_tcrconsensus_tpu_torch import convert
     from ont_tcrconsensus_tpu_torch.models import polisher, train
-    from ont_tcrconsensus_tpu_torch.ops import cs_kernel, pileup_kernel, sw_kernel, traceback_kernel
+    from ont_tcrconsensus_tpu_torch.ops import (cs_kernel, dovetail_kernel, fuzzy_kernel,
+                                                pileup_kernel, sw_kernel, traceback_kernel)
 
     t_phase = time.perf_counter()
     out: dict = {}
@@ -3135,6 +3280,8 @@ def training_phase(tile_feats) -> dict:
     b2.launches = 0
     b3.launches = 0
     cs_kernel.error_profile_cs_cuda.launches = 0
+    fuzzy_kernel.fuzzy_find_multi_cuda.launches = 0
+    dovetail_kernel.dovetail_cuda.launches = 0
 
     def b2_since(start):
         return b2.launches - start
@@ -3254,6 +3401,8 @@ def training_phase(tile_feats) -> dict:
         out["b3_launches"] = b3.launches
         out["b1_launches"] = sw_kernel.align_banded_cuda.launches
         out["b4_launches"] = cs_kernel.error_profile_cs_cuda.launches
+        out["b5_launches"] = fuzzy_kernel.fuzzy_find_multi_cuda.launches
+        out["b6_launches"] = dovetail_kernel.dovetail_cuda.launches
         if b3.launches != b2.launches:
             raise AssertionError(f"training: B3 launched {b3.launches} times, B2 {b2.launches}")
 
@@ -3545,7 +3694,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     try:
         from ont_tcrconsensus_tpu_torch.device import resolve_device
-        from ont_tcrconsensus_tpu_torch.ops import (_build, cs_kernel, pileup_kernel, sw_kernel,
+        from ont_tcrconsensus_tpu_torch.ops import (_build, cs_kernel, dovetail_kernel,
+                                                    fuzzy_kernel, pileup_kernel, sw_kernel,
                                                     traceback_kernel)
     except ImportError as exc:
         return _fail(f"the port is not beside this script ({exc})")
@@ -3648,6 +3798,19 @@ def main(argv=None) -> int:
               f"{r['out_len']}: every output equal to the plain steps' (longest walk "
               f"{r['longest_walk']} steps, {r['insertion_columns']} insertion and "
               f"{r['deletion_columns']} deletion columns)", flush=True)
+    report["fuzzy"] = [check_fuzzy(dev, 50 + seed, *shape)
+                       for seed, shape in enumerate(FUZZY_SHAPES)]
+    report["dovetail"] = [check_dovetail(dev, 60 + seed, k, grid) for seed, (k, grid) in
+                          enumerate(((8, False), (16, False), (8, True)))]
+    for r in report["fuzzy"]:
+        print(f"parity fuzzy match B5 P={r['P']} m={r['m']} B={r['B']} Lw={r['Lw']}: exact "
+              f"({r['exact_hits']} exact hits); kernel {r['ms']:.3f} ms, plain "
+              f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"{r['cells']} cells x {r['fn_ops_per_cell']} ops)", flush=True)
+    for r in report["dovetail"]:
+        print(f"parity dovetail B6 {r['shape']} L={r['L']} k_end={r['k_end']}: exact; kernel "
+              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}, {r['cells']} cells x {r['fn_ops_per_cell']} ops)", flush=True)
     split = report["polish_split"] = polish_split(dev, 20)
     print(f"polish round (C={split['C']} S={split['S']} L={split['L']} W={split['W']}): "
           f"B2 forward {split['forward_ms']:.1f} ms, B3 traceback {split['traceback_ms']:.1f} ms "
@@ -3723,7 +3886,7 @@ def main(argv=None) -> int:
           + f"; trace.json {obs['trace_events']} events ({obs['trace_bytes']} B), a span for "
           f"each of {len(obs['stages'])} stages on its row; profiler trace "
           f"{obs['profiler_trace_bytes']} B, {obs['profiler_trace_events']} events, names "
-          f"the four kernels; --report exit 0 without torch ({obs['report_lines']} lines); no "
+          f"the six kernels; --report exit 0 without torch ({obs['report_lines']} lines); no "
           f"watchdog event; kernel builds {obs['compile']['count']}; device high-water "
           f"{obs['hbm_high_water_bytes']} B", flush=True)
     pd = obs["dispatch"].get("polish.dispatch", {})
@@ -3737,7 +3900,8 @@ def main(argv=None) -> int:
     # overlapped, under the imperative order and without telemetry, then the
     # poa path), and the plants' cost
     kernels = (sw_kernel.align_banded_cuda, pileup_kernel.forward_planes_cuda,
-               traceback_kernel.traceback_columns_cuda, cs_kernel.error_profile_cs_cuda)
+               traceback_kernel.traceback_columns_cuda, cs_kernel.error_profile_cs_cuda,
+               fuzzy_kernel.fuzzy_find_multi_cuda, dovetail_kernel.dovetail_cuda)
     full, full_lib = full_e2e(kernels, max(args.lane_runs, 0), step_ns)
     report["full_e2e"] = full
     plants = report["plant_cost_us"] = plant_cost(dev)
@@ -3771,6 +3935,15 @@ def main(argv=None) -> int:
               f"{k} {max(t[k] for t in full['overlap_threads'])}" for k in OVERLAP_THREADS)
           + f"; round1_fused_assign traced (a run of its own): device {win['device_ms']:.1f} ms "
           f"of {win['window_ms']:.1f} ms, {win['events']} events, busy share "
+          f"{win['busy_share']:.4f}", flush=True)
+    run0 = full["launches"]["rnn"]
+    print(f"full e2e run 0 B5/B6: launches B5 {run0['fuzzy_find_multi_cuda']}, B6 "
+          f"{run0['dovetail_cuda']}; host seconds assign.dispatch "
+          f"{tel0.get('assign.dispatch', {}).get('host_s')}, cluster.batched_dispatch "
+          f"{tel0.get('cluster.batched_dispatch', {}).get('host_s')}; stages (s) "
+          + ", ".join(f"{k} {full['stage_s'][0].get(k, 0.0):.3f}"
+                      for k in ("round1_fused_assign", "round1_umi_cluster"))
+          + f"; round1_fused_assign window {win['events']} device events, busy share "
           f"{win['busy_share']:.4f}", flush=True)
     for key, gaps in full["launch_gaps"].items():
         dims = {"traceback": "(batch, L, Lr, W, out_len)",
@@ -3926,7 +4099,7 @@ def main(argv=None) -> int:
     print("mesh stages (s): " + ", ".join(f"{k} {v:.2f}" for k, v in ms["stage_s"].items()),
           flush=True)
     for key, r in ms["sharded_kernels"].items():
-        print(f"mesh {key} (B={r['B']} L={r['L']} W={r['W']}) split over a data=2 mesh of two "
+        print(f"mesh {key} ({r['shape']}) split over a data=2 mesh of two "
               f"slices of ONE card (cuda:0 twice, not two cards): bit-equal to the unsplit "
               f"launch; unsplit {r['whole_ms']:.3f} ms, split {r['split_ms']:.3f} ms", flush=True)
     for name, d in ms["drills"].items():
@@ -3956,8 +4129,7 @@ def main(argv=None) -> int:
           f"{sv['warmup_s']}); prewarm {pw['seconds']} s, {pw['compiled']} ok, {pw['failed']} "
           f"failed, kernel build/load {pw['build_s']} s; entries " + ", ".join(
               f"{e['kind']} w={e['width']} b={e['batch']} {e['seconds']} s "
-              f"B1 {e['launches']['B1']} B2 {e['launches']['B2']} B3 {e['launches']['B3']} "
-              f"B4 {e['launches']['B4']}"
+              + " ".join(f"{k} {n}" for k, n in e["launches"].items())
               for e in pw["entries"]),
           flush=True)
     j1 = sv["job1"]
@@ -4013,7 +4185,8 @@ def main(argv=None) -> int:
     print(f"training CLI on the card: exit {tr['cli']['rc']} in {tr['cli']['seconds']:.1f} s; "
           f"B2 launches of the phase (in this process) {tr['b2_launches']}, B3 "
           f"{tr['b3_launches']}, B1 "
-          f"{tr['b1_launches']}, B4 {tr['b4_launches']}; models/weights/ unchanged; phase {tr['seconds']:.1f} s",
+          f"{tr['b1_launches']}, B4 {tr['b4_launches']}, B5 {tr['b5_launches']}, B6 "
+          f"{tr['b6_launches']}; models/weights/ unchanged; phase {tr['seconds']:.1f} s",
           flush=True)
     _dump(args.out, report)
 
@@ -4118,6 +4291,23 @@ def main(argv=None) -> int:
         "bound_ms": ep["bound_ms"], "bound_by": ep["bound_by"], "library_ms": None,
         "design_floor_ms": ep["design_floor_ms"], "staged_bytes": ep["staged_bytes"],
     })
+    for k, key, name, replaces, training in (
+        (fuzzy_kernel.fuzzy_find_multi_cuda, "fuzzy", "fuzzy_match",
+         "ont_tcrconsensus_tpu/ops/fuzzy_match.py:52", tr["b5_launches"]),
+        (dovetail_kernel.dovetail_cuda, "dovetail", "dovetail",
+         "ont_tcrconsensus_tpu/ops/edit_distance.py:96", tr["b6_launches"]),
+    ):
+        r = report[key][0]  # the primer trim's shape; the shortlist's 8192 pairs at k_end 8
+        entries.append({
+            "name": name, "route": "cuda", "source": f"ont_tcrconsensus_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": full["launches"]["rnn"][k.__name__],
+            "launches_training": training,
+            "launches_serve_load": il["launches"][k.__name__],
+            "launches_lane_scale": art["kernel_launches"]["B5" if key == "fuzzy" else "B6"],
+            "max_abs_err": max(x["max_abs_err"] for x in report[key]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+        })
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -4164,7 +4354,8 @@ def lane_scale_phase() -> dict:
         (f"other regions differ: {rest}", bool(rest)),
         (f"exit {proc.returncode} with counts_exact {art['counts_exact']}",
          proc.returncode != (0 if art["counts_exact"] else 1)),
-        (f"launches {b}", not all(b[k] for k in ("B1", "B2", "B3")) or b["B3"] != b["B2"]),
+        (f"launches {b}", not all(b[k] for k in ("B1", "B2", "B3", "B5", "B6"))
+         or b["B3"] != b["B2"]),
         # the twin runs with error_profile_sample 0: no QC profile, no B4
         (f"B4 launched {b['B4']} times without a QC profile", b["B4"] != 0),
     ) if bad]

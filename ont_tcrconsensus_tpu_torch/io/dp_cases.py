@@ -1,16 +1,20 @@
-"""Seeded inputs for the banded DPs and their walks (kernels B1-B4 and
-their plain twins).
+"""Seeded inputs for the DPs and their walks (kernels B1-B6 and their
+plain twins).
 
 Every case is made with numpy from a seed, so the JAX reference, the plain
 PyTorch versions and the CUDA kernels can be fed the same bytes: the
 parity tests use :func:`dp_case` at small sizes, ``chip_smoke.py`` uses
 :func:`dp_batch` at the main path's shapes; both walk B3 over
-:func:`random_planes` and B4 over :func:`cs_tiles` and :func:`cs_crafted`.
+:func:`random_planes` and B4 over :func:`cs_tiles` and :func:`cs_crafted`,
+and hold B5 to :func:`fuzzy_case` and B6 to :func:`dovetail_case` at any
+size.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from ont_tcrconsensus_tpu_torch.ops import encode
 
 PAD = 5
 
@@ -273,3 +277,133 @@ def cs_crafted(case: str):
     for k in range(len(qs)):
         lo[k, : 2 if case == "negative_shift" else ns[k] // 2] += ws[k] + 3
     return arrays, w_pad
+
+
+# the IUPAC letters a pattern is drawn from (ACGT four times as often)
+_IUPAC = list("ACGT" * 4 + "RYSWKMBDHVN")
+
+# _SET_BITS[x, k]: the k-th set bit of the mask x; _N_BITS[x]: how many
+_SET_BITS = np.array([[b for b in (1, 2, 4, 8) if b & x] + [0] * (4 - bin(x).count("1"))
+                      for x in range(16)], np.uint8)
+_N_BITS = np.array([bin(x).count("1") for x in range(16)])
+
+FUZZY_KINDS = ("random", "planted", "at_start", "at_end", "twice", "tandem", "n_bases",
+               "zero_masks", "empty", "short")
+
+
+def _instance(rng: np.random.Generator, pattern: np.ndarray, edits: int) -> np.ndarray:
+    """A concrete base (one bit of each mask) for each pattern position,
+    then ``edits`` random substitutions, insertions and deletions."""
+    pattern = np.asarray(pattern, np.int64)
+    bases = _SET_BITS[pattern, (rng.random(len(pattern)) * _N_BITS[pattern]).astype(np.int64)]
+    for _ in range(edits):
+        pos = int(rng.integers(0, max(len(bases), 1)))
+        op = int(rng.integers(0, 3))
+        new = np.uint8(1 << int(rng.integers(0, 4)))
+        if op == 0 and len(bases):
+            bases[pos] = new
+        elif op == 1:
+            bases = np.insert(bases, pos, new)
+        elif len(bases) > 1:
+            bases = np.delete(bases, pos)
+    return bases
+
+
+def fuzzy_case(seed: int, P: int, m: int, B: int, Lw: int):
+    """Inputs of the infix fuzzy match (kernel B5): (pattern_masks (P, m)
+    uint8 zero-padded past each length, pattern_lens (P,) int32, windows
+    (B, Lw) uint8 masks zero past each length, window_lens (B,) int32).
+
+    Pattern 0 fills m; the others are shorter (padded), with IUPAC codes
+    and N. Windows cycle over :data:`FUZZY_KINDS`: random bases; an
+    instance of a pattern with 0-3 edits planted inside, at position 0 or
+    ending at the window's end; two exact instances (ties on the end);
+    tandem copies of a pattern's head (ties on the start); runs of N
+    (mask 15); masks 0 inside the window (never a match); an empty window;
+    a window shorter than the patterns. Window lengths run from 0 to Lw."""
+    rng = np.random.default_rng(seed)
+    plens = np.array([m] + [int(rng.integers(min(max(m // 2, 1), m), m + 1))
+                            for _ in range(P - 1)],
+                     np.int32)[:P]
+    pmasks = np.zeros((P, m), np.uint8)
+    for p in range(P):
+        pmasks[p, : plens[p]] = encode.encode_mask("".join(rng.choice(_IUPAC, plens[p])))
+    windows = np.zeros((B, Lw), np.uint8)
+    wlens = np.zeros(B, np.int32)
+    for b in range(B):
+        kind = FUZZY_KINDS[b % len(FUZZY_KINDS)]
+        pat = pmasks[b % P, : plens[b % P]]
+        wl = int(rng.integers(max(Lw // 2, 1), Lw + 1))
+        row = (1 << rng.integers(0, 4, wl)).astype(np.uint8)
+        inst = _instance(rng, pat, int(rng.integers(0, 4)))[:wl]
+        if kind == "planted" and len(inst) < wl:
+            pos = int(rng.integers(0, wl - len(inst) + 1))
+            row[pos : pos + len(inst)] = inst
+        elif kind == "at_start":
+            row[: len(inst)] = inst
+        elif kind == "at_end":
+            row[wl - len(inst) :] = inst
+        elif kind == "twice":
+            exact = _instance(rng, pat, 0)[: wl // 2]
+            row[: len(exact)] = exact
+            row[wl - len(exact) :] = exact
+        elif kind == "tandem":
+            head = _instance(rng, pat[: max(len(pat) // 4, 1)], 0)
+            if len(head):
+                row[:] = np.tile(head, wl // len(head) + 1)[:wl]
+            tail = inst[: wl // 2]
+            row[wl - len(tail) :] = tail
+        elif kind == "n_bases":
+            row[rng.random(wl) < 0.15] = 15
+            row[: len(inst)] = inst
+        elif kind == "zero_masks":
+            row[rng.random(wl) < 0.1] = 0
+        elif kind == "empty":
+            wl = 0
+        elif kind == "short":
+            wl = int(rng.integers(1, max(int(plens.min()) // 2, 1) + 1))
+            row = row[:wl]
+        windows[b, :wl] = row[:wl]
+        wlens[b] = wl
+    return pmasks, plens, windows, wlens
+
+
+DOVETAIL_KINDS = ("noisy", "unrelated", "a_empty", "b_empty", "both_empty", "a_longer",
+                  "n_codes", "shifted")
+
+
+def dovetail_case(seed: int, n: int, L: int, lens: tuple[int, int] = (58, 68)):
+    """Pairs of UMI-like codes for the budgeted-dovetail distance (kernel
+    B6): (a (n, L) uint8, a_lens (n,) int32, b (n, L) uint8, b_lens (n,)
+    int32), PAD-filled past each length. Lengths are drawn from ``lens``
+    (capped at L). Pairs cycle over :data:`DOVETAIL_KINDS`: b a noisy copy
+    of a (10% errors); unrelated; a_len 0, b_len 0 or both; b a copy of a
+    cut short (a_len > b_len); runs of N (code 4); b a copy of a shifted
+    by up to 20 bases at either end (overhangs past the free budget)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = min(lens[0], L), min(lens[1], L)
+    rows_a, rows_b = [], []
+    for i in range(n):
+        kind = DOVETAIL_KINDS[i % len(DOVETAIL_KINDS)]
+        a = rng.integers(0, 4, int(rng.integers(lo, hi + 1))).astype(np.uint8)
+        b = noisy_copy(rng, a, 0.1)
+        if kind == "unrelated":
+            b = rng.integers(0, 4, int(rng.integers(lo, hi + 1))).astype(np.uint8)
+        elif kind in ("a_empty", "both_empty"):
+            a = a[:0]
+        if kind in ("b_empty", "both_empty"):
+            b = b[:0]
+        elif kind == "a_longer":
+            b = b[: int(rng.integers(0, max(len(a) - 1, 1)))]
+        elif kind == "n_codes":
+            a = a.copy()
+            a[rng.random(len(a)) < 0.1] = 4
+        elif kind == "shifted":
+            s = int(rng.integers(1, 21))
+            b = (np.concatenate([rng.integers(0, 4, s).astype(np.uint8), a])
+                 if rng.random() < 0.5 else a[s:])
+        rows_a.append(a[:L])
+        rows_b.append(b[:L])
+    a, al = pack(rows_a, L)
+    b, bl = pack(rows_b, L)
+    return a, al, b, bl

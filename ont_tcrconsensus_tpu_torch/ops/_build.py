@@ -13,6 +13,7 @@ build directory, to the telemetry build audit (``obs/device.kernel_built``).
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -27,7 +28,8 @@ DEFAULT_BUILD_DIR = os.path.join(
     "build", "torch_kernels",
 )
 BUILD_DIR = DEFAULT_BUILD_DIR  # where libraries are built and looked up
-KERNELS = ("sw_banded", "pileup_forward", "pileup_traceback", "error_profile_cs")
+KERNELS = ("sw_banded", "pileup_forward", "pileup_traceback", "error_profile_cs", "fuzzy_match",
+           "dovetail")
 # each launcher's C signature: its pointers, its ints, then the stream
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
@@ -35,13 +37,16 @@ SIGNATURES = {
     "pileup_forward": [_P] * 6 + [_I] * 8 + [_P],
     "pileup_traceback": [_P] * 8 + [_I] * 4 + [_P],
     "error_profile_cs": [_P] * 10 + [_I] * 4 + [_P],
+    "fuzzy_match": [_P] * 5 + [_I] * 4 + [_P],
+    "dovetail": [_P] * 5 + [_I] * 5 + [_P],
 }
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 CUDA_NVCC = "/usr/local/cuda/bin/nvcc"  # the toolkit's home when not on PATH
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards BUILD_DIR, _loaded, _builds and _seconds
 _loaded: dict[str, ctypes.CDLL] = {}
-_seconds = 0.0  # spent in build_all and load, under _lock
+_builds: dict[str, concurrent.futures.Future] = {}  # library path -> its build
+_seconds = 0.0  # spent in build_all and load
 
 
 def use_build_dir(path: str) -> None:
@@ -65,12 +70,14 @@ def _sources(name: str) -> list[str]:
 
 
 def library_path(name: str) -> str:
+    with _lock:
+        build_dir = BUILD_DIR
     h = hashlib.sha256()
     for src in _sources(name):
         with open(src, "rb") as fh:
             h.update(fh.read())
     h.update(ARCH.encode())
-    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+    return os.path.join(build_dir, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def _nvcc_command(name: str, out: str) -> list[str]:
@@ -81,41 +88,90 @@ def _nvcc_command(name: str, out: str) -> list[str]:
 
 
 def _start(name: str):
-    """Start ``nvcc`` for one kernel; None when its library already exists."""
+    """Claim the build of ``name``'s library; start ``nvcc`` when this call
+    builds it. Returns (path, the build's future, (process, temporary
+    path) or None when the library exists or another call builds it).
+
+    One build a library: the first caller records a future under
+    :data:`_lock`, later callers wait on it. ``nvcc`` starts, and is waited
+    for and its output renamed into place (:func:`_finish`), outside the
+    lock."""
     out = library_path(name)
-    if os.path.exists(out):
-        return None
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.Popen(
-        _nvcc_command(name, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True,
-    )
-    return proc, tmp, out
+    exists = os.path.exists(out)
+    with _lock:
+        fut = _builds.get(out)
+        mine = fut is None or (fut.done() and not exists)  # a library removed since
+        if mine:
+            fut = _builds[out] = concurrent.futures.Future()
+    if not mine:
+        return out, fut, None
+    if exists:
+        fut.set_result("")
+        return out, fut, None
+    try:
+        tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+        cmd = _nvcc_command(name, tmp)
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+    except BaseException as exc:
+        _settle(out, fut, exc)
+        raise
+    return out, fut, (proc, tmp)
 
 
-def _finish(name: str, started) -> str:
-    """Wait for a build started by :func:`_start`; returns nvcc's report."""
-    if started is None:
-        return ""
-    proc, tmp, out = started
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name} (rc {proc.returncode}):\n{log}")
-    os.replace(tmp, out)
-    return log
+def _settle(out: str, fut, exc: BaseException) -> None:
+    """A failed build: its waiters get the error, and a later call may
+    build the library again."""
+    with _lock:
+        if _builds.get(out) is fut:
+            del _builds[out]
+    fut.set_exception(exc)
+
+
+def _finish(name: str, started) -> tuple[str, bool]:
+    """Wait for a build claimed by :func:`_start`: (nvcc's report, '' when
+    this call did not build it; whether this call built it)."""
+    out, fut, job = started
+    if job is None:
+        fut.result()  # another call's build: wait for it, raise its error
+        return "", False
+    proc, tmp = job
+    try:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name} (rc {proc.returncode}):\n{log}")
+        os.replace(tmp, out)
+    except BaseException as exc:
+        _settle(out, fut, exc)
+        raise
+    fut.set_result(log)
+    return log, True
 
 
 def build_all() -> dict[str, str]:
     """Build every kernel in parallel (one ``nvcc`` each, started together);
-    returns {name: nvcc's -Xptxas -v report} ('' for an existing build)."""
+    returns {name: nvcc's -Xptxas -v report} ('' for an existing build).
+    The first error is raised after every started build has ended."""
     global _seconds
+    t0 = time.monotonic()
+    started, logs, error = {}, {}, None
+    for name in KERNELS:
+        try:
+            started[name] = _start(name)
+        except Exception as exc:  # no nvcc: settle the builds already started
+            error = exc
+            break
+    for name, claim in started.items():
+        try:
+            logs[name] = _finish(name, claim)[0]
+        except Exception as exc:
+            error = error or exc
     with _lock:
-        t0 = time.monotonic()
-        started = {name: _start(name) for name in KERNELS}
-        logs = {name: _finish(name, started[name]) for name in KERNELS}
         _seconds += time.monotonic() - t0
-        return logs
+    if error is not None:
+        raise error
+    return logs
 
 
 def seconds() -> float:
@@ -130,23 +186,39 @@ def load(name: str) -> ctypes.CDLL:
     global _seconds
     with _lock:
         lib = _loaded.get(name)
-        if lib is None:
-            from ont_tcrconsensus_tpu_torch.obs import device as obs_device
-
-            t0 = time.monotonic()
-            started = _start(name)
-            _finish(name, started)
-            lib = ctypes.CDLL(library_path(name))
-            fn = getattr(lib, f"{name}_launch")
-            fn.argtypes = SIGNATURES[name]
-            fn.restype = ctypes.c_int
-            _loaded[name] = lib
-            _seconds += time.monotonic() - t0
-            obs_device.kernel_built(name, time.monotonic() - t0, built=started is not None)
+    if lib is not None:
         return lib
+    from ont_tcrconsensus_tpu_torch.obs import device as obs_device
+
+    t0 = time.monotonic()
+    started = _start(name)
+    built = _finish(name, started)[1]
+    lib = ctypes.CDLL(started[0])
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes = SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    with _lock:
+        kept = _loaded.setdefault(name, lib)  # a racing load keeps the first
+        if kept is lib:
+            _seconds += time.monotonic() - t0
+    if kept is lib:
+        obs_device.kernel_built(name, time.monotonic() - t0, built=built)
+    return kept
 
 
 CUDA_ERROR_INVALID_VALUE = 1  # cudaErrorInvalidValue
+
+
+# what each launcher refuses, beyond negative sizes (each launcher alone holds
+# its limits)
+_LIMITS = {
+    "fuzzy_match": "the pattern length m must fit a block's shared-memory column (m <= 1787) "
+                   "and the patterns the grid (P <= 65535)",
+    "dovetail": "the first sequences' width La must fit a block's shared-memory column "
+                "(La <= 1452)",
+}
+_PACKED = ("the band width must be one it is built for, and the scoring and lengths must fit "
+           "its packed keys")
 
 
 def check(name: str, rc: int) -> None:
@@ -154,9 +226,9 @@ def check(name: str, rc: int) -> None:
     refused its arguments before launching (the limits live in the
     launcher alone), RuntimeError for any other CUDA error."""
     if rc == CUDA_ERROR_INVALID_VALUE:
-        raise ValueError(
-            f"{name} refused its arguments: the band width must be one it is built for, and "
-            f"the scoring and lengths must fit its packed keys (see {name}_launch in "
-            f"csrc/{name}.cu and scores_fit in csrc/dp_common.cuh)")
+        where = (f"{name}_launch in csrc/{name}.cu" if name in _LIMITS else
+                 f"{name}_launch in csrc/{name}.cu and scores_fit in csrc/dp_common.cuh")
+        raise ValueError(f"{name} refused its arguments: {_LIMITS.get(name, _PACKED)} "
+                         f"(see {where})")
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")

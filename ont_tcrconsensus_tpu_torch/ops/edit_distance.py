@@ -2,15 +2,20 @@
 
 The counterpart of the JAX package's ``ops/edit_distance.py``: unit-cost
 edit distance where up to ``k_end`` terminal bases per end of either
-sequence are free (vsearch's free end gaps), beyond that 1/base. A column
-DP over the second sequence, batched over pairs; the in-column insertion
-cascade is ``i + cummin(base - i)``. Integer DP, equal bit for bit.
+sequence are free (vsearch's free end gaps), beyond that 1/base. Integer
+DP, equal bit for bit. :func:`pairwise_dovetail` and
+:func:`many_vs_many_dovetail` route by device: CPU tensors to the plain
+version (:func:`pairwise_dovetail_plain`, a column DP over the second
+sequence, batched over pairs, its in-column insertion cascade
+``i + cummin(base - i)``), CUDA tensors to kernel B6
+(:mod:`.dovetail_kernel`), one launch a call.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ont_tcrconsensus_tpu_torch.ops import dovetail_kernel
 from ont_tcrconsensus_tpu_torch.parallel import mesh as mesh_mod
 
 _BIG = 1 << 20
@@ -18,7 +23,17 @@ _BIG = 1 << 20
 
 def pairwise_dovetail(a: torch.Tensor, a_lens: torch.Tensor, b: torch.Tensor,
                       b_lens: torch.Tensor, k_end: int = 8) -> torch.Tensor:
-    """(B, La) x (B, Lb) -> (B,) int32 budgeted-dovetail distances."""
+    """(B, La) x (B, Lb) -> (B,) int32 budgeted-dovetail distances: the
+    plain version on the CPU, kernel B6 for CUDA tensors."""
+    if a.device.type == "cpu":
+        return pairwise_dovetail_plain(a, a_lens, b, b_lens, k_end)
+    return dovetail_kernel.pairwise_dovetail_cuda(a, a_lens, b, b_lens, k_end)
+
+
+def pairwise_dovetail_plain(a: torch.Tensor, a_lens: torch.Tensor, b: torch.Tensor,
+                            b_lens: torch.Tensor, k_end: int = 8) -> torch.Tensor:
+    """:func:`pairwise_dovetail` in plain PyTorch on any device (kernel B6's
+    yardstick on the card)."""
     B, La = a.shape
     dev = a.device
     i32 = torch.int32
@@ -49,9 +64,14 @@ def pairwise_dovetail(a: torch.Tensor, a_lens: torch.Tensor, b: torch.Tensor,
 
 
 def many_vs_many_dovetail(queries, q_lens, targets, t_lens, k_end: int = 8) -> torch.Tensor:
-    """(Q, L) x (T, L) -> (Q, T) budgeted-dovetail distance matrix."""
+    """(Q, L) x (T, L) -> (Q, T) budgeted-dovetail distance matrix: the
+    plain version on Q x T repeated pairs on the CPU, kernel B6 on the
+    Q x T grid for CUDA tensors."""
+    if queries.device.type != "cpu":
+        return dovetail_kernel.many_vs_many_dovetail_cuda(queries, q_lens, targets, t_lens,
+                                                          k_end)
     Q, T = queries.shape[0], targets.shape[0]
-    d = pairwise_dovetail(
+    d = pairwise_dovetail_plain(
         queries.repeat_interleave(T, dim=0), q_lens.repeat_interleave(T),
         targets.repeat(Q, 1), t_lens.repeat(Q), k_end=k_end,
     )

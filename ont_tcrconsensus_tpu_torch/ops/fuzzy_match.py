@@ -7,14 +7,18 @@ Levenshtein distance to a pattern, a pattern/text pair matching iff their
 optimal end positions the smallest end, then among optimal starts for that
 end the smallest start.
 
-A column DP over the text, batched over (patterns, windows); the in-column
-insertion cascade is ``i + cummin(tmp - i)``. A second pass over the
-reversed prefix recovers the start.
+:func:`fuzzy_find_multi` routes by the windows' device: CPU tensors to the
+plain version (:func:`fuzzy_find_multi_plain`, a column DP over the text,
+batched over (patterns, windows), its in-column insertion cascade
+``i + cummin(tmp - i)``, and a second pass over the reversed prefix for the
+start), CUDA tensors to kernel B5 (:mod:`.fuzzy_kernel`), one launch a call.
 """
 
 from __future__ import annotations
 
 import torch
+
+from ont_tcrconsensus_tpu_torch.ops import fuzzy_kernel
 
 BIG = 1 << 20
 
@@ -54,8 +58,18 @@ def fuzzy_find_multi(pattern_masks: torch.Tensor, pattern_lens: torch.Tensor,
 
     Args: pattern_masks (P, m) uint8 IUPAC masks zero-padded past each true
     length; pattern_lens (P,); windows (B, Lw) uint8 mask windows;
-    window_lens (B,). Returns (dist, start, end), each (P, B) int32.
+    window_lens (B,). Returns (dist, start, end), each (P, B) int32: the
+    plain version for windows on the CPU, kernel B5 for CUDA windows.
     """
+    if windows.device.type == "cpu":
+        return fuzzy_find_multi_plain(pattern_masks, pattern_lens, windows, window_lens)
+    return fuzzy_kernel.fuzzy_find_multi_cuda(pattern_masks, pattern_lens, windows, window_lens)
+
+
+def fuzzy_find_multi_plain(pattern_masks: torch.Tensor, pattern_lens: torch.Tensor,
+                           windows: torch.Tensor, window_lens: torch.Tensor):
+    """:func:`fuzzy_find_multi` in plain PyTorch on any device (kernel B5's
+    yardstick on the card)."""
     P, m = pattern_masks.shape
     B, Lw = windows.shape
     dev = windows.device

@@ -3,16 +3,18 @@
 The counterpart of the JAX package's ``serve/prewarm.py``. There, each
 entry point is lowered and compiled ahead of the first job for the
 declared bucket set. The port compiles nothing per shape: its cold costs
-are the ``nvcc`` build (or build-cache load) of the three hand kernels, the
+are the ``nvcc`` build (or build-cache load) of the six hand kernels, the
 CUDA context and cuDNN's GRU handles. So each entry here is one warm-up
 launch of the real entry point at a declared bucket, on inputs drawn from
 the reference panel (all-zero reads could leave the fused pass's
 candidate selection without a candidate):
 
 - ``fused_assign``: the round-1 fused pass (:meth:`~..pipeline.assign.
-  AssignEngine.run_batch_async`, kernel B1 on the card) once per declared
-  read-width bucket, at the budget-derived read batch, with the daemon's
-  :class:`~..pipeline.assign.AssignEngine` and its real constants;
+  AssignEngine.run_batch_async`, kernels B1 and B5 on the card) once per
+  declared read-width bucket, at the budget-derived read batch, with the
+  daemon's :class:`~..pipeline.assign.AssignEngine` and its real
+  constants; on the card the first bucket's entry also warms the UMI
+  clustering's distance pass (kernel B6) once, at its dispatch chunk;
 - ``polisher``: one call of :func:`~..models.polisher.make_pipeline_polisher`'s
   device path at the JAX package's tile ``(cluster batch, s_bucket,
   largest width, band)``, which recomputes the pileup (kernels B2 and B3) and runs
@@ -23,8 +25,8 @@ candidate selection without a candidate):
 The report keeps the JAX package's schema (``kind``, ``batch``, ``width``,
 ``ok``, ``seconds``; ``compiled``/``failed`` count the entries that warmed
 or failed) and adds, per entry, the kernel launches it made (``launches``:
-``{"B1": n, "B2": n, "B3": n, "B4": n}``, from the wrappers' counters (B4, the
-QC error profile's, 0 in a prewarm); 0 on the CPU, whose
+``{"B1": n, ..., "B6": n}``, from the wrappers' counters (B4, the QC error
+profile's, 0 in a prewarm); 0 on the CPU, whose
 plain versions launch no kernel) and, for the whole prewarm, the seconds
 the process had spent making kernel libraries ready (``build_s``). An
 entry that fails is reported ``ok: false`` with its error, exactly as in
@@ -37,9 +39,11 @@ from __future__ import annotations
 import time
 
 import numpy as np
+import torch
 
 from ont_tcrconsensus_tpu_torch.io import bucketing
-from ont_tcrconsensus_tpu_torch.ops import (_build, cs_kernel, pileup_kernel, sw_kernel,
+from ont_tcrconsensus_tpu_torch.ops import (_build, cs_kernel, dovetail_kernel, edit_distance,
+                                            fuzzy_kernel, pileup_kernel, sw_kernel,
                                             traceback_kernel)
 from ont_tcrconsensus_tpu_torch.ops.encode import PAD_CODE
 
@@ -56,7 +60,9 @@ def _launch_counts() -> dict[str, int]:
     return {"B1": sw_kernel.align_banded_cuda.launches,
             "B2": pileup_kernel.forward_planes_cuda.launches,
             "B3": traceback_kernel.traceback_columns_cuda.launches,
-            "B4": cs_kernel.error_profile_cs_cuda.launches}
+            "B4": cs_kernel.error_profile_cs_cuda.launches,
+            "B5": fuzzy_kernel.fuzzy_find_multi_cuda.launches,
+            "B6": dovetail_kernel.dovetail_cuda.launches}
 
 
 def _launches_since(before: dict[str, int]) -> dict[str, int]:
@@ -98,6 +104,8 @@ def _prewarm_fused_assign(cfg, engine, read_batch: int, widths: list[int],
                 batch, cfg.max_ee_rate_base, cfg.minimal_length,
                 overlap_frac=cfg.minimal_region_overlap)
             obs_device.to_host(out)  # the launch has finished on the card
+            if engine.device.type == "cuda" and width == widths[0]:
+                _prewarm_umi_distance(engine)
             entry["ok"] = True
         except Exception as exc:
             entry["ok"] = False
@@ -105,6 +113,19 @@ def _prewarm_fused_assign(cfg, engine, read_batch: int, widths: list[int],
         entry["launches"] = _launches_since(before)
         entry["seconds"] = round(time.monotonic() - t0, 3)
         report.append(entry)
+
+
+def _prewarm_umi_distance(engine) -> None:
+    """One launch of the UMI clustering's distance pass (kernel B6) at its
+    dispatch chunk (``cluster/umi._PAIR_CHUNK`` pairs at ``cluster_umis``'
+    pad width, 128), on reference rows cut to that width."""
+    from ont_tcrconsensus_tpu_torch.cluster import umi
+    from ont_tcrconsensus_tpu_torch.obs import device as obs_device
+
+    codes, lens = _panel_rows(engine.panel, umi._PAIR_CHUNK, 128)
+    c = torch.from_numpy(codes).to(engine.device)
+    n = torch.from_numpy(lens).to(engine.device)
+    obs_device.to_host(edit_distance.pairwise_dovetail(c, n, c.flip(0), n.flip(0)))
 
 
 def _prewarm_polisher(cfg, engine, budget, widths: list[int],

@@ -121,13 +121,15 @@ def _precision_at_depth(logs_dir: str):
 
 
 def _launches() -> dict[str, int]:
-    from ont_tcrconsensus_tpu_torch.ops import (cs_kernel, pileup_kernel, sw_kernel,
-                                                traceback_kernel)
+    from ont_tcrconsensus_tpu_torch.ops import (cs_kernel, dovetail_kernel, fuzzy_kernel,
+                                                pileup_kernel, sw_kernel, traceback_kernel)
 
     return {"B1": sw_kernel.align_banded_cuda.launches,
             "B2": pileup_kernel.forward_planes_cuda.launches,
             "B3": traceback_kernel.traceback_columns_cuda.launches,
-            "B4": cs_kernel.error_profile_cs_cuda.launches}
+            "B4": cs_kernel.error_profile_cs_cuda.launches,
+            "B5": fuzzy_kernel.fuzzy_find_multi_cuda.launches,
+            "B6": dovetail_kernel.dovetail_cuda.launches}
 
 
 def _check_out(path: str) -> None:

@@ -53,7 +53,7 @@ def test_importing_every_port_module_loads_no_jax():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report["bad"] == []
     for must in ("ops.sw_kernel", "ops.pileup_kernel", "ops.traceback_kernel", "ops.cs_kernel",
-                 "pipeline.run", "convert",
+                 "ops.fuzzy_kernel", "ops.dovetail_kernel", "pipeline.run", "convert",
                  "pipeline.cli", "__main__", "models.polisher", "device",
                  "pipeline.overlap", "qc.artifacts", "qc.error_profile", "qc.timing",
                  "qc.umi_overlap", "robustness.contracts", "robustness.jobscope",

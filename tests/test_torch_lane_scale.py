@@ -80,7 +80,7 @@ def test_artifact_keys_and_exit_code(tmp_path, monkeypatch):
     assert JAX_KEYS <= set(art)
     assert art["backend"] == "cpu" and art["counts_exact"] is True
     assert art["peak_device_mem_gb"] is None and art["n_reads"] == 60
-    assert art["kernel_launches"] == {"B1": 0, "B2": 0, "B3": 0, "B4": 0}
+    assert art["kernel_launches"] == {"B1": 0, "B2": 0, "B3": 0, "B4": 0, "B5": 0, "B6": 0}
     heavy = "TCR0000"
     real_build_truth = dict(truth)
 

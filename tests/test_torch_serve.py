@@ -206,7 +206,7 @@ def test_prewarm_report_at_one_bucket_has_the_jax_keys(tmp_path, monkeypatch):
         assert set(p) == set(j) | {"launches"}, (p, j)
         assert {k: p[k] for k in j if k != "seconds"} == {k: j[k] for k in j if k != "seconds"}
         # the CPU's plain versions launch no kernel
-        assert p["launches"] == {"B1": 0, "B2": 0, "B3": 0, "B4": 0}
+        assert p["launches"] == {"B1": 0, "B2": 0, "B3": 0, "B4": 0, "B5": 0, "B6": 0}
     assert [e["kind"] for e in port["entries"]] == ["fused_assign", "polisher"]
     assert port["entries"][1]["batch"] == 2 and port["entries"][1]["s_bucket"] == 4
 
