@@ -24,7 +24,11 @@ of which fails the script (non-zero exit, no result line):
    (the width buckets of 1.4-2.3 kb reads), plus B1 at the self-homology
    band 512 and B2 at the 3072 bucket's band 128, against the plain
    PyTorch version on the same card tensors: every output exactly equal.
-   Times are CUDA-event medians of 7 calls after 2 warm-ups; the bound is
+   Times are CUDA-event medians of 7 calls after 2 warm-ups, each call
+   enqueued behind a ~1 ms spin of the card so that the events bracket
+   the device's work and not the host's enqueue (``_time_ms``, every
+   kernel alike), and beside it the median of 7 calls as their caller
+   meets them (``call_ms``, no spin); the bound is
    the larger of bytes over the HBM rate and the int32 operations the
    function needs over the int32 issue rate (``_bound_ms``); the design's
    own floor (its second F pass, band-shift moves, carry scan and warp
@@ -56,7 +60,15 @@ of which fails the script (non-zero exit, no result line):
    instances with edits, IUPAC codes, empty and short windows, ties on the
    end and the start; empty sequences, a_len > b_len), against the plain
    versions on the same card tensors: every output exactly equal; times,
-   plain times and the bound (the cells these inputs need) as above;
+   plain times, the bound (the bit-parallel word steps these inputs need,
+   ``BITVECTOR_STEP_OPS``, against the bytes of each sequence within its
+   length) and beside it the cell bound of the DP's cells; ptxas's
+   registers and spills, and the warps an SM holds (the launch's one-warp
+   blocks over the SMs). Both kernels
+   also past one word at small batches: at the word edges
+   (``dp_cases.WORD_EDGES``), at ``FUZZY_MULTIWORD`` and
+   ``DOVETAIL_MULTIWORD``, and at each launcher's limit (m = 1787, La =
+   1452), exact;
 4. polisher parity: at the same tile, the vote rounds' kept final pileup
    (recomputed against the final drafts if the rounds ran out), then the
    features and the served (v3) bi-GRU on ``cuda`` and on ``cpu``: the
@@ -581,15 +593,21 @@ def _timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def _time_ms(fn, reps: int) -> float:
+def _time_ms(fn, reps: int, spin: bool = True) -> float:
     """Median CUDA-event time of ``fn()`` over ``reps`` calls (the caller
-    has warmed it up)."""
+    has warmed it up). Each call is enqueued behind a ~1 ms spin of the
+    card (``torch.cuda._sleep``), so the events bracket the device's work
+    and not the host's enqueue of it; ``spin=False`` times the call as its
+    caller meets it, the host's enqueue included where the kernel is
+    shorter than it."""
     import torch
 
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if spin:
+            torch.cuda._sleep(2_000_000)
         start.record()
         fn()
         end.record()
@@ -626,7 +644,9 @@ def check_sw(dev, seed: int, B: int, L: int, W: int) -> dict:
     for _ in range(2):
         sw_kernel.align_banded_cuda(*args, band_width=W)
     ms = _time_ms(lambda: sw_kernel.align_banded_cuda(*args, band_width=W), 7)
-    return {"L": L, "B": B, "W": W, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+    call_ms = _time_ms(lambda: sw_kernel.align_banded_cuda(*args, band_width=W), 7, spin=False)
+    return {"L": L, "B": B, "W": W, "max_abs_err": max_err, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms,
             **_sw_costs(rl, refs.shape[1], L, W),
             "aligned_pairs": int((got.score > 0).sum())}
 
@@ -664,7 +684,10 @@ def check_pileup(dev, seed: int, N: int, L: int, W: int) -> dict:
     for _ in range(2):
         pileup_kernel.forward_planes_cuda(*args, band_width=W)
     ms = _time_ms(lambda: pileup_kernel.forward_planes_cuda(*args, band_width=W), 7)
-    return {"L": L, "N": N, "W": W, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+    call_ms = _time_ms(lambda: pileup_kernel.forward_planes_cuda(*args, band_width=W), 7,
+                       spin=False)
+    return {"L": L, "N": N, "W": W, "max_abs_err": max_err, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms,
             **_pileup_costs(rl, refs.shape[1], L, W),
             "aligned_lanes": int((best_k[:, 0] > 0).sum())}
 
@@ -755,7 +778,9 @@ def check_traceback(dev, seed: int, N: int, L: int, W: int, step_ns: float) -> d
     for _ in range(2):
         traceback_kernel.traceback_columns_cuda(*args)
     ms = _time_ms(lambda: traceback_kernel.traceback_columns_cuda(*args), 7)
-    return {"L": L, "N": N, "W": W, "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+    call_ms = _time_ms(lambda: traceback_kernel.traceback_columns_cuda(*args), 7, spin=False)
+    return {"L": L, "N": N, "W": W, "max_abs_err": 0, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms,
             **_traceback_costs(best, want[4], N, L, W, L, step_ns),
             "aligned_lanes": int((best[:, 0] > 0).sum())}
 
@@ -817,11 +842,38 @@ def _traceback_costs(best, spans, N: int, L: int, W: int, out_len: int, step_ns:
 # ---------------------------------------------------------------------------
 # kernels B5 (the fuzzy match) and B6 (the UMI dovetail distance)
 
-# int32 operations a DP cell of each needs, one per two-input add, compare,
-# select, min or logical op, counted from the plain versions' recurrences
-# (ops/fuzzy_match._final_row, ops/edit_distance.pairwise_dovetail_plain)
-# written as min(diag + sub, min(up, prev) + 1); loads and per-row or
-# per-column terms (the overhangs past k_end) are not counted
+# The bound of each: the least work known to compute the function, the
+# bit-parallel DP (Myers 1999, in Hyyro's 64-row words, as
+# csrc/bitvector.cuh runs it): the int32 operations of one word step,
+# counted from its formulas, a 64-bit add, shift or two-input logical op as
+# two int32 operations and a three-input logical expression as one a half
+# (Hopper's LOP3), times the word steps these inputs need (a pair's
+# ceil(rows / 64) words over its columns), plus B5's per-column terms and
+# B6's corner (its top row past its left column, its left column's rows).
+# Loads and the match tables are not counted.
+BITVECTOR_STEP_OPS = {
+    "Xv = Eq | Mv": 2,
+    "Eq & Pv, + Pv (and the carry from the word below)": 4,
+    "Xh = (sum ^ Pv) | Eq": 2,
+    "Ph = Mv | ~(Xh | Pv)": 2,
+    "Mh = Pv & Xh": 2,
+    "Ph << 1 | hin, Mh << 1": 4,
+    "Pv = Mh | ~(Xv | Ph)": 2,
+    "Mv = Ph & Xv": 2,
+}
+BITVECTOR_COLUMN_OPS = {
+    "B5 score at the last row: two one-bit extracts, add, subtract": 4,
+    "B5 pass 1, first minimum: compare, two selects": 3,
+    "B5 pass 2, last equal column: compare, select": 2,
+    "B6 corner's top row past its left column: two extracts, add, subtract, min": 5,
+    "B6 corner's left column, a row: two extracts, add, max": 4,
+}
+# The cell bound, kept beside it: int32 operations a DP cell of each needs,
+# one per two-input add, compare, select, min or logical op, counted from the
+# plain versions' recurrences (ops/fuzzy_match._final_row,
+# ops/edit_distance.pairwise_dovetail_plain) written as min(diag + sub,
+# min(up, prev) + 1); loads and per-row or per-column terms (the overhangs
+# past k_end) are not counted
 FUZZY_CELL_OPS = {"match test: and, compare": 2,
                   "recurrence: add, min, add, min": 4}
 DOVETAIL_CELL_OPS = {"match test: compare": 1, "recurrence: add, min, add, min": 4,
@@ -835,6 +887,34 @@ FUZZY_SHAPES = ((8, 47, 2048, 150), (2, 32, 2048, 81))
 # pad width 128) at the UMI path's k_end 8 and the rescue's 16, and the full
 # matrix of 256 x 256
 DOVETAIL_PAIRS, DOVETAIL_L, DOVETAIL_GRID = 8192, 128, 256
+# past one word at small batches: B5's word edges (one pattern of each
+# length of dp_cases.WORD_EDGES) and its longest pattern, (P, m, B, Lw);
+# B6's word edges (every a length of WORD_EDGES at every kind) and its
+# widest first sequences, (n, L, lens)
+FUZZY_WIDE = ((6, 129, 60, 180), (2, 1787, 64, 1900))
+DOVETAIL_WIDE = ((48, 140, None), (64, 1452, (1300, 1452)))
+
+
+def _words(rows):
+    """64-row words a column of ``rows`` rows takes (a tensor)."""
+    return (rows.clamp(min=0) + 63) // 64
+
+
+def _ptxas(log: str) -> dict:
+    """ptxas's registers and spill bytes of a library's one kernel
+    (``-Xptxas -v``; empty when the library was not built in this run)."""
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", log)]
+    return {"registers": max(regs) if regs else None,
+            "spill_bytes": sum(spills) if regs else None}
+
+
+def _warps_an_sm(blocks: int) -> float:
+    """The warps an SM holds at a launch of ``blocks`` one-warp blocks, the
+    launch spread over the card's SMs."""
+    import torch
+
+    return blocks / torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def _exact(label: str, got, want) -> int:
@@ -850,49 +930,70 @@ def _exact(label: str, got, want) -> int:
     return 0
 
 
-def check_fuzzy(dev, seed: int, P: int, m: int, B: int, Lw: int) -> dict:
+def check_fuzzy(dev, seed: int, P: int, m: int, B: int, Lw: int, ptxas: dict,
+                plens=None) -> dict:
     """Kernel B5 against the plain version on the same card tensors
     (``dp_cases.fuzzy_case``): dist, start and end exactly equal. The bound
-    counts the cells these inputs need: p_len rows over each window's
-    columns (pass 1) and over its prefix [0, end) (pass 2)."""
+    counts the word steps these inputs need: ceil(p_len / 64) words over
+    each window's columns (pass 1) and over its prefix [0, end) (pass 2),
+    against the bytes of each pattern and window within its length; the
+    cell bound p_len rows over the same columns."""
     import torch
 
     from ont_tcrconsensus_tpu_torch.io import dp_cases
     from ont_tcrconsensus_tpu_torch.ops import fuzzy_kernel, fuzzy_match
 
-    args = [torch.from_numpy(x).to(dev) for x in dp_cases.fuzzy_case(seed, P, m, B, Lw)]
+    args = [torch.from_numpy(x).to(dev)
+            for x in dp_cases.fuzzy_case(seed, P, m, B, Lw, plens=plens)]
     got = fuzzy_kernel.fuzzy_find_multi_cuda(*args)
     want, plain_ms = _timed_once(lambda: fuzzy_match.fuzzy_find_multi_plain(*args))
     err = _exact(f"B5 P={P} m={m} B={B} Lw={Lw}", got, want)
     for _ in range(2):
         fuzzy_kernel.fuzzy_find_multi_cuda(*args)
     ms = _time_ms(lambda: fuzzy_kernel.fuzzy_find_multi_cuda(*args), 7)
-    rows = args[1].clamp(0, m).long()
-    cols = args[3].clamp(0, Lw).long()[None, :] + want[2].long()
-    cells = int((rows[:, None] * cols).sum())
-    n_bytes = P * m + 4 * P + B * Lw + 4 * B + 3 * 4 * P * B
-    bound, by = _bound_ms(n_bytes, cells * sum(FUZZY_CELL_OPS.values()))
-    return {"P": P, "m": m, "B": B, "Lw": Lw, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "cells": cells, "bound_ms": bound, "bound_by": by,
+    call_ms = _time_ms(lambda: fuzzy_kernel.fuzzy_find_multi_cuda(*args), 7, spin=False)
+    rows = args[1].clamp(0, m).long()[:, None]
+    cols1 = args[3].clamp(0, Lw).long()[None, :].expand(P, B)
+    cols2 = want[2].long()
+    cells = int((rows * (cols1 + cols2)).sum())
+    steps = int((_words(rows) * (cols1 + cols2)).sum())
+    c = BITVECTOR_COLUMN_OPS
+    n_ops = (steps * sum(BITVECTOR_STEP_OPS.values())
+             + int(cols1.sum()) * (c["B5 score at the last row: two one-bit extracts, add, subtract"]
+                                   + c["B5 pass 1, first minimum: compare, two selects"])
+             + int(cols2.sum()) * (c["B5 score at the last row: two one-bit extracts, add, subtract"]
+                                   + c["B5 pass 2, last equal column: compare, select"]))
+    # each pattern's masks and each window's bases read once, lengths
+    # included, the three outputs written once
+    n_bytes = (int(rows.sum()) + 4 * P + int(args[3].clamp(0, Lw).sum()) + 4 * B
+               + 3 * 4 * P * B)
+    bound, by = _bound_ms(n_bytes, n_ops)
+    cell_bound, cell_by = _bound_ms(n_bytes, cells * sum(FUZZY_CELL_OPS.values()))
+    return {"P": P, "m": m, "B": B, "Lw": Lw, "max_abs_err": err, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "word_steps": steps, "ops": n_ops, "bound_ms": bound,
+            "bound_by": by, "cells": cells, "cell_bound_ms": cell_bound, "cell_bound_by": cell_by,
             "fn_ops_per_cell": sum(FUZZY_CELL_OPS.values()),
-            "exact_hits": int((want[0] == 0).sum())}
+            "exact_hits": int((want[0] == 0).sum()), "ptxas": ptxas,
+            "warps_an_sm": _warps_an_sm(-(-B // 32) * P)}
 
 
-def check_dovetail(dev, seed: int, k_end: int, grid: bool) -> dict:
+def check_dovetail(dev, seed: int, k_end: int, grid: bool, ptxas: dict, n: int = DOVETAIL_PAIRS,
+                   L: int = DOVETAIL_L, lens=(58, 68), a_lens=None) -> dict:
     """Kernel B6 against the plain version on the same card tensors
-    (``dp_cases.dovetail_case``, lengths 58-68 at width 128): the
-    shortlist's 8192 pairs, or (``grid``) the 256 x 256 full matrix, whose
-    plain yardstick runs on the repeated pairs. The bound counts the cells
-    these inputs need: rows 1..a_len over columns 1..b_len of each pair
-    (the border row and column take no DP step)."""
+    (``dp_cases.dovetail_case``, by default lengths 58-68 at width 128):
+    ``n`` pairs, or (``grid``) the 256 x 256 full matrix, whose plain
+    yardstick runs on the repeated pairs. The bound counts the word steps
+    these inputs need: ceil(a_len / 64) words over columns 1..b_len of each
+    pair, with the score's and the corner's terms, against the bytes of
+    each sequence within its length; the cell bound rows 1..a_len over
+    those columns (the border row and column take no DP step)."""
     import torch
 
     from ont_tcrconsensus_tpu_torch.io import dp_cases
     from ont_tcrconsensus_tpu_torch.ops import dovetail_kernel, edit_distance
 
-    L = DOVETAIL_L
     a, al, b, bl = (torch.from_numpy(x).to(dev) for x in dp_cases.dovetail_case(
-        seed, DOVETAIL_GRID if grid else DOVETAIL_PAIRS, L))
+        seed, DOVETAIL_GRID if grid else n, L, lens, a_lens=a_lens))
     Q = T = DOVETAIL_GRID
 
     def kernel():
@@ -909,24 +1010,38 @@ def check_dovetail(dev, seed: int, k_end: int, grid: bool) -> dict:
 
     rows = al.clamp(0, L).long()
     cols = bl.clamp(0, L).long()
+    a_len, b_len = al.long(), bl.long()
+    # each sequence's bases within its length and its length read once
+    # (a grid's Q + T sequences, a pair's two), each distance written once
+    n_pairs = Q * T if grid else n
+    n_bytes = int(rows.sum() + cols.sum()) + 4 * (len(al) + len(bl)) + 4 * n_pairs
     if grid:
-        rows, cols = rows[:, None], cols[None, :]
-        n_pairs, n_bytes = Q * T, (Q + T) * (L + 4) + 4 * Q * T
-    else:
-        n_pairs = DOVETAIL_PAIRS
-        n_bytes = n_pairs * (2 * L + 8) + 4 * n_pairs
+        rows, cols, a_len, b_len = rows[:, None], cols[None, :], a_len[:, None], b_len[None, :]
     got = kernel()
     want, plain_ms = _timed_once(plain)
-    err = _exact(f"B6 {'grid' if grid else 'pairs'} k_end={k_end}", [got], [want])
+    err = _exact(f"B6 {'grid' if grid else 'pairs'} n={n_pairs} L={L} k_end={k_end}", [got],
+                 [want])
     for _ in range(2):
         kernel()
     ms = _time_ms(kernel, 7)
+    call_ms = _time_ms(kernel, 7, spin=False)
     cells = int((rows * cols).sum())
-    bound, by = _bound_ms(n_bytes, cells * sum(DOVETAIL_CELL_OPS.values()))
+    steps = int((_words(rows) * cols).expand_as(rows * cols).sum())
+    top_cols = (cols - torch.minimum(cols, (b_len - k_end).clamp(min=0))).expand_as(rows * cols)
+    left_rows = (rows - torch.minimum(rows, (a_len - k_end).clamp(min=0))).expand_as(rows * cols)
+    c = BITVECTOR_COLUMN_OPS
+    n_ops = (steps * sum(BITVECTOR_STEP_OPS.values())
+             + int(top_cols.sum())
+             * c["B6 corner's top row past its left column: two extracts, add, subtract, min"]
+             + int(left_rows.sum()) * c["B6 corner's left column, a row: two extracts, add, max"])
+    bound, by = _bound_ms(n_bytes, n_ops)
+    cell_bound, cell_by = _bound_ms(n_bytes, cells * sum(DOVETAIL_CELL_OPS.values()))
     return {"shape": f"{Q} x {T}" if grid else f"{n_pairs} pairs", "L": L, "k_end": k_end,
-            "pairs": n_pairs, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "cells": cells, "bound_ms": bound, "bound_by": by,
-            "fn_ops_per_cell": sum(DOVETAIL_CELL_OPS.values())}
+            "pairs": n_pairs, "max_abs_err": err, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "word_steps": steps, "ops": n_ops, "bound_ms": bound, "bound_by": by,
+            "cells": cells, "cell_bound_ms": cell_bound, "cell_bound_by": cell_by,
+            "fn_ops_per_cell": sum(DOVETAIL_CELL_OPS.values()), "ptxas": ptxas,
+            "warps_an_sm": _warps_an_sm(-(-n_pairs // 32))}
 
 
 @contextlib.contextmanager
@@ -1422,6 +1537,7 @@ def error_profile_phase(step_ns: float, ptxas: list[str], seed: int = 5, n: int 
     for _ in range(2):
         cs_kernel.error_profile_cs_cuda(*args, w_pad)
     kernel_ms = _time_ms(lambda: cs_kernel.error_profile_cs_cuda(*args, w_pad), 7)
+    call_ms = _time_ms(lambda: cs_kernel.error_profile_cs_cuda(*args, w_pad), 7, spin=False)
     stops = _cs_stops(got[0])
     costs = _cs_costs(arrays, stops)
     # the design's floor: the read with the most rows and steps, alone
@@ -1439,7 +1555,7 @@ def error_profile_phase(step_ns: float, ptxas: list[str], seed: int = 5, n: int 
     traced = _device_ms(device_path)
     lens = [len(q) for q in queries]
     return {"n_reads": n, "read_len": [min(lens), max(lens)], "w_pad": w_pad, "ms": kernel_ms,
-            "plain_ms": plain_ms, "max_abs_err": 0, **costs,
+            "call_ms": call_ms, "plain_ms": plain_ms, "max_abs_err": 0, **costs,
             "lone_read": {"column": slow, "rows": int(arrays[2][slow]),
                           "steps": int(stops[slow]), "ms": lone_ms,
                           "walk_x_step_ms": int(stops[slow]) * step_ns * 1e-6},
@@ -3779,7 +3895,8 @@ def main(argv=None) -> int:
                                   for row in check_traceback_random(dev, 30 + seed, 128, 2048, W)]
     for key in ("sw", "pileup"):
         for r in report[key]:
-            print(f"parity {key} L={r['L']} W={r['W']}: exact; kernel {r['ms']:.3f} ms, plain "
+            print(f"parity {key} L={r['L']} W={r['W']}: exact; kernel {r['ms']:.3f} ms (a call "
+                  f"{r['call_ms']:.3f} ms), plain "
                   f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}, "
                   f"{r['fn_ops_per_cell']} ops a cell); design floor {r['design_bound_ms']:.3f} ms "
                   f"({r['design_ops_per_cell']} ops, {r['design_shuffles_per_cell']:.2f} "
@@ -3788,7 +3905,8 @@ def main(argv=None) -> int:
           flush=True)
     for r in report["traceback"]:
         print(f"parity traceback N={r['N']} L={r['L']} W={r['W']} (out_len L, B2's planes): "
-              f"exact; kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.1f} ms, bound "
+              f"exact; kernel {r['ms']:.3f} ms (a call {r['call_ms']:.3f} ms), plain "
+              f"{r['plain_ms']:.1f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['steps']} steps at least, 32 B a "
               f"step); design floor {r['design_floor_ms']:.3f} ms (staged {r['staged_bytes']} B "
               f"= {r['staged_bytes_ms']:.3f} ms; longest walk {r['longest_walk']} steps x "
@@ -3798,19 +3916,46 @@ def main(argv=None) -> int:
               f"{r['out_len']}: every output equal to the plain steps' (longest walk "
               f"{r['longest_walk']} steps, {r['insertion_columns']} insertion and "
               f"{r['deletion_columns']} deletion columns)", flush=True)
-    report["fuzzy"] = [check_fuzzy(dev, 50 + seed, *shape)
+    from ont_tcrconsensus_tpu_torch.io import dp_cases
+
+    b5_ptxas, b6_ptxas = _ptxas(logs.get("fuzzy_match", "")), _ptxas(logs.get("dovetail", ""))
+    report["fuzzy"] = [check_fuzzy(dev, 50 + seed, *shape, b5_ptxas)
                        for seed, shape in enumerate(FUZZY_SHAPES)]
-    report["dovetail"] = [check_dovetail(dev, 60 + seed, k, grid) for seed, (k, grid) in
-                          enumerate(((8, False), (16, False), (8, True)))]
-    for r in report["fuzzy"]:
-        print(f"parity fuzzy match B5 P={r['P']} m={r['m']} B={r['B']} Lw={r['Lw']}: exact "
-              f"({r['exact_hits']} exact hits); kernel {r['ms']:.3f} ms, plain "
-              f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
-              f"{r['cells']} cells x {r['fn_ops_per_cell']} ops)", flush=True)
-    for r in report["dovetail"]:
-        print(f"parity dovetail B6 {r['shape']} L={r['L']} k_end={r['k_end']}: exact; kernel "
-              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}, {r['cells']} cells x {r['fn_ops_per_cell']} ops)", flush=True)
+    report["dovetail"] = [check_dovetail(dev, 60 + seed, k, grid, b6_ptxas) for seed, (k, grid)
+                          in enumerate(((8, False), (16, False), (8, True)))]
+    # past one word, small batches: the word edges, a multi-word shape, the limits
+    report["fuzzy_wide"] = [
+        check_fuzzy(dev, 55 + seed, *shape, b5_ptxas, plens=plens) for seed, (shape, plens) in
+        enumerate(((FUZZY_WIDE[0], dp_cases.WORD_EDGES), (dp_cases.FUZZY_MULTIWORD, None),
+                   (FUZZY_WIDE[1], None)))]
+    edge_a_lens = [n for n in dp_cases.WORD_EDGES for _ in dp_cases.DOVETAIL_KINDS]
+    report["dovetail_wide"] = [
+        check_dovetail(dev, 65 + seed, k, False, b6_ptxas, n, L, lens or (58, 68),
+                       a_lens=None if lens else edge_a_lens)
+        for seed, ((n, L, lens), k) in enumerate(
+            ((DOVETAIL_WIDE[0], 8), (DOVETAIL_WIDE[0], 16), (dp_cases.DOVETAIL_MULTIWORD, 8),
+             (DOVETAIL_WIDE[1], 8)))]
+    for key in ("fuzzy", "fuzzy_wide"):
+        for r in report[key]:
+            print(f"parity fuzzy match B5 P={r['P']} m={r['m']} B={r['B']} Lw={r['Lw']}: exact "
+                  f"({r['exact_hits']} exact hits); kernel {r['ms']:.4f} ms (a call "
+                  f"{r['call_ms']:.4f} ms), plain "
+                  f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+                  f"{r['word_steps']} word steps, {r['ops']} int32 ops), cell bound "
+                  f"{r['cell_bound_ms']:.4f} ms ({r['cells']} cells x {r['fn_ops_per_cell']} "
+                  f"ops); {r['warps_an_sm']:.2f} warps an SM", flush=True)
+    for key in ("dovetail", "dovetail_wide"):
+        for r in report[key]:
+            print(f"parity dovetail B6 {r['shape']} L={r['L']} k_end={r['k_end']}: exact; kernel "
+                  f"{r['ms']:.4f} ms (a call {r['call_ms']:.4f} ms), plain {r['plain_ms']:.1f} "
+                  f"ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}, {r['word_steps']} word steps, {r['ops']} int32 ops), cell "
+                  f"bound {r['cell_bound_ms']:.4f} ms ({r['cells']} cells x "
+                  f"{r['fn_ops_per_cell']} ops); {r['warps_an_sm']:.2f} warps an SM",
+                  flush=True)
+    print(f"ptxas B5 {b5_ptxas['registers']} registers, {b5_ptxas['spill_bytes']} spill bytes; "
+          f"B6 {b6_ptxas['registers']} registers, {b6_ptxas['spill_bytes']} spill bytes",
+          flush=True)
     split = report["polish_split"] = polish_split(dev, 20)
     print(f"polish round (C={split['C']} S={split['S']} L={split['L']} W={split['W']}): "
           f"B2 forward {split['forward_ms']:.1f} ms, B3 traceback {split['traceback_ms']:.1f} ms "
@@ -3846,7 +3991,7 @@ def main(argv=None) -> int:
     lone = ep["lone_read"]
     print(f"parity error profile B4 ({ep['n_reads']} reads of {ep['read_len'][0]}-"
           f"{ep['read_len'][1]} nt; the device path's tile L={ep['L']} N={ep['N']} M={ep['M']} "
-          f"w_pad={ep['w_pad']}): every op log equal to the plain core's up to its stop; kernel {ep['ms']:.3f} ms, plain {ep['plain_ms']:.1f} ms, "
+          f"w_pad={ep['w_pad']}): every op log equal to the plain core's up to its stop; kernel {ep['ms']:.3f} ms (a call {ep['call_ms']:.3f} ms), plain {ep['plain_ms']:.1f} ms, "
           f"bound {ep['bound_ms']:.4f} ms ({ep['bound_by']}, {ep['cells']} band cells, "
           f"{ep['steps']} walk steps); design floor {ep['design_floor_ms']:.3f} ms (tile column "
           f"{lone['column']} alone, L2 flushed first: {lone['rows']} rows, {lone['steps']} "
@@ -4272,8 +4417,8 @@ def main(argv=None) -> int:
             "launches_lane_scale": art["kernel_launches"][{"sw": "B1", "pileup": "B2",
                                                            "traceback": "B3"}[key]],
             "max_abs_err": max(x["max_abs_err"] for x in report[key]),
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
+            "ms": r["ms"], "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             **({"design_floor_ms": r["design_floor_ms"], "staged_bytes": r["staged_bytes"]}
                if key == "traceback" else {}),
         })
@@ -4287,7 +4432,8 @@ def main(argv=None) -> int:
         "launches_training": tr["b4_launches"],
         "launches_serve_load": il["launches"][cs_kernel.error_profile_cs_cuda.__name__],
         "launches_lane_scale": art["kernel_launches"]["B4"],
-        "max_abs_err": ep["max_abs_err"], "ms": ep["ms"], "plain_ms": ep["plain_ms"],
+        "max_abs_err": ep["max_abs_err"], "ms": ep["ms"], "call_ms": ep["call_ms"],
+        "plain_ms": ep["plain_ms"],
         "bound_ms": ep["bound_ms"], "bound_by": ep["bound_by"], "library_ms": None,
         "design_floor_ms": ep["design_floor_ms"], "staged_bytes": ep["staged_bytes"],
     })
@@ -4305,8 +4451,9 @@ def main(argv=None) -> int:
             "launches_serve_load": il["launches"][k.__name__],
             "launches_lane_scale": art["kernel_launches"]["B5" if key == "fuzzy" else "B6"],
             "max_abs_err": max(x["max_abs_err"] for x in report[key]),
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
+            "ms": r["ms"], "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "cell_bound_ms": r["cell_bound_ms"],
         })
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -13,49 +13,171 @@
 // reversed pattern's row over the reversed prefix [0, end) equals the
 // distance (DIVERGENCES.md §1). An empty window gives dist = p_len, end 0.
 //
-// Design. One thread a (pattern, window) pair. A block is one warp: 32
-// windows of one pattern (grid (ceil(B / 32), P)), so the pattern's masks
-// and their reverse sit in shared memory and every read of them is a
-// broadcast. A thread's DP column, rows 0..p_len, lives in shared memory,
-// row i of lane t at i * 32 + t (no bank conflicts). The in-column
-// insertion cascade, `i + cummin(base - i)` in the JAX and plain versions,
-// is the serial recurrence D[i] = min(base[i], D[i-1] + 1); on integers the
-// two are equal. Rows past p_len, columns past the window's length (pass
-// 1) and past `end` (pass 2) cannot change a result and are not computed.
+// Design. Bit-parallel columns (bitvector.cuh: Myers 1999, Hyyro's words):
+// one thread a (pattern, window) pair, a block one warp of 32 windows of one
+// pattern (grid (ceil(B / 32), P)). At block start the warp builds the
+// pattern's match words in shared memory, for every byte value c and each
+// 64-row word: bit i set iff i < p_len and (mask[i] & c) != 0, from 16
+// ballots a word (one a mask bit and half word) and a nibble split
+// (Peq[c] = L[c & 15] | H[c >> 4]); the same for the pattern reversed within
+// p_len. A window base then costs one table read a word, whose address does
+// not hang on the DP, and one column step: ~10 64-bit operations a word.
+// The score at row p_len starts at p_len and follows that row's horizontal
+// deltas. A lane reads its window 16 bases at a time, in aligned 16-byte
+// loads a chunk ahead of their columns (bitvector::for_each_quad: a byte
+// load a column costs a warp 32 L1 wavefronts and stalls the chain behind
+// it), and a warp runs as many columns as its longest window needs, each
+// lane bounding its own results: no branch a column, and four columns'
+// match words read before the first. Patterns of one or two words (the main
+// path's m = 47 and 32) keep their column in registers, longer ones in
+// shared memory at stride 32. Columns past the warp's longest window (pass
+// 1) and its latest `end` (pass 2) are not computed; a lane's columns past
+// its own window or end cannot change its results, which it bounds.
 //
-// Bound on the H100: operations. A cell needs 7 int32 operations (the
-// match test's and and compare, the diagonal and up adds and their min,
-// the cascade's add and min); chip_smoke.py counts the cells these inputs
-// need. This design adds two shared-memory loads and a store a cell, and
-// each thread's cells form one dependent chain: at the lane's shapes
-// (2,048-4,096 windows a pattern set) the card holds a few warps an SM, so
-// the chain's latency, not the issue rate, sets the time. The shared
-// column caps the pattern length at 1787 (the launcher refuses more).
+// Bound on the H100: operations. A word step is 10 64-bit operations
+// (three of them 3-input logic, one LOP3 each), 20 int32 operations, and a
+// column adds its score and minimum updates; chip_smoke.py counts the word
+// steps these inputs need. Each thread's columns still form one dependent
+// chain (~12 operations a word step deep): at the lane's shapes (2,048
+// windows a pattern set, 2-4 warps an SM) its latency, not the instruction rate,
+// sets the time. The launcher takes patterns up to m = 1787 (28 words:
+// 129 KB of tables and columns a block).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bitvector.cuh"
+
 namespace {
 
-constexpr int kLanes = 32;          // pairs a block: one warp
-constexpr int kBig = 1 << 20;       // ops/fuzzy_match.BIG: a masked column
-constexpr int kMaxShared = 232448;  // bytes of shared memory a block may use (sm_90)
+using bitvector::Column;
+using bitvector::Row;
+using bitvector::SharedColumn;
+using bitvector::column_step;
+using bitvector::for_each_quad;
 
-// One column of the infix DP: rows 1..n of this lane's column `col`
-// (stride kLanes) against the window base `ch`; row 0 stays 0 (the text's
-// start is free). Returns the new value at row n.
-__device__ __forceinline__ int column(int* col, const uint8_t* pat, int n, unsigned ch) {
-  int diag = 0;  // the old D[i-1]: D[0] is 0 in every column
-  int prev = 0;  // the new D[i-1]
-#pragma unroll 4
-  for (int i = 1; i <= n; ++i) {
-    const int up = col[i * kLanes];
-    const int sub = (pat[i - 1] & ch) == 0;
-    const int v = min(min(diag + sub, up + 1), prev + 1);
-    col[i * kLanes] = v;
-    diag = up;
-    prev = v;
+constexpr int kLanes = bitvector::kLanes;  // windows a block: one warp
+constexpr int kBig = 1 << 20;              // ops/fuzzy_match.BIG: a masked column
+constexpr int kMaxM = 1787;                // the longest pattern the launcher takes
+constexpr int kMaxShared = 232448;         // bytes of shared memory a block may use (sm_90)
+
+__host__ __device__ constexpr int words_of(int rows) { return rows > 0 ? (rows + 63) / 64 : 1; }
+
+// Build word v of the pattern's match tables, forward and reversed within n
+// (tables of 256 x nw words, [c * nw + v]), from the masks pm. Every lane of
+// the warp takes part.
+__device__ __forceinline__ void build_word(const uint8_t* pm, int n, int nw, int v, int lane,
+                                           uint64_t* fwd, uint64_t* rev) {
+  uint32_t fb[8][2], rb[8][2];  // row bits of each mask bit, each half word
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = v * 64 + h * 32 + lane;
+    const unsigned f = i < n ? pm[i] : 0u;
+    const unsigned r = i < n ? pm[n - 1 - i] : 0u;
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+      fb[b][h] = __ballot_sync(0xffffffffu, (f >> b) & 1u);
+      rb[b][h] = __ballot_sync(0xffffffffu, (r >> b) & 1u);
+    }
   }
-  return prev;
+  // c & 15 is lane & 15 for each c = lane + 32 q this lane writes
+  uint32_t fl[2] = {0u, 0u}, rl[2] = {0u, 0u};
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    if ((lane >> b) & 1) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        fl[h] |= fb[b][h];
+        rl[h] |= rb[b][h];
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const int c = lane + 32 * q;
+    const int hi = c >> 4;
+    uint32_t f[2] = {fl[0], fl[1]}, r[2] = {rl[0], rl[1]};
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      if ((hi >> b) & 1) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          f[h] |= fb[4 + b][h];
+          r[h] |= rb[4 + b][h];
+        }
+      }
+    }
+    fwd[c * nw + v] = (static_cast<uint64_t>(f[1]) << 32) | f[0];
+    rev[c * nw + v] = (static_cast<uint64_t>(r[1]) << 32) | r[0];
+  }
+}
+
+// One pass of this lane's column over its text (the window `row` read
+// forward, or its prefix [0, len) backwards: DESC) with the match table
+// `tbl` (nw words a byte value), reset to D[i][0] = i, for the warp's
+// `ncol` columns; calls on_col(j, score) with the score at row n after each
+// column (past the lane's own columns the scores are garbage).
+template <bool DESC, class Col, class OnCol>
+__device__ __forceinline__ void run_pass(Col& col, const uint64_t* tbl, int nw, int n,
+                                         const uint8_t* row, int len, int ncol, OnCol on_col) {
+  for (int v = 0; v < col.words(); ++v) {
+    col.p(v) = ~0ull;
+    col.m(v) = 0;
+  }
+  const Row last(n);
+  int score = n;
+  for_each_quad<DESC>(row, len, ncol, [&](int j, uint32_t word) {
+    const uint64_t* e[4];  // the quad's match words, read before its first column
+#pragma unroll
+    for (int u = 0; u < 4; ++u) e[u] = tbl + ((word >> (8 * u)) & 0xffu) * nw;
+    uint64_t eq[4][Col::kRegisters ? 2 : 1];
+    if constexpr (Col::kRegisters) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+#pragma unroll
+        for (int v = 0; v < col.words(); ++v) eq[u][v] = e[u][v];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      int d = 0;
+      column_step(
+          col,
+          [&](int v) {
+            if constexpr (Col::kRegisters) return eq[u][v];
+            else return e[u][v];
+          },
+          0ull, [&](int v, uint64_t ph, uint64_t mh) { d += last.delta(v, ph, mh); });
+      score += d;
+      on_col(j + u, score);
+    }
+  });
+}
+
+// Both passes of one (pattern, window) pair: dist, start, end. Every lane
+// of the warp takes part (a lane past the windows has an empty one).
+template <class Col>
+__device__ __forceinline__ void find(Col& col, const uint64_t* fwd, const uint64_t* rev, int nw,
+                                     int n, int p_len, const uint8_t* w, int wl, int Lw,
+                                     int& dist, int& start, int& end) {
+  // pass 1: the final row over the window's columns, its first minimum
+  const int ncol = max(min(wl, Lw), 0);
+  dist = wl >= 0 ? p_len : kBig;  // column 0: the empty prefix
+  end = 0;
+  run_pass<false>(col, fwd, nw, n, w, ncol, __reduce_max_sync(0xffffffffu, ncol),
+                  [&](int j, int score) {
+                    if (j < ncol && score < dist) {
+                      dist = score;
+                      end = j + 1;
+                    }
+                  });
+  // pass 2: the reversed pattern over the prefix [0, end) backwards; the
+  // last column whose row equals the distance is the smallest start
+  int j2 = p_len == dist ? 0 : -1;
+  run_pass<true>(col, rev, nw, n, w, end, __reduce_max_sync(0xffffffffu, end),
+                 [&](int r, int score) {
+                   if (r < end && score == dist) j2 = r + 1;
+                 });
+  start = end - j2;
 }
 
 template <int LANES>
@@ -63,51 +185,47 @@ __global__ void __launch_bounds__(LANES)
 fuzzy_match_kernel(const uint8_t* __restrict__ pmasks, const int32_t* __restrict__ plens,
                    const uint8_t* __restrict__ windows, const int32_t* __restrict__ wlens,
                    int32_t* __restrict__ out, int P, int m, int B, int Lw) {
-  static_assert(LANES == kLanes, "the column's stride is one warp");
-  extern __shared__ __align__(16) unsigned char dyn[];
-  int* col = reinterpret_cast<int*>(dyn) + threadIdx.x;
-  uint8_t* pat = dyn + sizeof(int) * (size_t)(m + 1) * LANES;
-  uint8_t* rev = pat + m;
+  static_assert(LANES == kLanes, "a block is one warp: the tables are built by ballots");
+  extern __shared__ __align__(16) uint64_t dyn[];
+  const int nwm = words_of(m);
+  uint64_t* fwd = dyn;               // 256 x nw words
+  uint64_t* rev = dyn + 256 * nwm;   // 256 x nw words
+  uint64_t* cols = rev + 256 * nwm;  // patterns of three words and more: Pv, Mv
+  const int lane = threadIdx.x;
   const int p = blockIdx.y;
   const int p_len = plens[p];
   const int n = min(max(p_len, 0), m);  // the rows read
-  const uint8_t* pm = pmasks + (size_t)p * m;
-  for (int i = threadIdx.x; i < m; i += LANES) {
-    pat[i] = pm[i];
-    rev[i] = i < n ? pm[n - 1 - i] : 0;  // reversed within p_len, zero past it
-  }
+  const int nw = words_of(n);           // an empty pattern reads one word of zeros
+  const uint8_t* pm = pmasks + static_cast<size_t>(p) * m;
+  for (int v = 0; v < nw; ++v) build_word(pm, n, nw, v, lane, fwd, rev);
   __syncthreads();
-  const int b = blockIdx.x * LANES + threadIdx.x;
-  if (b >= B) return;  // no barrier follows
-  const uint8_t* w = windows + (size_t)b * Lw;
-  const int wl = wlens[b];
-
-  // pass 1: the final row over the window's columns, its first minimum
-  for (int i = 0; i <= n; ++i) col[i * LANES] = i;
-  int dist = wl >= 0 ? p_len : kBig;  // column 0: the empty prefix
-  int end = 0;
-  const int ncol = min(wl, Lw);
-  for (int j = 0; j < ncol; ++j) {
-    const int v = column(col, pat, n, w[j]);
-    if (v < dist) {
-      dist = v;
-      end = j + 1;
-    }
+  const int b = blockIdx.x * LANES + lane;
+  const bool live = b < B;  // every lane stays for the warp's column counts
+  const uint8_t* w = windows + static_cast<size_t>(live ? b : 0) * Lw;
+  const int wl = live ? wlens[b] : 0;
+  int dist, start, end;
+  if (nw == 1) {
+    Column<1> col;
+    find(col, fwd, rev, nw, n, p_len, w, wl, Lw, dist, start, end);
+  } else if (nw == 2) {
+    Column<2> col;
+    find(col, fwd, rev, nw, n, p_len, w, wl, Lw, dist, start, end);
+  } else {
+    SharedColumn col{cols + lane, cols + nwm * LANES + lane, nw};
+    find(col, fwd, rev, nw, n, p_len, w, wl, Lw, dist, start, end);
   }
-
-  // pass 2: the reversed pattern over the prefix [0, end) backwards; the
-  // last column whose row equals the distance is the smallest start
-  for (int i = 0; i <= n; ++i) col[i * LANES] = i;
-  int j2 = p_len == dist ? 0 : -1;
-  for (int r = 0; r < end; ++r) {
-    if (column(col, rev, n, w[end - 1 - r]) == dist) j2 = r + 1;
+  if (live) {
+    const size_t o = static_cast<size_t>(p) * B + b;
+    const size_t plane = static_cast<size_t>(P) * B;
+    out[o] = dist;
+    out[plane + o] = start;
+    out[2 * plane + o] = end;
   }
+}
 
-  const size_t o = (size_t)p * B + b;
-  const size_t plane = (size_t)P * B;
-  out[o] = dist;
-  out[plane + o] = end - j2;
-  out[2 * plane + o] = end;
+size_t shared_bytes(int m) {
+  const size_t nwm = words_of(m);
+  return sizeof(uint64_t) * (2 * 256 * nwm + (nwm > 2 ? 2 * nwm * kLanes : 0));
 }
 
 }  // namespace
@@ -115,17 +233,16 @@ fuzzy_match_kernel(const uint8_t* __restrict__ pmasks, const int32_t* __restrict
 // pmasks (P, m) u8 zero-padded past each length, plens (P,) i32, windows
 // (B, Lw) u8, wlens (B,) i32 in; out (3, P, B) i32: dist, start, end.
 // Returns cudaErrorInvalidValue, launching nothing, for a negative size,
-// more than 65,535 patterns (the grid's y) or a pattern longer than a
-// block's shared-memory column holds (m <= 1787); else cudaGetLastError()
-// after the launch.
+// more than 65,535 patterns (the grid's y) or a pattern longer than 1787
+// masks; else cudaGetLastError() after the launch.
 extern "C" int fuzzy_match_launch(const void* pmasks, const void* plens, const void* windows,
                                   const void* wlens, void* out, int P, int m, int B, int Lw,
                                   void* stream) {
-  if (P < 0 || m < 0 || B < 0 || Lw < 0 || P > 65535) {
+  if (P < 0 || m < 0 || B < 0 || Lw < 0 || P > 65535 || m > kMaxM) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t dyn = sizeof(int) * (size_t)(m + 1) * kLanes + 2 * (size_t)m;
-  if (dyn > (size_t)kMaxShared) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t dyn = shared_bytes(m);
+  if (dyn > static_cast<size_t>(kMaxShared)) return static_cast<int>(cudaErrorInvalidValue);
   if (P == 0 || B == 0) return 0;
   if (dyn > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(

@@ -290,6 +290,15 @@ _N_BITS = np.array([bin(x).count("1") for x in range(16)])
 FUZZY_KINDS = ("random", "planted", "at_start", "at_end", "twice", "tandem", "n_bases",
                "zero_masks", "empty", "short")
 
+# lengths either side of one and two 64-row words: where the bit-parallel
+# kernels B5 and B6 carry a column from one word into the next (B5's
+# pattern lengths, B6's first sequences' lengths; 129 rows take 3 words)
+WORD_EDGES = (63, 64, 65, 127, 128, 129)
+# a shape of each whose columns take three words and more: B5 (P, m, B, Lw)
+# and B6 (n, L, lens)
+FUZZY_MULTIWORD = (2, 200, 60, 260)
+DOVETAIL_MULTIWORD = (64, 300, (150, 300))
+
 
 def _instance(rng: np.random.Generator, pattern: np.ndarray, edits: int) -> np.ndarray:
     """A concrete base (one bit of each mask) for each pattern position,
@@ -309,7 +318,7 @@ def _instance(rng: np.random.Generator, pattern: np.ndarray, edits: int) -> np.n
     return bases
 
 
-def fuzzy_case(seed: int, P: int, m: int, B: int, Lw: int):
+def fuzzy_case(seed: int, P: int, m: int, B: int, Lw: int, plens=None):
     """Inputs of the infix fuzzy match (kernel B5): (pattern_masks (P, m)
     uint8 zero-padded past each length, pattern_lens (P,) int32, windows
     (B, Lw) uint8 masks zero past each length, window_lens (B,) int32).
@@ -320,11 +329,14 @@ def fuzzy_case(seed: int, P: int, m: int, B: int, Lw: int):
     ending at the window's end; two exact instances (ties on the end);
     tandem copies of a pattern's head (ties on the start); runs of N
     (mask 15); masks 0 inside the window (never a match); an empty window;
-    a window shorter than the patterns. Window lengths run from 0 to Lw."""
+    a window shorter than the patterns. Window lengths run from 0 to Lw.
+    ``plens``, when given, are the patterns' lengths (each at most m,
+    cycled over the P patterns) in place of drawn ones."""
     rng = np.random.default_rng(seed)
-    plens = np.array([m] + [int(rng.integers(min(max(m // 2, 1), m), m + 1))
-                            for _ in range(P - 1)],
-                     np.int32)[:P]
+    drawn = [m] + [int(rng.integers(min(max(m // 2, 1), m), m + 1)) for _ in range(P - 1)]
+    if plens is not None:
+        drawn = [plens[p % len(plens)] for p in range(P)]
+    plens = np.array(drawn, np.int32)[:P]
     pmasks = np.zeros((P, m), np.uint8)
     for p in range(P):
         pmasks[p, : plens[p]] = encode.encode_mask("".join(rng.choice(_IUPAC, plens[p])))
@@ -372,20 +384,26 @@ DOVETAIL_KINDS = ("noisy", "unrelated", "a_empty", "b_empty", "both_empty", "a_l
                   "n_codes", "shifted")
 
 
-def dovetail_case(seed: int, n: int, L: int, lens: tuple[int, int] = (58, 68)):
+def dovetail_case(seed: int, n: int, L: int, lens: tuple[int, int] = (58, 68),
+                  a_lens=None):
     """Pairs of UMI-like codes for the budgeted-dovetail distance (kernel
     B6): (a (n, L) uint8, a_lens (n,) int32, b (n, L) uint8, b_lens (n,)
     int32), PAD-filled past each length. Lengths are drawn from ``lens``
     (capped at L). Pairs cycle over :data:`DOVETAIL_KINDS`: b a noisy copy
     of a (10% errors); unrelated; a_len 0, b_len 0 or both; b a copy of a
     cut short (a_len > b_len); runs of N (code 4); b a copy of a shifted
-    by up to 20 bases at either end (overhangs past the free budget)."""
+    by up to 20 bases at either end (overhangs past the free budget).
+    ``a_lens``, when given, are the first sequences' lengths (cycled over
+    the pairs, capped at L) in place of drawn ones."""
     rng = np.random.default_rng(seed)
     lo, hi = min(lens[0], L), min(lens[1], L)
     rows_a, rows_b = [], []
     for i in range(n):
         kind = DOVETAIL_KINDS[i % len(DOVETAIL_KINDS)]
-        a = rng.integers(0, 4, int(rng.integers(lo, hi + 1))).astype(np.uint8)
+        a_len = int(rng.integers(lo, hi + 1))
+        if a_lens is not None:
+            a_len = min(a_lens[i % len(a_lens)], L)
+        a = rng.integers(0, 4, a_len).astype(np.uint8)
         b = noisy_copy(rng, a, 0.1)
         if kind == "unrelated":
             b = rng.integers(0, 4, int(rng.integers(lo, hi + 1))).astype(np.uint8)

@@ -212,10 +212,10 @@ CUDA_ERROR_INVALID_VALUE = 1  # cudaErrorInvalidValue
 # what each launcher refuses, beyond negative sizes (each launcher alone holds
 # its limits)
 _LIMITS = {
-    "fuzzy_match": "the pattern length m must fit a block's shared-memory column (m <= 1787) "
-                   "and the patterns the grid (P <= 65535)",
-    "dovetail": "the first sequences' width La must fit a block's shared-memory column "
-                "(La <= 1452)",
+    "fuzzy_match": "the pattern length m must be at most 1787 (28 words of match tables and "
+                   "column a block) and the patterns must fit the grid (P <= 65535)",
+    "dovetail": "the first sequences' width La must be at most 1452 (23 words of match "
+                "tables and column a lane)",
 }
 _PACKED = ("the band width must be one it is built for, and the scoring and lengths must fit "
            "its packed keys")

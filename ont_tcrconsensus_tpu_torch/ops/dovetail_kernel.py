@@ -8,7 +8,10 @@ Replaces the JAX package's device program ``ops/edit_distance._dovetail_pair``
 :func:`.edit_distance.many_vs_many_dovetail` route CUDA tensors here: the
 UMI clustering's distance passes and the rescue pass. Same contract as the
 plain :func:`.edit_distance.pairwise_dovetail_plain`, bit for bit, in one
-launch; each pair reads its own lengths on the card (no host sync).
+launch; each pair reads its own lengths on the card (no host sync). A
+thread a pair, each column a bit-parallel step over a's 64-row words
+(``csrc/bitvector.cuh``), the answer read from the corner of the last
+k_end + 1 rows and columns; first sequences up to 1452 wide.
 """
 
 from __future__ import annotations

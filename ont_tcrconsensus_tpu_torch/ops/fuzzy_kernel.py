@@ -6,7 +6,10 @@ patterns and windows, run forward for the end and over the reversed prefix
 for the start). In the port :func:`.fuzzy_match.fuzzy_find_multi` routes
 CUDA tensors here: the primer trim and the UMI windows of every assign
 batch. Same contract as the plain
-:func:`.fuzzy_match.fuzzy_find_multi_plain`, bit for bit, in one launch.
+:func:`.fuzzy_match.fuzzy_find_multi_plain`, bit for bit, in one launch:
+a thread a (pattern, window) pair, each column a bit-parallel step over
+the pattern's 64-row words (``csrc/bitvector.cuh``), patterns up to 1787
+masks.
 """
 
 from __future__ import annotations
