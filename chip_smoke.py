@@ -69,6 +69,21 @@ of which fails the script (non-zero exit, no result line):
    (``dp_cases.WORD_EDGES``), at ``FUZZY_MULTIWORD`` and
    ``DOVETAIL_MULTIWORD``, and at each launcher's limit (m = 1787, La =
    1452), exact;
+3b. band centres and global distance: kernels B2 and B3 with every lane
+   off the diagonal (``dp_cases.dp_batch``'s band centres, each 0 drawn
+   anew from +-[1, W]: ``dp_cases.nonzero_offsets``) at the polish tile's
+   first shape (N=1024, L=2048, W=64) and at W=128 (N=256, L=384),
+   against the plain forward and steps at the same offsets on the same
+   card tensors: every output equal; their times, plain times and bounds
+   as in phase 3. ``ops/pileup.pileup_columns`` at the band centres
+   {-40, -7, 0, 5, 37} (``dp_cases.band_centre_cluster``) at W=64 and 128
+   on ``cuda`` against ``cpu``: every output equal, one B2 and one B3
+   launch a call, each counted as given band centres. The global edit distance (``ops/edit_distance.pairwise``,
+   ``many_vs_many``, ``identity_matrix``: B6 at k_end 0) on 8192 pairs and
+   the 256 x 256 matrix against the plain version at k_end 0 on the same
+   card tensors, and the identity against the CPU's (a 32 x 64 block):
+   equal, one B6 launch a call, counted as at k_end 0; times, plain times and bounds as B6's in
+   phase 3;
 4. polisher parity: at the same tile, the vote rounds' kept final pileup
    (recomputed against the final drafts if the rounds ran out), then the
    features and the served (v3) bi-GRU on ``cuda`` and on ``cpu``: the
@@ -156,7 +171,9 @@ of which fails the script (non-zero exit, no result line):
    and again around the ``poa`` run; each kernel must have launched in
    both, B3 as often as B2 (each forward is followed by its traceback),
    and every run's counts must equal the truth; B4 launches on the QC
-   profiles' runs and not without them; B5 and B6 on every run counted. Each run's stage
+   profiles' runs and not without them; B5 and B6 on every run counted;
+   the first run's B6 launches at k_end 0 and its B2 and B3 launches given
+   band centres, counted where the kernels launch, must be 0. Each run's stage
    seconds are printed under
    the stage table's names, the error profiles' worker seconds
    (``*_bg``) beside the main thread's wait at their commit. The first
@@ -501,9 +518,9 @@ def _sass_mix(name: str) -> dict[str, dict[str, int]]:
     mix: dict[str, collections.Counter] = {}
     counter = None
     for line in text.splitlines():
-        fn = re.search(r"Function : \S*?([a-z][a-z_]*_kernel)I((?:Li\d+E)+)E", line)
-        if fn:
-            args = ",".join(re.findall(r"Li(\d+)E", fn.group(2)))
+        fn = re.search(r"Function : \S*?([a-z][a-z_]*_kernel)I((?:L[ib]\d+E)+)E", line)
+        if fn:  # template arguments: ints and bools
+            args = ",".join(re.findall(r"L[ib](\d+)E", fn.group(2)))
             counter = mix.setdefault(f"{fn.group(1)}<{args}>", collections.Counter())
             continue
         op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]+)", line)
@@ -692,15 +709,16 @@ def check_pileup(dev, seed: int, N: int, L: int, W: int) -> dict:
             "aligned_lanes": int((best_k[:, 0] > 0).sum())}
 
 
-def _pileup_costs(rl, Lr: int, L: int, W: int) -> dict:
+def _pileup_costs(rl, Lr: int, L: int, W: int, extra_bytes: int = 0) -> dict:
     """B2's bound and design floor for read lengths ``rl``: every row's
     planes are output, each cell written once; the rows of a read and the
-    one after its end need the DP, the rows after that only the bases."""
+    one after its end need the DP, the rows after that only the bases.
+    ``extra_bytes``: further inputs read once (the band centres)."""
     import torch
 
     N = rl.shape[0]
     dp_rows = int(torch.clamp(rl.long() + 1, min=0, max=L).sum())
-    n_bytes = N * L + N * Lr + 2 * 4 * N + 3 * 4 * N + 2 * N * L * W
+    n_bytes = N * L + N * Lr + 2 * 4 * N + 3 * 4 * N + 2 * N * L * W + extra_bytes
     return _costs(dp_rows * W, n_bytes, W, PILEUP_CELL_OPS, PILEUP_DESIGN,
                   pad_cells=(N * L - dp_rows) * W)
 
@@ -809,7 +827,8 @@ def check_traceback_random(dev, seed: int, N: int, L: int, W: int) -> list[dict]
     return rows
 
 
-def _traceback_costs(best, spans, N: int, L: int, W: int, out_len: int, step_ns: float) -> dict:
+def _traceback_costs(best, spans, N: int, L: int, W: int, out_len: int, step_ns: float,
+                     extra_bytes: int = 0) -> dict:
     """B3's bound and floor from the walks' spans: a lane takes at least
     max(read span, draft span) steps (each step consumes a read base, a
     draft column or both). Bytes: a 32-byte sector a step, the columns
@@ -817,13 +836,15 @@ def _traceback_costs(best, spans, N: int, L: int, W: int, out_len: int, step_ns:
     bytes it stages (each walked lane's chunks of TB_CHUNK_ROWS whole rows,
     from its first row's chunk to one past its last row's, and the chunks'
     read bases) over the HBM rate and the longest walk's steps at
-    ``step_ns`` each."""
+    ``step_ns`` each. ``extra_bytes``: further inputs read once (the band
+    centres)."""
     import torch
 
     s = spans.long()
     steps = torch.maximum(s[:, 1] - s[:, 0], s[:, 3] - s[:, 2]).clamp(min=0)
     total = int(steps.sum())
-    n_bytes = SECTOR_BYTES * total + N * out_len * (1 + 4 + 1 + 4) + N * 4 * 4 + N * 3 * 4
+    n_bytes = (SECTOR_BYTES * total + N * out_len * (1 + 4 + 1 + 4) + N * 4 * 4 + N * 3 * 4
+               + extra_bytes)
     bound, by = _bound_ms(n_bytes, total * sum(TRACEBACK_STEP_OPS.values()))
     live = (best[:, 0] > 0) & (best[:, 1] >= 0)
     top = best[:, 1].long().clamp(max=L - 1)
@@ -837,6 +858,100 @@ def _traceback_costs(best, spans, N: int, L: int, W: int, out_len: int, step_ns:
     return {"steps": total, "longest_walk": longest, "bound_ms": bound, "bound_by": by,
             "step_ns": step_ns, "staged_bytes": staged, "staged_bytes_ms": staged_ms,
             "walk_floor_ms": walk_ms, "design_floor_ms": max(walk_ms, staged_ms)}
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: kernels B2 and B3 off the diagonal (each lane's band centre)
+
+# (N, L, W): the polish tile's first shape, and band 128 at a length whose
+# plain versions (a launch-bound loop over the rows) take about 2 s
+BAND_CENTRE_SHAPES = ((1024, 2048, 64), (256, 384, 128))
+BAND_CENTRE_CLUSTER = (30, 192)  # (S, L) of dp_cases.band_centre_cluster
+
+
+def check_band_centres(dev, seed: int, N: int, L: int, W: int, step_ns: float) -> dict:
+    """Kernels B2 and B3 with every lane off the diagonal
+    (``dp_cases.dp_batch``'s band centres, zeros drawn anew from +-[1, W])
+    against the plain forward and steps at the same offsets on the same
+    card tensors: every output equal. Times, plain times and bounds as in
+    phase 3 (the band centres among the bytes read)."""
+    import torch
+
+    from ont_tcrconsensus_tpu_torch.io import dp_cases
+    from ont_tcrconsensus_tpu_torch.ops import pileup, pileup_kernel, traceback_kernel
+    from ont_tcrconsensus_tpu_torch.parallel.mesh import lockstep
+
+    reads, rl, refs, tl, offs = dp_cases.dp_batch(N, L, W, seed)
+    offs = dp_cases.nonzero_offsets(seed, offs, W)
+    reads, rl, refs, tl, offs = (torch.from_numpy(x).to(dev)
+                                 for x in (reads, rl, refs, tl, offs))
+    fwd = (reads, rl, refs, tl, W)
+
+    def b2():
+        return pileup_kernel.forward_planes_cuda(*fwd, offs=offs)
+
+    best, planes = b2()
+    (best_p, planes_p), b2_plain_ms = _timed_once(
+        lambda: pileup._forward_batch(*fwd, offs=offs))
+    for name, a, b in (("best", best, best_p), ("planes", planes, planes_p)):
+        if not torch.equal(a, b):
+            bad = (a != b).reshape(N, -1).any(dim=1).nonzero()[0, 0]
+            raise AssertionError(f"B2 with offsets L={L} W={W}: {name} differs (first lane "
+                                 f"{int(bad)})")
+    args = (best, planes, reads, W, L)
+
+    def b3():
+        return traceback_kernel.traceback_columns_cuda(*args, offs=offs)
+
+    got = b3()
+    want, b3_plain_ms = _timed_once(lambda: lockstep([pileup._traceback_steps(*args, offs)])[0])
+    for name, a, b in zip(("base_at", "ins_cnt", "ins_base", "pos_at", "spans"), got, want):
+        if not torch.equal(a, b):
+            bad = (a != b).reshape(N, -1).any(dim=1).nonzero()[0, 0]
+            raise AssertionError(f"B3 with offsets L={L} W={W}: {name} differs (first lane "
+                                 f"{int(bad)})")
+    rows = {}
+    for key, fn, plain_ms in (("b2", b2, b2_plain_ms), ("b3", b3, b3_plain_ms)):
+        for _ in range(2):
+            fn()
+        rows[key] = {"max_abs_err": 0, "ms": _time_ms(fn, 7), "call_ms": _time_ms(fn, 7, spin=False),
+                     "plain_ms": plain_ms}
+    rows["b2"].update(_pileup_costs(rl, refs.shape[1], L, W, extra_bytes=4 * N))
+    rows["b3"].update(_traceback_costs(best, want[4], N, L, W, L, step_ns, extra_bytes=4 * N))
+    spans = want[4]
+    return {"N": N, "L": L, "W": W, "offsets": [int(offs.min()), int(offs.max())],
+            "zero_offsets": int((offs == 0).sum()),
+            "aligned_lanes": int((best[:, 0] > 0).sum()),
+            "lanes_past_the_draft": int(((spans[:, 2] < 0) | (spans[:, 3] > tl)).sum()),
+            **rows}
+
+
+def check_pileup_columns_offsets(dev, seed: int, W: int) -> dict:
+    """``ops/pileup.pileup_columns`` at the band centres {-40, -7, 0, 5, 37}
+    (``dp_cases.band_centre_cluster``) on ``dev`` against ``cpu``: every
+    output equal, one B2 and one B3 launch; out_len 3L/4 at W = 128."""
+    import torch
+
+    from ont_tcrconsensus_tpu_torch.io import dp_cases
+    from ont_tcrconsensus_tpu_torch.ops import pileup, pileup_kernel, traceback_kernel
+
+    S, L = BAND_CENTRE_CLUSTER
+    out_len = L if W == 64 else 3 * L // 4
+    case = dp_cases.band_centre_cluster(seed, S, L)
+    counters = (pileup_kernel.forward_planes_cuda, traceback_kernel.traceback_columns_cuda)
+    before = [(k.launches, k.launches_offs) for k in counters]
+    got = pileup.pileup_columns(*case, band_width=W, out_len=out_len, device=dev)
+    launches = [(k.launches - b, k.launches_offs - o) for k, (b, o) in zip(counters, before)]
+    if launches != [(1, 1), (1, 1)]:
+        raise AssertionError(f"pileup_columns with offsets: B2/B3 launches (all, given band "
+                             f"centres) {launches}")
+    want = pileup.pileup_columns(*case, band_width=W, out_len=out_len, device="cpu")
+    for name, a, b in zip(("base_at", "ins_cnt", "ins_base", "pos_at", "spans"), got, want):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"pileup_columns with offsets W={W}: {name} differs on cuda")
+    return {"S": S, "L": L, "W": W, "out_len": out_len, "equal": True,
+            "offsets": sorted(set(int(o) for o in case[4])),
+            "aligned_lanes": int((want[4][:, 1] > want[4][:, 0]).sum())}
 
 
 # ---------------------------------------------------------------------------
@@ -978,11 +1093,13 @@ def check_fuzzy(dev, seed: int, P: int, m: int, B: int, Lw: int, ptxas: dict,
 
 
 def check_dovetail(dev, seed: int, k_end: int, grid: bool, ptxas: dict, n: int = DOVETAIL_PAIRS,
-                   L: int = DOVETAIL_L, lens=(58, 68), a_lens=None) -> dict:
+                   L: int = DOVETAIL_L, lens=(58, 68), a_lens=None, nw: bool = False) -> dict:
     """Kernel B6 against the plain version on the same card tensors
     (``dp_cases.dovetail_case``, by default lengths 58-68 at width 128):
     ``n`` pairs, or (``grid``) the 256 x 256 full matrix, whose plain
-    yardstick runs on the repeated pairs. The bound counts the word steps
+    yardstick runs on the repeated pairs. ``nw``: B6 reached through the
+    global distance's public functions (``edit_distance.pairwise``,
+    ``many_vs_many``), which call it at k_end 0. The bound counts the word steps
     these inputs need: ceil(a_len / 64) words over columns 1..b_len of each
     pair, with the score's and the corner's terms, against the bytes of
     each sequence within its length; the cell bound rows 1..a_len over
@@ -997,6 +1114,8 @@ def check_dovetail(dev, seed: int, k_end: int, grid: bool, ptxas: dict, n: int =
     Q = T = DOVETAIL_GRID
 
     def kernel():
+        if nw:
+            return (edit_distance.many_vs_many if grid else edit_distance.pairwise)(a, al, b, bl)
         if grid:
             return dovetail_kernel.many_vs_many_dovetail_cuda(a, al, b, bl, k_end)
         return dovetail_kernel.pairwise_dovetail_cuda(a, al, b, bl, k_end)
@@ -1017,10 +1136,23 @@ def check_dovetail(dev, seed: int, k_end: int, grid: bool, ptxas: dict, n: int =
     n_bytes = int(rows.sum() + cols.sum()) + 4 * (len(al) + len(bl)) + 4 * n_pairs
     if grid:
         rows, cols, a_len, b_len = rows[:, None], cols[None, :], a_len[:, None], b_len[None, :]
+    if nw and k_end != 0:
+        raise ValueError("the global distance is B6 at k_end 0")
+    b6 = dovetail_kernel.dovetail_cuda
+    before = (b6.launches, b6.launches_nw)
     got = kernel()
+    if (b6.launches, b6.launches_nw) != (before[0] + 1, before[1] + (k_end == 0)):
+        raise AssertionError(f"B6 {'nw ' if nw else ''}made {b6.launches - before[0]} "
+                             f"launches, {b6.launches_nw - before[1]} of them at k_end 0")
     want, plain_ms = _timed_once(plain)
-    err = _exact(f"B6 {'grid' if grid else 'pairs'} n={n_pairs} L={L} k_end={k_end}", [got],
-                 [want])
+    err = _exact(f"B6 {'nw ' if nw else ''}{'grid' if grid else 'pairs'} n={n_pairs} L={L} "
+                 f"k_end={k_end}", [got], [want])
+    if nw and grid:  # the identity on the card against the CPU's plain route (a block)
+        ident = edit_distance.identity_matrix(a, al, b, bl)[:32, :64]
+        want_ident = edit_distance.identity_matrix(a[:32].cpu(), al[:32].cpu(), b[:64].cpu(),
+                                                   bl[:64].cpu())
+        if not torch.equal(ident.cpu(), want_ident):
+            raise AssertionError("identity_matrix on the card differs from the CPU's")
     for _ in range(2):
         kernel()
     ms = _time_ms(kernel, 7)
@@ -1076,11 +1208,11 @@ def _sw_shape(reads, read_lens, refs, *rest, band_width=256, **_):
     return (reads.shape[0], reads.shape[1], refs.shape[1], band_width)
 
 
-def _pileup_shape(reads, read_lens, refs, ref_lens, band_width):
+def _pileup_shape(reads, read_lens, refs, ref_lens, band_width, offs=None):
     return (reads.shape[0], reads.shape[1], refs.shape[1], band_width)
 
 
-def _traceback_shape(reads, read_lens, refs, ref_lens, band_width, out_len):
+def _traceback_shape(reads, read_lens, refs, ref_lens, band_width, out_len, offs=None):
     return (reads.shape[0], reads.shape[1], refs.shape[1], band_width, out_len)
 
 
@@ -2288,10 +2420,15 @@ def full_e2e(kernels, rounds: int, step_ns: float):
 
     from ont_tcrconsensus_tpu_torch.io import simulator
     from ont_tcrconsensus_tpu_torch.obs import transfers as obs_transfers
-    from ont_tcrconsensus_tpu_torch.ops import pileup, pileup_kernel, sw_kernel
+    from ont_tcrconsensus_tpu_torch.ops import (dovetail_kernel, pileup, pileup_kernel, sw_kernel,
+                                                traceback_kernel)
     from ont_tcrconsensus_tpu_torch.qc import error_profile
 
     dev = torch.device("cuda")
+    # the off-main-path routes' counts, taken where their kernels launch
+    route_counters = ((dovetail_kernel.dovetail_cuda, "launches_nw"),
+                      (pileup_kernel.forward_planes_cuda, "launches_offs"),
+                      (traceback_kernel.traceback_columns_cuda, "launches_offs"))
     recorded = {"sw": (sw_kernel, "align_banded_auto", _sw_shape, True),
                 "pileup": (pileup, "forward_auto", _pileup_shape, True),
                 "traceback": (pileup, "_forward_traceback", _traceback_shape, False),
@@ -2327,6 +2464,8 @@ def full_e2e(kernels, rounds: int, step_ns: float):
         if counted:
             for k in kernels:
                 k.launches = 0
+        for k, route in route_counters:
+            setattr(k, route, 0)
         stage_s: dict[str, float] = {}
         pol = {"s": 0.0, "peak_gb": None}
         rollup = {"s": 0.0}
@@ -2372,6 +2511,8 @@ def full_e2e(kernels, rounds: int, step_ns: float):
                 "memory": {"nodes": memory["nodes"], "problems": memory["problems"]}}
         stages.append(stage_s)
         polisher_runs.append(pol)
+        if run == 0:
+            routes = {f"{k.__name__}.{route}": getattr(k, route) for k, route in route_counters}
         if method == "rnn, error_profile_sample 0":
             no_profile = {k.__name__: k.launches for k in kernels}
         elif counted:
@@ -2401,6 +2542,8 @@ def full_e2e(kernels, rounds: int, step_ns: float):
            "counts_exact": not diffs,
            "max_memory_allocated_gb": peaks, "polisher": polisher_runs,
            "data_s": data_s, "launches": launches, "launches_no_profile": no_profile,
+           "launches_nw": routes["dovetail_cuda.launches_nw"],
+           "launches_with_offsets": {k: n for k, n in routes.items() if k.endswith("_offs")},
            "stage_s": stages,
            "telemetry": telemetry, "ingest_batches": ingest,
            "overlap_threads": threads, "assign_window": assign_window,
@@ -3968,6 +4111,39 @@ def main(argv=None) -> int:
           f"{split['pair_unfused_ms']:.1f} ms; drafts equal, {split['pair_stable']} of "
           f"{split['C']} clusters stable at round 2", flush=True)
 
+    phase("3b band centres and global distance")
+    # 3b. B2 and B3 off the diagonal, pileup_columns at band centres, and
+    # the global distance on B6 at k_end 0
+    report["band_centres"] = [check_band_centres(dev, 70 + seed, N, L, W, step_ns)
+                              for seed, (N, L, W) in enumerate(BAND_CENTRE_SHAPES)]
+    report["pileup_columns_offsets"] = [check_pileup_columns_offsets(dev, 75, W)
+                                        for W in (64, 128)]
+    report["nw"] = [check_dovetail(dev, 76 + seed, 0, grid, b6_ptxas, nw=True)
+                    for seed, grid in enumerate((False, True))]
+    report["band_centres_s"] = time.perf_counter() - t_start - starts[
+        "3b band centres and global distance"]
+    print(f"phase 3b: {report['band_centres_s']:.1f} s", flush=True)
+    for r in report["band_centres"]:
+        for key, kernel in (("b2", "B2 forward"), ("b3", "B3 traceback")):
+            k = r[key]
+            print(f"parity {kernel} with offsets N={r['N']} L={r['L']} W={r['W']} (band "
+                  f"centres {r['offsets'][0]}..{r['offsets'][1]}, {r['zero_offsets']} at 0; "
+                  f"{r['aligned_lanes']} lanes aligned, {r['lanes_past_the_draft']} of them "
+                  f"past the draft's ends): exact; kernel {k['ms']:.3f} ms (a call "
+                  f"{k['call_ms']:.3f} ms), plain {k['plain_ms']:.1f} ms, bound "
+                  f"{k['bound_ms']:.4f} ms ({k['bound_by']})", flush=True)
+    for r in report["pileup_columns_offsets"]:
+        print(f"pileup_columns at band centres {r['offsets']} (S={r['S']} L={r['L']} W={r['W']} "
+              f"out_len {r['out_len']}): cuda = cpu on every output, one B2 and one B3 launch; "
+              f"{r['aligned_lanes']} lanes aligned", flush=True)
+    for r in report["nw"]:
+        print(f"parity global distance (B6 at k_end 0 through "
+              f"{'many_vs_many, identity_matrix' if 'x' in r['shape'] else 'pairwise'}) "
+              f"{r['shape']} L={r['L']}: exact; {r['ms']:.4f} ms (a call {r['call_ms']:.4f} "
+              f"ms), plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}, {r['word_steps']} word steps), cell bound "
+              f"{r['cell_bound_ms']:.4f} ms", flush=True)
+
     phase("4 polisher")
     # 4. the polisher, cuda vs cpu
     pol = report["polisher"] = polisher_parity(20)
@@ -4083,7 +4259,9 @@ def main(argv=None) -> int:
           f"{win['busy_share']:.4f}", flush=True)
     run0 = full["launches"]["rnn"]
     print(f"full e2e run 0 B5/B6: launches B5 {run0['fuzzy_find_multi_cuda']}, B6 "
-          f"{run0['dovetail_cuda']}; host seconds assign.dispatch "
+          f"{run0['dovetail_cuda']} ({full['launches_nw']} of them at k_end 0, the global "
+          f"distance's route); B2/B3 launches given band centres {full['launches_with_offsets']} "
+          f"(the main path passes none); host seconds assign.dispatch "
           f"{tel0.get('assign.dispatch', {}).get('host_s')}, cluster.batched_dispatch "
           f"{tel0.get('cluster.batched_dispatch', {}).get('host_s')}; stages (s) "
           + ", ".join(f"{k} {full['stage_s'][0].get(k, 0.0):.3f}"
@@ -4177,6 +4355,9 @@ def main(argv=None) -> int:
         return _fail(f"a kernel of a path never launched: {full['launches']}")
     if b4_off:
         return _fail(f"B4 launched without the QC profiles: {full['launches_no_profile']}")
+    if any(full["launches_with_offsets"].values()):
+        return _fail(f"the main path gave B2/B3 band centres {full['launches_with_offsets']}: "
+                     "its launches pass none")
     if not all(_b3_follows_b2(path) for path in full["launches"].values()):
         return _fail(f"B3 did not follow every B2 launch: {full['launches']}")
     _check_ingest_path(full["ingest_batches"], parser, "full e2e run 0")
@@ -4422,6 +4603,13 @@ def main(argv=None) -> int:
             **({"design_floor_ms": r["design_floor_ms"], "staged_bytes": r["staged_bytes"]}
                if key == "traceback" else {}),
         })
+        if key != "sw":  # B2 and B3 with every lane off the diagonal (phase 3b)
+            off = report["band_centres"][0]["b2" if key == "pileup" else "b3"]
+            entries[-1]["offsets"] = {
+                "shape": {k: report["band_centres"][0][k] for k in ("N", "L", "W")},
+                "launches": full["launches_with_offsets"][f"{k.__name__}.launches_offs"],
+                **{k: off[k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
+                                       "bound_by")}}
     # B4's training and lane-scale counts are read in phases 13 and 15 (no
     # training step and no lane-scale run computes a QC profile: 0 there)
     entries.append({
@@ -4455,6 +4643,13 @@ def main(argv=None) -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             "cell_bound_ms": r["cell_bound_ms"],
         })
+    # the global distance's route through B6 (k_end 0; no main path calls it)
+    entries[-1]["routes"] = [{
+        "name": "nw", "replaces": "ont_tcrconsensus_tpu/ops/edit_distance.py:34",
+        "k_end": 0, "shape": r["shape"],
+        "launches": full["launches_nw"], **{k: r[k] for k in (
+            "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None} for r in report["nw"]]
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -141,3 +141,14 @@ def self_homology_map(
         max_blast_id=float(np.max(bids)) if bids else None,
         stats=stats,
     )
+
+
+def region_length_dict(reference: dict[str, str]) -> dict[str, int]:
+    """Each region's length (the reference's region_split.py:52-58)."""
+    return {name: len(seq) for name, seq in reference.items()}
+
+
+def countable_regions(reference: dict[str, str]) -> set[str]:
+    """Regions that count toward detection stats: negative controls
+    excluded (the reference's region_split.py:302-309)."""
+    return {n for n in reference if not n.endswith(NEGATIVE_CONTROL_SUFFIXES)}

@@ -3,12 +3,13 @@
 // Replaces the JAX package's Pallas TPU kernel
 // ont_tcrconsensus_tpu/ops/pileup_pallas.py:61 `_forward_kernel` (driven by
 // `forward_planes_pallas`, :221). Semantics are those of ops/pileup.py
-// `_forward_banded` at diagonal offset 0, cell for cell, including cells
-// outside the band's valid region: per cell one u16 `tdir | fjump << 4`
-// (the packed plane `_forward_batch` returns and the traceback consumes),
-// where tdir bits 0-1 are the tmp choice (0 diag, 1 E, 3 fresh), bit 2 the
-// diag-stop flag, bit 3 the E-opened flag, and fjump is the ref-gap run
-// length when H chose F (else 0). Per lane the best (score, row, slot)
+// `_forward_banded` at each lane's diagonal offset (the band centre; 0 for
+// every lane when no offsets are given, as on the polish path), cell for
+// cell, including cells outside the band's valid region: per cell one u16
+// `tdir | fjump << 4` (the packed plane `_forward_batch` returns and the
+// traceback consumes), where tdir bits 0-1 are the tmp choice (0 diag, 1
+// E, 3 fresh), bit 2 the diag-stop flag, bit 3 the E-opened flag, and fjump
+// is the ref-gap run length when H chose F (else 0). Per lane the best (score, row, slot)
 // follows the sequential tie-break, and is (0, -1, 0) when nothing scores
 // above 0.
 //
@@ -28,7 +29,10 @@
 // (two slots a thread leave the per-row work a large share). The TPU
 // kernel's two-reads-per-128-lanes packing, 128-aligned loads and host-side
 // pre-shifted drafts are layout choices for the TPU and have no
-// counterpart here; any L is accepted.
+// counterpart here; any L is accepted. An offset moves the lane's reference
+// window: slot b of row i reads ref[i + off - W/2 + b], PAD outside
+// [0, Lr) (ref_base, for the slots and for the base read a row ahead), and
+// a cell is valid where that index lies in [0, ref_len).
 //
 // Bound on the H100: operations. The planes are 2 bytes per cell written
 // once (2 * N * L * W bytes), against the 45 int32 operations a cell of a
@@ -62,7 +66,8 @@ template <int NS>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 pileup_forward_kernel(const uint8_t* __restrict__ reads, const int32_t* __restrict__ read_lens,
                       const uint8_t* __restrict__ refs, const int32_t* __restrict__ ref_lens,
-                      int32_t* __restrict__ best_out, uint16_t* __restrict__ planes,
+                      const int32_t* __restrict__ offs, int32_t* __restrict__ best_out,
+                      uint16_t* __restrict__ planes,
                       int N, int L, int Lr, int match, int mismatch, int gap_open, int gap_ext) {
   constexpr int W = NS * 32;
   constexpr int c = W / 2;
@@ -75,7 +80,8 @@ pileup_forward_kernel(const uint8_t* __restrict__ reads, const int32_t* __restri
   uint16_t* out = planes + (size_t)n * L * W + b0;
   const int rlen = read_lens[n];
   const int tlen = ref_lens[n];
-  const int jb = b0 - c;  // ref index of slot b0 in row 0
+  const int off = offs != nullptr ? offs[n] : 0;
+  const int jb = off - c + b0;  // ref index of slot b0 in row 0
   const int go_ge = gap_open + gap_ext;
   // the band's last slot reads H = E = NEG from beyond the band
   const bool open_fill = kNeg - go_ge >= kNeg - gap_ext;
@@ -207,26 +213,28 @@ pileup_forward_kernel(const uint8_t* __restrict__ reads, const int32_t* __restri
 
 template <int NS>
 void launch(const void* reads, const void* read_lens, const void* refs, const void* ref_lens,
-            void* best, void* planes, int N, int L, int Lr, int match, int mismatch,
-            int gap_open, int gap_ext, cudaStream_t stream) {
+            const void* offs, void* best, void* planes, int N, int L, int Lr, int match,
+            int mismatch, int gap_open, int gap_ext, cudaStream_t stream) {
   const dim3 block(kWarpsPerBlock * 32);
   const dim3 grid((N + kWarpsPerBlock - 1) / kWarpsPerBlock);
   pileup_forward_kernel<NS><<<grid, block, 0, stream>>>(
       static_cast<const uint8_t*>(reads), static_cast<const int32_t*>(read_lens),
       static_cast<const uint8_t*>(refs), static_cast<const int32_t*>(ref_lens),
-      static_cast<int32_t*>(best), static_cast<uint16_t*>(planes),
-      N, L, Lr, match, mismatch, gap_open, gap_ext);
+      static_cast<const int32_t*>(offs), static_cast<int32_t*>(best),
+      static_cast<uint16_t*>(planes), N, L, Lr, match, mismatch, gap_open, gap_ext);
 }
 
 }  // namespace
 
-// reads (N, L) u8, refs (N, Lr) u8, lens (N,) i32; best (N, 3) i32 and
-// planes (N, L, W) u16 out. Returns cudaErrorInvalidValue, launching
+// reads (N, L) u8, refs (N, Lr) u8, lens (N,) i32, offs (N,) i32 band
+// centres or null (0 for every lane); best (N, 3) i32 and planes (N, L, W)
+// u16 out. Returns cudaErrorInvalidValue, launching
 // nothing, for a band width it is not built for or scoring its scan keys
 // cannot hold (`scores_fit`: the one check of that limit); else
 // cudaGetLastError() after the launch.
 extern "C" int pileup_forward_launch(const void* reads, const void* read_lens, const void* refs,
-                                     const void* ref_lens, void* best, void* planes,
+                                     const void* ref_lens, const void* offs, void* best,
+                                     void* planes,
                                      int N, int L, int Lr, int W, int match, int mismatch,
                                      int gap_open, int gap_ext, void* stream) {
   if (N <= 0) return 0;
@@ -234,8 +242,8 @@ extern "C" int pileup_forward_launch(const void* reads, const void* read_lens, c
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (W) {
-    case 64: launch<2>(reads, read_lens, refs, ref_lens, best, planes, N, L, Lr, match, mismatch, gap_open, gap_ext, s); break;
-    case 128: launch<4>(reads, read_lens, refs, ref_lens, best, planes, N, L, Lr, match, mismatch, gap_open, gap_ext, s); break;
+    case 64: launch<2>(reads, read_lens, refs, ref_lens, offs, best, planes, N, L, Lr, match, mismatch, gap_open, gap_ext, s); break;
+    case 128: launch<4>(reads, read_lens, refs, ref_lens, offs, best, planes, N, L, Lr, match, mismatch, gap_open, gap_ext, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

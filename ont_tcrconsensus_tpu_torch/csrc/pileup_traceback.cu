@@ -9,7 +9,9 @@
 // (score, row, slot) it walks the packed u16 planes `tdir | fjump << 4` with
 // the scan's seven scalars of state (i, b, mode, pending, done, rstart,
 // fstart) and fills base_at, ins_cnt, ins_base and pos_at (N, out_len) and
-// the spans (N, 4) = [read_start, read_end, ref_start, ref_end).
+// the spans (N, 4) = [read_start, read_end, ref_start, ref_end). Each lane's
+// band centre is its diagonal offset (`offs`, 0 for every lane when null, as
+// on the polish path): cell (i, b) lies over draft column i + off - W/2 + b.
 //
 // Design. One warp per lane. The warp first writes its lane's whole output
 // row with the fill values (UNCOVERED, 0, 0, -1), coalesced, so the wrapper
@@ -27,18 +29,22 @@
 // write out to the row as the walk leaves the chunk: a store to device
 // memory inside the walk's chain would hold up every step. It keeps the
 // scatter's equivalences:
-// - a draft column j is set at most once a walk: j = i - W/2 + b falls by
-//   one on every deletion and diagonal step and stays on an insertion, so
-//   the columns set are distinct. A deletion sets DELETION (4); a diagonal
-//   step over a known base (code < 4) sets the base and pos_at = i;
+// - a draft column j is set at most once a walk: j = i + off - W/2 + b
+//   falls by one on every deletion and diagonal step and stays on an
+//   insertion, so the columns set are distinct. A deletion sets DELETION
+//   (4); a diagonal step over a known base (code < 4) sets the base and
+//   pos_at = i;
 // - ins_cnt[j] counts the insertion steps at j over known bases: they are
 //   consecutive steps (only an insertion keeps j), so the walk counts the
 //   run in a register and stores the count, never loading it back; and
 //   ins_base[j] is the base of the LATEST such step (the scan's
 //   scatter-max of t * 4 + base picks the largest t): a plain overwrite;
 // - a step whose j lies outside [0, out_len) writes nothing (JAX's
-//   mode="drop"); a lane that starts done (score <= 0 or row < 0) writes
-//   only its fill values and its spans.
+//   mode="drop", its j_ok): its chunk slot, counted from the chunk's first
+//   column, is written but never stored to the row. With an offset j may
+//   start below 0 or past out_len, and the slots stay relative to j0;
+// - a lane that starts done (score <= 0 or row < 0) writes only its fill
+//   values and its spans.
 // A walk stops when its lane is done or after L + out_len steps, the scan's
 // static length; nothing waits on another lane.
 //
@@ -76,13 +82,16 @@ __host__ __device__ constexpr int warps_per_block() { return W == 64 ? 4 : 2; }
 template <int W>
 __host__ __device__ constexpr int cols_per_chunk() { return kRows + W + 1; }
 
-template <int W>
+// kOffs: the launch was given band centres. Without them (the main path)
+// the lane's column shift is the constant -W/2 and the walk's code is that
+// of a kernel that knows no offsets.
+template <int W, bool kOffs>
 __global__ void __launch_bounds__(warps_per_block<W>() * 32)
 pileup_traceback_kernel(const int32_t* __restrict__ best, const uint16_t* __restrict__ planes,
-                        const uint8_t* __restrict__ reads, uint8_t* __restrict__ base_at,
-                        int32_t* __restrict__ ins_cnt, uint8_t* __restrict__ ins_base,
-                        int32_t* __restrict__ pos_at, int32_t* __restrict__ spans, int N, int L,
-                        int out_len) {
+                        const uint8_t* __restrict__ reads, const int32_t* __restrict__ offs,
+                        uint8_t* __restrict__ base_at, int32_t* __restrict__ ins_cnt,
+                        uint8_t* __restrict__ ins_base, int32_t* __restrict__ pos_at,
+                        int32_t* __restrict__ spans, int N, int L, int out_len) {
   static_assert(kRows == 32, "a chunk's read bases are staged one a thread");
   constexpr int kWarps = warps_per_block<W>();
   constexpr int c = W / 2;
@@ -102,7 +111,9 @@ pileup_traceback_kernel(const int32_t* __restrict__ best, const uint16_t* __rest
   const int score = best[(size_t)n * 3 + 0];
   const int i0 = best[(size_t)n * 3 + 1];
   const int b0 = best[(size_t)n * 3 + 2];
-  const int jend = i0 - c + b0;
+  // draft column of cell (i, b): i + shift + b
+  const int shift = (kOffs ? offs[n] : 0) - c;
+  const int jend = i0 + shift + b0;
   const size_t row = (size_t)n * out_len;
   for (int k = lane; k < out_len; k += 32) {
     base_at[row + k] = kUncovered;
@@ -153,7 +164,7 @@ pileup_traceback_kernel(const int32_t* __restrict__ best, const uint16_t* __rest
       for (; t < T && !done; ++t) {
         const int ci = min(max(i, 0), L - 1);
         if (ci < lo) break;  // the walk enters the next chunk
-        const int jrow = i - c + b;
+        const int jrow = i + shift + b;
         const int cb = min(max(b, 0), W - 1);
         const int p = sp[(ci - base) * W + cb];
         const int d = p & 15;
@@ -198,7 +209,7 @@ pileup_traceback_kernel(const int32_t* __restrict__ best, const uint16_t* __rest
       __syncwarp();
       // the columns the chunk walked, [jc, j0], out and back to the fill
       // values; the open column jc keeps its insertion run in slot 0
-      const int jc = i - c + b;
+      const int jc = i + shift + b;
       for (int k = lane; k <= min(j0 - jc, kCols - 1); k += 32) {
         const int col = j0 - k;
         if (col >= 0 && col < out_len) {
@@ -233,38 +244,42 @@ pileup_traceback_kernel(const int32_t* __restrict__ best, const uint16_t* __rest
 }
 
 template <int W>
-void launch(const void* best, const void* planes, const void* reads, void* base_at,
-            void* ins_cnt, void* ins_base, void* pos_at, void* spans, int N, int L, int out_len,
-            cudaStream_t stream) {
+void launch(const void* best, const void* planes, const void* reads, const void* offs,
+            void* base_at, void* ins_cnt, void* ins_base, void* pos_at, void* spans, int N, int L,
+            int out_len, cudaStream_t stream) {
   constexpr int kWarps = warps_per_block<W>();
   const dim3 grid((N + kWarps - 1) / kWarps);
-  pileup_traceback_kernel<W><<<grid, kWarps * 32, 0, stream>>>(
+  const auto kernel = offs != nullptr ? pileup_traceback_kernel<W, true>
+                                      : pileup_traceback_kernel<W, false>;
+  kernel<<<grid, kWarps * 32, 0, stream>>>(
       static_cast<const int32_t*>(best), static_cast<const uint16_t*>(planes),
-      static_cast<const uint8_t*>(reads), static_cast<uint8_t*>(base_at),
-      static_cast<int32_t*>(ins_cnt), static_cast<uint8_t*>(ins_base),
-      static_cast<int32_t*>(pos_at), static_cast<int32_t*>(spans), N, L, out_len);
+      static_cast<const uint8_t*>(reads), static_cast<const int32_t*>(offs),
+      static_cast<uint8_t*>(base_at), static_cast<int32_t*>(ins_cnt),
+      static_cast<uint8_t*>(ins_base), static_cast<int32_t*>(pos_at),
+      static_cast<int32_t*>(spans), N, L, out_len);
 }
 
 }  // namespace
 
 // best (N, 3) i32, planes (N, L, W) u16 (B2's int16 tensor read unsigned,
-// 16-byte aligned), reads (N, L) u8 in; base_at (N, out_len) u8, ins_cnt
-// i32, ins_base u8, pos_at i32 and spans (N, 4) i32 out, every element
-// written here. Returns cudaErrorInvalidValue, launching nothing, for a band
-// width it is not built for, a negative length or unaligned planes; else
-// cudaGetLastError() after the launch.
+// 16-byte aligned), reads (N, L) u8, offs (N,) i32 band centres or null (0
+// for every lane) in; base_at (N, out_len) u8, ins_cnt i32, ins_base u8,
+// pos_at i32 and spans (N, 4) i32 out, every element written here. Returns
+// cudaErrorInvalidValue, launching nothing, for a band width it is not
+// built for, a negative length or unaligned planes; else cudaGetLastError()
+// after the launch.
 extern "C" int pileup_traceback_launch(const void* best, const void* planes, const void* reads,
-                                       void* base_at, void* ins_cnt, void* ins_base,
-                                       void* pos_at, void* spans, int N, int L, int W,
-                                       int out_len, void* stream) {
+                                       const void* offs, void* base_at, void* ins_cnt,
+                                       void* ins_base, void* pos_at, void* spans, int N, int L,
+                                       int W, int out_len, void* stream) {
   if (N <= 0) return 0;
   if (L < 0 || out_len < 0 || reinterpret_cast<uintptr_t>(planes) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (W) {
-    case 64: launch<64>(best, planes, reads, base_at, ins_cnt, ins_base, pos_at, spans, N, L, out_len, s); break;
-    case 128: launch<128>(best, planes, reads, base_at, ins_cnt, ins_base, pos_at, spans, N, L, out_len, s); break;
+    case 64: launch<64>(best, planes, reads, offs, base_at, ins_cnt, ins_base, pos_at, spans, N, L, out_len, s); break;
+    case 128: launch<128>(best, planes, reads, offs, base_at, ins_cnt, ins_base, pos_at, spans, N, L, out_len, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -4,7 +4,9 @@ plain twins).
 Every case is made with numpy from a seed, so the JAX reference, the plain
 PyTorch versions and the CUDA kernels can be fed the same bytes: the
 parity tests use :func:`dp_case` at small sizes, ``chip_smoke.py`` uses
-:func:`dp_batch` at the main path's shapes; both walk B3 over
+:func:`dp_batch` at the main path's shapes (off the diagonal through
+:func:`nonzero_offsets`); both hold B2 and B3 at band centres to
+:func:`band_centre_cluster`, both walk B3 over
 :func:`random_planes` and B4 over :func:`cs_tiles` and :func:`cs_crafted`,
 and hold B5 to :func:`fuzzy_case` and B6 to :func:`dovetail_case` at any
 size.
@@ -117,6 +119,59 @@ def dp_batch(n: int, L: int, W: int, seed: int, offsets: bool = True):
     if not offsets:
         offs = np.zeros_like(offs)
     return reads, rl, refs, tl, offs
+
+
+BAND_CENTRES = (-40, -7, 0, 5, 37)
+BAND_CENTRE_KINDS = ("on_diagonal", "on_diagonal", "at_zero", "unrelated", "n_bases", "dead")
+
+
+def band_centre_cluster(seed: int, S: int, L: int, offsets=BAND_CENTRES):
+    """One draft and ``S`` subreads for the pileup at off-diagonal band
+    centres (kernels B2 and B3 with offsets): lane s at offset
+    ``offsets[s % len(offsets)]`` and of kind ``BAND_CENTRE_KINDS[s //
+    len(offsets) % 6]``. ``on_diagonal`` reads place read base i over draft
+    base ~i + off (the template clipped, or random bases before it), so the
+    band's first cells lie past either end of the draft; ``at_zero`` reads
+    lie on diagonal 0 whatever the offset; ``unrelated`` reads share
+    nothing; ``n_bases`` ones are on the diagonal with 8% N; ``dead`` ones
+    are empty. Returns (subreads (S, L) uint8, lens (S,) int32, draft (L,)
+    uint8, draft_len int, offsets (S,) int32)."""
+    rng = np.random.default_rng(seed)
+    tpl = rng.integers(0, 4, L - 30).astype(np.uint8)
+    draft = noisy_copy(rng, tpl, 0.02)
+    reads, offs = [], []
+    for s in range(S):
+        off = offsets[s % len(offsets)]
+        kind = BAND_CENTRE_KINDS[s // len(offsets) % len(BAND_CENTRE_KINDS)]
+        if kind == "at_zero":
+            read = noisy_copy(rng, tpl, 0.05)
+        elif kind == "unrelated":
+            read = rng.integers(0, 4, int(rng.integers(60, L))).astype(np.uint8)
+        elif kind == "dead":
+            read = tpl[:0]
+        else:
+            body = tpl[off:] if off >= 0 else np.concatenate(
+                [rng.integers(0, 4, -off).astype(np.uint8), tpl])
+            read = noisy_copy(rng, body, 0.05)
+            if kind == "n_bases":
+                read = read.copy()
+                read[rng.random(len(read)) < 0.08] = 4
+        reads.append(read[:L])
+        offs.append(off)
+    sub, lens = pack(reads, L)
+    d, dl = pack([draft], L)
+    return sub, lens, d[0], int(dl[0]), np.asarray(offs, np.int32)
+
+
+def nonzero_offsets(seed: int, offs: np.ndarray, W: int) -> np.ndarray:
+    """``offs`` (a :func:`dp_batch`'s band centres) with each 0 drawn anew
+    from +-[1, W]: every lane off the diagonal."""
+    rng = np.random.default_rng(seed)
+    zero = offs == 0
+    n = int(zero.sum())
+    out = offs.copy()
+    out[zero] = rng.integers(1, W + 1, n) * rng.choice(np.array([-1, 1]), n)
+    return out
 
 
 def random_planes(seed: int, N: int, L: int, W: int):

@@ -174,3 +174,45 @@ def write_fastq(
             fh.write(f"@{header}\n{seq}\n+\n{qual}\n")
             n += 1
     return n
+
+
+def count_fasta_records(path: str | os.PathLike[str]) -> int:
+    """Header count (the reference's ``grep -c '^>'``, count.py:9-20)."""
+    n = 0
+    with _open_text(path) as fh:
+        try:
+            for line in fh:
+                if line.startswith(">"):
+                    n += 1
+        except (gzip.BadGzipFile, EOFError) as exc:
+            raise _gzip_context(path, fh, exc) from exc
+    return n
+
+
+def fastq_stats(path: str | os.PathLike[str]) -> dict[str, float]:
+    """Summary stats of the reference's ``seqkit stat -a`` QC dumps
+    (preprocessing.py:82-99): record count, total bases, min/mean/max
+    length, mean quality (if FASTQ)."""
+    n = 0
+    total = 0
+    mn = None
+    mx = 0
+    qsum = 0.0
+    qn = 0
+    for rec in read_fastx(path):
+        ln = len(rec.sequence)
+        n += 1
+        total += ln
+        mn = ln if mn is None else min(mn, ln)
+        mx = max(mx, ln)
+        if rec.quality:
+            qsum += sum(rec.quality.encode("ascii")) - 33 * len(rec.quality)
+            qn += len(rec.quality)
+    return {
+        "num_seqs": n,
+        "sum_len": total,
+        "min_len": mn or 0,
+        "avg_len": (total / n) if n else 0.0,
+        "max_len": mx,
+        "avg_qual": (qsum / qn) if qn else 0.0,
+    }

@@ -34,8 +34,8 @@ KERNELS = ("sw_banded", "pileup_forward", "pileup_traceback", "error_profile_cs"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "sw_banded": [_P] * 6 + [_I] * 8 + [_P],
-    "pileup_forward": [_P] * 6 + [_I] * 8 + [_P],
-    "pileup_traceback": [_P] * 8 + [_I] * 4 + [_P],
+    "pileup_forward": [_P] * 7 + [_I] * 8 + [_P],
+    "pileup_traceback": [_P] * 9 + [_I] * 4 + [_P],
     "error_profile_cs": [_P] * 10 + [_I] * 4 + [_P],
     "fuzzy_match": [_P] * 5 + [_I] * 4 + [_P],
     "dovetail": [_P] * 5 + [_I] * 5 + [_P],
@@ -93,19 +93,21 @@ def _start(name: str):
     path) or None when the library exists or another call builds it).
 
     One build a library: the first caller records a future under
-    :data:`_lock`, later callers wait on it. ``nvcc`` starts, and is waited
-    for and its output renamed into place (:func:`_finish`), outside the
-    lock."""
+    :data:`_lock`, later callers wait on it. A finished build is looked at
+    on disk under the same hold of the lock, after its future was seen
+    done (its library is renamed into place before that), so a build that
+    ends while this call runs is never taken for a removed library.
+    ``nvcc`` starts, and is waited for and its output renamed into place
+    (:func:`_finish`), outside the lock."""
     out = library_path(name)
-    exists = os.path.exists(out)
     with _lock:
         fut = _builds.get(out)
-        mine = fut is None or (fut.done() and not exists)  # a library removed since
+        mine = fut is None or (fut.done() and not os.path.exists(out))  # removed since
         if mine:
             fut = _builds[out] = concurrent.futures.Future()
     if not mine:
         return out, fut, None
-    if exists:
+    if os.path.exists(out):  # built by an earlier process: this call owns the claim
         fut.set_result("")
         return out, fut, None
     try:

@@ -86,6 +86,20 @@ def vote_columns_batch(base_at, ins_cnt, ins_base, drafts, draft_lens):
     return out[:, : 2 * Ld], new_lens
 
 
+def vote_columns(base_at, ins_cnt, ins_base, draft, draft_len):
+    """One voting round of one cluster (the JAX package's ``vote_columns``):
+    :func:`vote_columns_batch` at C = 1 on the tensors' device.
+
+    Args: base_at/ins_cnt/ins_base (S, Ld); draft (>=Ld,) uint8; draft_len
+    a scalar. Returns (new_draft (2*Ld,) uint8, new_len int32 scalar).
+    """
+    dev = base_at.device
+    lens = torch.as_tensor(draft_len, dtype=torch.int32, device=dev).reshape(1)
+    new, new_len = vote_columns_batch(base_at[None], ins_cnt[None], ins_base[None],
+                                      draft.to(dev)[None], lens)
+    return new[0], new_len[0]
+
+
 def _extend_ends_batch(drafts, dlens, subreads, subread_lens, spans, aligned_dlens):
     """Majority-vote single-base extension at each draft end (numpy, host;
     a copy of the JAX package's ``_extend_ends_batch``). Mutates and returns

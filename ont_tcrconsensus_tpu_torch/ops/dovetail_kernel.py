@@ -25,7 +25,8 @@ from ont_tcrconsensus_tpu_torch.parallel import mesh as mesh_mod
 def dovetail_cuda(a, a_lens, b, b_lens, n_pairs: int, T: int, k_end: int) -> torch.Tensor:
     """One B6 launch over ``n_pairs`` pairs: a row i and b row i (T = 0),
     or the Q x T grid's query i // T and target i % T. Its counters
-    (``.launches``, ``.by_slice``) count both public wrappers' launches."""
+    (``.launches``, ``.by_slice``) count both public wrappers' launches;
+    ``.launches_nw`` counts those at k_end 0."""
     if a.device.type != "cuda":
         raise ValueError(f"the dovetail kernel needs CUDA tensors, got {a.device}")
     dev = a.device
@@ -45,11 +46,13 @@ def dovetail_cuda(a, a_lens, b, b_lens, n_pairs: int, T: int, k_end: int) -> tor
                                      int(k_end), stream)
         _build.check("dovetail", rc)
         dovetail_cuda.launches += 1
+        dovetail_cuda.launches_nw += int(k_end) == 0
         mesh_mod.count_slice_launch(dovetail_cuda.by_slice)
     return out
 
 
 dovetail_cuda.launches = 0
+dovetail_cuda.launches_nw = 0  # of them, launches at k_end 0 (the global distance)
 dovetail_cuda.by_slice = {}  # slice label -> launches inside sharded calls
 
 

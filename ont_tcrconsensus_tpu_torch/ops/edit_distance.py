@@ -1,4 +1,4 @@
-"""Budgeted-dovetail edit distance for short sequences (UMIs).
+"""Budgeted-dovetail and global edit distance for short sequences (UMIs).
 
 The counterpart of the JAX package's ``ops/edit_distance.py``: unit-cost
 edit distance where up to ``k_end`` terminal bases per end of either
@@ -9,6 +9,23 @@ version (:func:`pairwise_dovetail_plain`, a column DP over the second
 sequence, batched over pairs, its in-column insertion cascade
 ``i + cummin(base - i)``), CUDA tensors to kernel B6
 (:mod:`.dovetail_kernel`), one launch a call.
+
+The global (Needleman-Wunsch) distance of the JAX package's ``_nw_pair``
+(:func:`pairwise`, :func:`many_vs_many`, :func:`identity_matrix`) is the
+dovetail distance at ``k_end = 0``, so it runs on the same routes:
+- the boundaries become ``D[i][0] = i`` and a top row of ``j + 1``, the
+  global DP's;
+- every candidate is ``D[i][j] + (a_len - i) + (b_len - j)``, the cell's
+  distance plus both unaligned tails at one edit a base;
+- a path from ``D[i][j]`` to ``D[a_len][b_len]`` costs at most those tails
+  (insert and delete them), so no candidate is below ``D[a_len][b_len]``,
+  which is itself the candidate at ``(a_len, b_len)``: the least is the
+  global distance;
+- rows below ``a_len`` (padding, any codes) never reach row ``a_len``: a
+  column's row i depends on rows up to i only, and columns past ``b_len``
+  make no candidate, as ``_nw_pair`` freezes them.
+On the card B6's width limit holds here too: first sequences wider than
+1452 raise.
 """
 
 from __future__ import annotations
@@ -61,6 +78,30 @@ def pairwise_dovetail_plain(a: torch.Tensor, a_lens: torch.Tensor, b: torch.Tens
                 + (b_len - (j + 1) - k).clamp(min=0))
         best = torch.minimum(best, torch.where(active, cand, _BIG))
     return best
+
+
+def pairwise(a: torch.Tensor, a_lens: torch.Tensor, b: torch.Tensor,
+             b_lens: torch.Tensor) -> torch.Tensor:
+    """(B, La) x (B, Lb) -> (B,) int32 global edit distances (the JAX
+    package's ``pairwise``): :func:`pairwise_dovetail` at ``k_end = 0``."""
+    return pairwise_dovetail(a, a_lens, b, b_lens, k_end=0)
+
+
+def many_vs_many(queries, q_lens, targets, t_lens) -> torch.Tensor:
+    """(Q, L) x (T, L) -> (Q, T) int32 global edit-distance matrix:
+    :func:`many_vs_many_dovetail` at ``k_end = 0``."""
+    return many_vs_many_dovetail(queries, q_lens, targets, t_lens, k_end=0)
+
+
+def identity_matrix(queries, q_lens, targets, t_lens) -> torch.Tensor:
+    """(Q, T) float32 identity ``1 - d / max(len_q, len_t)`` over the global
+    distance; 0 where either side is empty."""
+    d = many_vs_many(queries, q_lens, targets, t_lens).to(torch.float32)
+    q = q_lens.to(device=d.device)[:, None]
+    t = t_lens.to(device=d.device)[None, :]
+    longest = torch.maximum(q, t).to(torch.float32)
+    ident = 1.0 - d / longest.clamp(min=1.0)
+    return torch.where((q == 0) | (t == 0), 0.0, ident)
 
 
 def many_vs_many_dovetail(queries, q_lens, targets, t_lens, k_end: int = 8) -> torch.Tensor:

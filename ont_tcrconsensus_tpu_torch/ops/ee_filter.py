@@ -11,6 +11,17 @@ from __future__ import annotations
 import torch
 
 
+def expected_errors(quals: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """(B,) float32 expected errors of each read's first ``lengths`` Phred
+    scores (the padding is masked out)."""
+    return expected_errors_span(quals, torch.zeros_like(lengths), lengths)
+
+
+def ee_rate_mask(quals, lengths, max_ee_rate: float, min_len: int):
+    """Keep-mask of the quality+length filter over whole reads."""
+    return ee_rate_mask_span(quals, torch.zeros_like(lengths), lengths, max_ee_rate, min_len)
+
+
 def expected_errors_span(quals: torch.Tensor, t_start: torch.Tensor,
                          t_end: torch.Tensor) -> torch.Tensor:
     """(B,) float32 expected errors over each read's [t_start, t_end)."""

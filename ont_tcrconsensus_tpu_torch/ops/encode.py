@@ -82,6 +82,13 @@ def decode_batch(codes: np.ndarray, lengths: np.ndarray) -> list[str]:
     ]
 
 
+def decode_phred_batch(quals: np.ndarray, lengths: np.ndarray) -> list[str]:
+    """(B, W) uint8 Phred batch + lengths -> Phred-33 quality strings."""
+    q = np.ascontiguousarray(np.asarray(quals, dtype=np.uint8) + 33)
+    lens = np.asarray(lengths)
+    return [q[i, : lens[i]].tobytes().decode("ascii") for i in range(q.shape[0])]
+
+
 def revcomp_codes(codes: np.ndarray, length: int | None = None) -> np.ndarray:
     """Reverse-complement of a dense-code array (host side).
 
@@ -131,3 +138,27 @@ def encode_batch(
 ) -> tuple[np.ndarray, np.ndarray]:
     """List of strings -> (padded dense-code batch, lengths)."""
     return pad_batch([encode_seq(s) for s in seqs], pad_to=pad_to, multiple=multiple)
+
+
+def encode_mask_batch(
+    seqs: list[str], pad_to: int | None = None, multiple: int = 128
+) -> tuple[np.ndarray, np.ndarray]:
+    """List of (possibly degenerate) strings -> (padded mask batch, lengths)."""
+    return pad_batch(
+        [encode_mask(s) for s in seqs], pad_to=pad_to, pad_value=0, multiple=multiple
+    )
+
+
+def phred_batch(quals: list[str], pad_to: int | None = None, multiple: int = 128):
+    """List of Phred-33 quality strings -> (padded uint8 Q batch, lengths).
+
+    Padding gets Q=93 (error prob ~5e-10) so padded tails contribute nothing
+    to expected-error sums.
+    """
+    arrs = []
+    for q in quals:
+        raw = np.frombuffer(q.encode("ascii"), dtype=np.uint8)
+        if raw.size and raw.min() < 33:
+            raise ValueError("quality string contains characters below Phred-33 '!'")
+        arrs.append(raw - 33)
+    return pad_batch(arrs, pad_to=pad_to, pad_value=93, multiple=multiple)

@@ -101,3 +101,46 @@ def fuzzy_find(pattern_mask: torch.Tensor, windows: torch.Tensor, window_lens: t
     lens = torch.tensor([m], dtype=torch.int32, device=windows.device)
     d, s, e = fuzzy_find_multi(pattern_mask[None], lens, windows, window_lens)
     return d[0], s[0], e[0]
+
+
+def fuzzy_find_np(pattern: str, text: str):
+    """Pure-Python reference with identical tie-breaking (for tests and
+    debugging): (dist, start, end) of the best infix match of ``pattern``
+    in ``text``."""
+    import numpy as np
+
+    from ont_tcrconsensus_tpu_torch.ops import encode
+
+    p = encode.encode_mask(pattern)
+    t = encode.encode_mask(text)
+    m, n = len(p), len(t)
+    D = np.zeros((m + 1, n + 1), dtype=np.int64)
+    D[:, 0] = np.arange(m + 1)
+    for jj in range(1, n + 1):
+        for ii in range(1, m + 1):
+            sub = 0 if (p[ii - 1] & t[jj - 1]) else 1
+            D[ii, jj] = min(D[ii - 1, jj - 1] + sub, D[ii - 1, jj] + 1, D[ii, jj - 1] + 1)
+        D[0, jj] = 0
+    dist = int(D[m].min())
+    end = int(D[m].argmin())
+    starts = [
+        s
+        for s in range(end + 1)
+        if _lev_np(p, t[s:end]) == dist
+    ]
+    return dist, min(starts), end
+
+
+def _lev_np(pmask, tmask):
+    """Global Levenshtein distance of two IUPAC mask arrays."""
+    import numpy as np
+
+    m, n = len(pmask), len(tmask)
+    D = np.zeros((m + 1, n + 1), dtype=np.int64)
+    D[:, 0] = np.arange(m + 1)
+    D[0, :] = np.arange(n + 1)
+    for i in range(1, m + 1):
+        for j in range(1, n + 1):
+            sub = 0 if (pmask[i - 1] & tmask[j - 1]) else 1
+            D[i, j] = min(D[i - 1, j - 1] + sub, D[i - 1, j] + 1, D[i, j - 1] + 1)
+    return int(D[m, n])

@@ -1,9 +1,12 @@
 """Banded alignment with traceback -> per-column pileups.
 
 The counterpart of the JAX package's ``ops/pileup.py`` production path:
-a banded forward DP at diagonal offset 0 stores one packed direction plane
-per band cell, then a scan-log traceback walks the planes from each lane's
-best cell and the pileup columns materialize in one vectorized pass.
+a banded forward DP stores one packed direction plane per band cell, then
+a scan-log traceback walks the planes from each lane's best cell and the
+pileup columns materialize in one vectorized pass. Each lane's band is
+centred on its diagonal offset (``offs``, None for 0 everywhere: the
+polish path's same-molecule subreads): cell (i, b) lies over draft column
+``i + off - W/2 + b``.
 
 Packed plane per cell (u16): ``tdir | fjump << 4``.
 - ``tdir``: bits 0-1 = tmp choice (0 diag, 1 read-gap/E, 3 fresh/stop);
@@ -48,8 +51,10 @@ _DONE_CHECK = 256
 
 def _forward_batch(reads, read_lens, refs, ref_lens, band_width: int,
                    match: int = MATCH, mismatch: int = MISMATCH,
-                   gap_open: int = GAP_OPEN, gap_ext: int = GAP_EXT):
-    """Plain banded forward over flat lanes (offsets 0).
+                   gap_open: int = GAP_OPEN, gap_ext: int = GAP_EXT, offs=None):
+    """Plain banded forward over flat lanes, each centred on its offset
+    (``offs`` (N,) int32; None: 0 for every lane). The reference window
+    reads PAD outside ``refs``' width, as the JAX package's ``ref_shifted``.
 
     Returns (best (N, 3) int32 ``(score, row, slot)`` — ``(0, -1, 0)`` when
     nothing scores above 0 —, planes (N, L, W) int16 holding the u16
@@ -65,7 +70,10 @@ def _forward_batch(reads, read_lens, refs, ref_lens, band_width: int,
     rlen = read_lens.to(i32)[:, None]
     tlen = ref_lens.to(i32)[:, None]
     reads_i = reads.to(i32)
-    win = _ref_windows(refs, torch.zeros(N, dtype=i32, device=dev), L, W)
+    off = (torch.zeros(N, dtype=i32, device=dev) if offs is None
+           else offs.to(device=dev, dtype=i32))
+    win = _ref_windows(refs, off, L, W)
+    off = off[:, None]
 
     H = torch.full((N, W), NEG, dtype=i32, device=dev)
     E = H.clone()
@@ -73,7 +81,7 @@ def _forward_batch(reads, read_lens, refs, ref_lens, band_width: int,
     planes = torch.empty((N, L, W), dtype=torch.int16, device=dev)
     rows = torch.arange(N, device=dev)
     for i in range(L):
-        jrow = i - c + iota
+        jrow = i + off - c + iota
         valid = (jrow >= 0) & (jrow < tlen) & (i < rlen)
         rbase = reads_i[:, i : i + 1]
         tbase = win[:, i : i + W]
@@ -126,35 +134,38 @@ def _forward_batch(reads, read_lens, refs, ref_lens, band_width: int,
     return best, planes
 
 
-def forward_auto(reads, read_lens, refs, ref_lens, band_width: int):
+def forward_auto(reads, read_lens, refs, ref_lens, band_width: int, offs=None):
     """The plain forward for CPU tensors, kernel B2 for CUDA tensors."""
     if reads.device.type == "cpu":
-        return _forward_batch(reads, read_lens, refs, ref_lens, band_width)
-    return pileup_kernel.forward_planes_cuda(reads, read_lens, refs, ref_lens, band_width)
+        return _forward_batch(reads, read_lens, refs, ref_lens, band_width, offs=offs)
+    return pileup_kernel.forward_planes_cuda(reads, read_lens, refs, ref_lens, band_width,
+                                             offs=offs)
 
 
-def traceback_auto(best, planes, reads, band_width: int, out_len: int):
+def traceback_auto(best, planes, reads, band_width: int, out_len: int, offs=None):
     """The traceback as a generator for :func:`..parallel.mesh.lockstep`:
     the plain :func:`_traceback_steps` for CPU tensors; for CUDA tensors
     kernel B3, launched once, then one yield, so that every slice launches
     before any slice waits. Returns the columns."""
     if reads.device.type == "cpu":
-        return (yield from _traceback_steps(best, planes, reads, band_width, out_len))
-    cols = traceback_kernel.traceback_columns_cuda(best, planes, reads, band_width, out_len)
+        return (yield from _traceback_steps(best, planes, reads, band_width, out_len, offs))
+    cols = traceback_kernel.traceback_columns_cuda(best, planes, reads, band_width, out_len,
+                                                   offs=offs)
     yield
     return cols
 
 
-def _traceback_batch(best, planes, reads, band_width: int, out_len: int):
-    """Traceback over flat lanes (offsets 0): :func:`traceback_auto` run to
-    its end."""
-    return mesh_mod.lockstep([traceback_auto(best, planes, reads, band_width, out_len)])[0]
+def _traceback_batch(best, planes, reads, band_width: int, out_len: int, offs=None):
+    """Traceback over flat lanes: :func:`traceback_auto` run to its end."""
+    return mesh_mod.lockstep([traceback_auto(best, planes, reads, band_width, out_len,
+                                             offs)])[0]
 
 
-def _traceback_steps(best, planes, reads, band_width: int, out_len: int):
-    """Scan-log traceback over flat lanes (offsets 0), the plain version of
-    kernel B3 on any device: a generator that yields after each step's
-    launches and returns the columns.
+def _traceback_steps(best, planes, reads, band_width: int, out_len: int, offs=None):
+    """Scan-log traceback over flat lanes, each centred on its offset
+    (``offs`` as in :func:`_forward_batch`), the plain version of kernel B3
+    on any device: a generator that yields after each step's launches and
+    returns the columns.
 
     Each step gathers ONE packed plane cell per lane, keeps 7 scalars of
     per-lane state and logs the move (op, read index, draft column); the
@@ -178,7 +189,8 @@ def _traceback_steps(best, planes, reads, band_width: int, out_len: int):
     i32 = torch.int32
     T = L + out_len
     score, i0, b0 = best[:, 0], best[:, 1], best[:, 2]
-    jend = i0 - c + b0
+    off = 0 if offs is None else offs.to(device=dev, dtype=i32)
+    jend = i0 + off - c + b0
     MODE_H, MODE_E, MODE_TMP = 0, 1, 2
     OP_DEL, OP_DIAG, OP_INS = 1, 2, 3
     planes_flat = planes.reshape(N, L * W)
@@ -193,7 +205,7 @@ def _traceback_steps(best, planes, reads, band_width: int, out_len: int):
         if t % _DONE_CHECK == 0 and bool(done.all()):
             break
         live = ~done
-        jrow = i - c + b
+        jrow = i + off - c + b
         jc = jrow.clamp(0, out_len - 1)
         j_ok = (jrow >= 0) & (jrow < out_len) & live
         ci = i.clamp(0, L - 1)
@@ -266,26 +278,28 @@ def _traceback_steps(best, planes, reads, band_width: int, out_len: int):
     return base_at, ins_cnt, ins_base, pos_at, spans
 
 
-def _forward_traceback(reads, rlens, refs, reflens, band_width: int, out_len: int):
+def _forward_traceback(reads, rlens, refs, reflens, band_width: int, out_len: int,
+                       offs=None):
     """One slice's pileup program, a generator for :func:`..parallel.mesh.lockstep`:
     the forward (kernel B2 on the card), a yield so every slice launches
     its forward before any slice waits, then the traceback (kernel B3 on
     the card, the plain steps on the CPU)."""
-    best, planes = forward_auto(reads, rlens, refs, reflens, band_width)
+    best, planes = forward_auto(reads, rlens, refs, reflens, band_width, offs)
     yield
-    return (yield from traceback_auto(best, planes, reads, band_width, out_len))
+    return (yield from traceback_auto(best, planes, reads, band_width, out_len, offs))
 
 
 def pileup_columns_batch_auto(subreads, subread_lens, drafts, draft_lens,
                               band_width: int = 128, out_len: int | None = None,
-                              mesh=None):
+                              mesh=None, diag_offsets=None):
     """Align each subread to its cluster's draft and emit per-position
     columns — forward (kernel B2 on the card) + traceback (kernel B3).
 
     Args: subreads (C, S, L) uint8 codes; subread_lens (C, S); drafts
-    (C, Ld) uint8; draft_lens (C,). Returns (base_at, ins_cnt, ins_base,
-    pos_at — each (C, S, out_len) — and spans (C, S, 4) int32
-    ``[read_start, read_end, ref_start, ref_end)``).
+    (C, Ld) uint8; draft_lens (C,); diag_offsets (C, S) int32 band centres,
+    or None for 0 everywhere (the kernels then read no offsets). Returns
+    (base_at, ins_cnt, ins_base, pos_at — each (C, S, out_len) — and spans
+    (C, S, 4) int32 ``[read_start, read_end, ref_start, ref_end)``).
 
     ``mesh`` splits the flat lane axis (C*S) over the mesh's data slices
     when it divides the data-axis size (callers pad the cluster axis):
@@ -301,15 +315,16 @@ def pileup_columns_batch_auto(subreads, subread_lens, drafts, draft_lens,
     rlens = subread_lens.reshape(C * S).to(torch.int32)
     refs = drafts.repeat_interleave(S, dim=0)
     reflens = draft_lens.to(torch.int32).repeat_interleave(S)
+    offs = None if diag_offsets is None else diag_offsets.reshape(C * S).to(torch.int32)
     if mesh is not None and (C * S) % mesh_mod.mesh_data_size(mesh) == 0:
         d1, d2 = mesh_mod.P("data"), mesh_mod.P("data", None)
         cols = mesh_mod.shard_map_compat(
-            lambda *a: _forward_traceback(*a, band_width, out_len), mesh,
-            in_specs=(d2, d1, d2, d1), out_specs=(d2, d2, d2, d2, d2),
-        )(reads, rlens, refs, reflens)
+            lambda *a: _forward_traceback(*a[:4], band_width, out_len, a[4]), mesh,
+            in_specs=(d2, d1, d2, d1, d1), out_specs=(d2, d2, d2, d2, d2),
+        )(reads, rlens, refs, reflens, offs)
     else:
         cols = mesh_mod.lockstep([_forward_traceback(reads, rlens, refs, reflens,
-                                                     band_width, out_len)])[0]
+                                                     band_width, out_len, offs)])[0]
     base_at, ins_cnt, ins_base, pos_at, spans = cols
     return (
         base_at.reshape(C, S, out_len),
@@ -324,21 +339,17 @@ def pileup_columns(subreads, subread_lens, draft, draft_len, diag_offsets,
                    band_width: int = 128, out_len: int | None = None, device=None):
     """One cluster's pileup: each subread aligned to ``draft`` (the JAX
     package's single-cluster ``pileup_columns``), on ``device`` (the card
-    when None; kernel B2 there), through :func:`pileup_columns_batch_auto`
-    at C = 1.
+    when None; kernels B2 and B3 there), through
+    :func:`pileup_columns_batch_auto` at C = 1.
 
     Args: subreads (S, L) uint8 codes; subread_lens (S,); draft (Ld,)
-    uint8; draft_len a scalar; diag_offsets (S,) band centres, which must
-    be 0 (same-molecule subreads; the port's forward runs offset 0 only,
-    so a nonzero offset raises). Returns (base_at, ins_cnt, ins_base,
-    pos_at — each (S, out_len) — and spans (S, 4)) on ``device``.
+    uint8; draft_len a scalar; diag_offsets (S,) band centres (0 for
+    same-molecule subreads). Returns (base_at, ins_cnt, ins_base, pos_at —
+    each (S, out_len) — and spans (S, 4)) on ``device``.
     """
     from ont_tcrconsensus_tpu_torch.device import resolve_device
 
     dev = resolve_device(device)
-    if torch.as_tensor(diag_offsets).ne(0).any():
-        raise ValueError("pileup_columns: nonzero diag_offsets are not supported "
-                         "(the forward runs at offset 0)")
 
     def t(a, dtype):
         return torch.as_tensor(a).to(device=dev, dtype=dtype)
@@ -348,5 +359,16 @@ def pileup_columns(subreads, subread_lens, draft, draft_len, diag_offsets,
         out_len = draft_t.shape[-1]
     cols = pileup_columns_batch_auto(
         t(subreads, torch.uint8)[None], t(subread_lens, torch.int32)[None], draft_t[None],
-        t(draft_len, torch.int32).reshape(1), band_width=band_width, out_len=out_len)
+        t(draft_len, torch.int32).reshape(1), band_width=band_width, out_len=out_len,
+        diag_offsets=t(diag_offsets, torch.int32)[None])
     return tuple(c[0] for c in cols)
+
+
+def pileup_columns_batch(subreads, subread_lens, drafts, draft_lens, band_width: int = 128,
+                         out_len: int | None = None):
+    """The JAX package's ``pileup_columns_batch``: every cluster's subreads
+    aligned to its draft at offset 0, on the tensors' device (kernels B2
+    and B3 for CUDA tensors): :func:`pileup_columns_batch_auto` with no
+    mesh. Args and returns as there."""
+    return pileup_columns_batch_auto(subreads, subread_lens, drafts, draft_lens,
+                                     band_width=band_width, out_len=out_len)

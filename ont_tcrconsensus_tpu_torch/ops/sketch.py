@@ -93,3 +93,11 @@ def candidates_both_strands(read_codes, read_lens, ref_profiles, top_k_: int = 4
 def similarity_matrix(profiles_a: torch.Tensor, profiles_b: torch.Tensor) -> torch.Tensor:
     """Cosine similarity panel-vs-panel (the self-homology prefilter)."""
     return _norm(profiles_a) @ _norm(profiles_b).T
+
+
+def diag_offset(read_lens, ref_lens):
+    """Band-centre estimate for :func:`.sw_align.align_banded`: the
+    symmetric overhang ``-(read_len - ref_len) // 2`` (floor division),
+    which keeps the true diagonal within a 256-wide band for any split of
+    the amplicon's <= ~90 nt softclips between the two ends."""
+    return -((read_lens - ref_lens) // 2)

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 NEG = -(1 << 24)
@@ -215,3 +216,58 @@ def align_banded(
         ref_start=best[:, 3], ref_end=best[:, 4],
         n_match=best[:, 5], n_cols=best[:, 6],
     )
+
+
+def align_np(read, ref, match=MATCH, mismatch=MISMATCH, gap_open=GAP_OPEN, gap_ext=GAP_EXT):
+    """Full (unbanded) numpy local alignment with identical semantics.
+
+    Reference implementation for tests: same scoring, same tie priorities
+    (diag/up/fresh over left; on the global max, the earlier row then the
+    smaller column wins). Returns an :class:`AlignResult` of 0-d int32
+    tensors.
+    """
+    n, m = len(read), len(ref)
+    H = np.zeros((n + 1, m + 1), np.int64)
+    E = np.full((n + 1, m + 1), int(NEG), np.int64)
+    F = np.full((n + 1, m + 1), int(NEG), np.int64)
+    # channels: (n_match, n_cols, read_start, ref_start)
+    Hch = np.zeros((n + 1, m + 1, 4), np.int64)
+    Ech = np.zeros((n + 1, m + 1, 4), np.int64)
+    Fch = np.zeros((n + 1, m + 1, 4), np.int64)
+    for i in range(n + 1):
+        Hch[i, :, 2] = i
+        Hch[i, :, 3] = np.arange(m + 1)
+    best = (0, 0, 0, 0, 0, 0, 0)
+    for i in range(1, n + 1):
+        for j in range(1, m + 1):
+            eo = H[i - 1, j] - gap_open - gap_ext
+            ee = E[i - 1, j] - gap_ext
+            if eo >= ee:
+                E[i, j], Ech[i, j] = eo, Hch[i - 1, j].copy()
+            else:
+                E[i, j], Ech[i, j] = ee, Ech[i - 1, j].copy()
+            Ech[i, j, 1] += 1
+            is_m = read[i - 1] == ref[j - 1] and read[i - 1] < 4 and ref[j - 1] < 4
+            d = H[i - 1, j - 1] + (match if is_m else -mismatch)
+            tmp, tch = d, Hch[i - 1, j - 1].copy()
+            tch[0] += int(is_m)
+            tch[1] += 1
+            if E[i, j] > tmp:
+                tmp, tch = E[i, j], Ech[i, j].copy()
+            if 0 > tmp:
+                tmp, tch = 0, np.array([0, 0, i, j])
+            fopen = H[i, j - 1] - gap_open - gap_ext
+            fext = F[i, j - 1] - gap_ext
+            if fopen >= fext:
+                F[i, j], Fch[i, j] = fopen, Hch[i, j - 1].copy()
+            else:
+                F[i, j], Fch[i, j] = fext, Fch[i, j - 1].copy()
+            Fch[i, j, 1] += 1
+            if F[i, j] > tmp:
+                H[i, j], Hch[i, j] = F[i, j], Fch[i, j].copy()
+            else:
+                H[i, j], Hch[i, j] = tmp, tch
+            if H[i, j] > best[0]:
+                best = (int(H[i, j]), int(Hch[i, j, 2]), i, int(Hch[i, j, 3]), j,
+                        int(Hch[i, j, 0]), int(Hch[i, j, 1]))
+    return AlignResult(*[torch.tensor(x, dtype=torch.int32) for x in best])

@@ -909,13 +909,16 @@ def run_assign(
                 return False
         return True
 
-    consumer = threading.Thread(target=consumer_loop, name="assign-readback", daemon=True)
-    consumer.start()
     # closed in the finally: a generator left open would keep its worker
-    # feeding the guard while the retry wrapper resets it
+    # feeding the guard while the retry wrapper resets it. Built before the
+    # readback thread starts: a path's first chunk is pulled here and may
+    # raise, and a thread started before it would wait on ``inflight``
+    # forever
     batches = _prefetch(_batches_from_source(source, batch_size, widths, subsample,
                                              counters=counters, guard=guard),
                         depth=prefetch_depth)
+    consumer = threading.Thread(target=consumer_loop, name="assign-readback", daemon=True)
+    consumer.start()
     try:
         for batch in batches:
             # liveness: one heartbeat per batch; a wedged parser or dispatch

@@ -849,6 +849,21 @@ def _shrunken_cluster_batch(budget, shrink, s_bucket, width, eff_band, *, keep_f
     return max(1, min(new_cb, cb_run // 2))
 
 
+def polish_clusters_stage(
+    selected: list[SelectedCluster],
+    group_name: str,
+    store: ReadStore,
+    **kwargs,
+) -> list[tuple[str, str]]:
+    """Single-group convenience wrapper over :func:`polish_clusters_all`
+    (its keyword arguments, ``device`` among them); raises when the group
+    failed."""
+    by_group, failed = polish_clusters_all([(group_name, selected)], store, **kwargs)
+    if failed:
+        raise RuntimeError(f"polish failed for {group_name}: {failed[group_name]}")
+    return by_group[group_name]
+
+
 # ---------------------------------------------------------------------------
 # stage: counting
 

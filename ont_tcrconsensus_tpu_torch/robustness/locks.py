@@ -93,6 +93,10 @@ LOCK_EXEMPT = {
         "read-only (index order IS the slice address space) afterwards; "
         "so is the port's SliceAllocator.labels beside it"
     ),
+    "SliceAllocator.labels": (
+        "the port's list of the slices' labels, one a device: written once "
+        "in __init__ beside SliceAllocator.devices, read-only afterwards"
+    ),
 }
 
 

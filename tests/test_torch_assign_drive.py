@@ -173,6 +173,20 @@ def test_an_error_in_the_source_reaches_the_caller(lane):
         assign.run_assign(source(), te, dispatch=_replay(outs), **KW)
 
 
+def test_a_source_failing_at_its_first_pull_leaves_no_thread(lane, monkeypatch):
+    """A path's first chunk is pulled when the batch iterator is built (a
+    truncated gzip raises there): the error reaches the caller and no
+    readback thread is left waiting (``_no_thread_left`` checks)."""
+    _, path, _, te, _, _, outs = lane
+
+    def first_chunk_fails(*args, **kwargs):
+        raise ValueError("truncated or corrupt gzip stream")
+
+    monkeypatch.setattr(assign, "_batches_from_source", first_chunk_fails)
+    with pytest.raises(ValueError, match="truncated or corrupt gzip"):
+        assign.run_assign(str(path), te, dispatch=_replay(outs), **KW)
+
+
 def test_an_error_in_the_dispatch_reaches_the_caller(lane):
     _, path, _, te, _, _, outs = lane
     with pytest.raises(ValueError, match="dispatch failed"):

@@ -227,3 +227,26 @@ def test_the_disarmed_baseline_report_is_clean(lane):
         assert rep["contracts"]["violated"] == {}
     assert report(lane["tmp"] / "baseline_port")["contracts"] == report(
         lane["tmp"] / "baseline_jax")["contracts"]
+
+
+@pytest.mark.slow
+def test_a_c_level_hang_is_detected_and_recovered_as_in_jax(lane, tmp_path):
+    """The twin of the JAX package's C-level wedge drill
+    (``test_chaos_hang_c_level_wedge_detected_and_recovered``): a ``hang``
+    at ``polish.dispatch`` (one long C-level sleep) outlives the stage's
+    6 s deadline. The watchdog detects and dumps on time, queues the cancel
+    at the hard deadline, the StageTimeout lands when the call returns, and
+    the stage retries to the undisturbed files, in both packages alike.
+    Slow-marked as JAX's is: the wedge must outlive its deadline."""
+    plan = [{"site": "polish.dispatch", "kind": "hang"}]
+    out = drill(lane, tmp_path, "hang", plan, stage_timeout_s=6.0)
+    for side, (root, counts, fired) in out.items():
+        assert fired == [1], side
+        assert counts == lane["lib"].true_counts, side
+        assert artifacts(root) == lane["artifacts"], side
+        sites = report(root)["sites"]
+        wd = sites["watchdog.stall"]["by_outcome"]
+        assert wd["stall_detected"] >= 1 and wd["hard_cancel"] >= 1, side
+        pol = sites["polish.dispatch"]["by_outcome"]
+        assert pol["retried"] >= 1 and pol["recovered"] >= 1, side
+    assert set(events(out["port"][0])) == set(events(out["jax"][0]))

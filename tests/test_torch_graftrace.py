@@ -3,12 +3,15 @@
 (``tests/torch_graftrace_expected.json``) justifies, which are the JAX
 package's five justified signal-path findings at the port's lines; and
 ``ops/_build.py`` holds its lock across no ``nvcc`` start, wait or rename,
-while threads asking for the same library at once still build it once."""
+while threads asking for the same library at once still build it once,
+also when a build ends between one thread's look at the disk and its claim."""
 
+import concurrent.futures
 import json
 import os
 import sys
 import threading
+import types
 
 import pytest
 
@@ -130,6 +133,94 @@ def test_one_nvcc_a_library_none_under_the_lock(monkeypatch, tmp_path):
     # a later call finds every library in place and starts nothing
     assert set(_build.build_all().values()) == {""}
     assert len(starts) == len(_build.KERNELS)
+
+
+def test_a_build_ending_between_the_check_and_the_claim_is_not_run_again(monkeypatch, tmp_path):
+    """One thread is held where ``_start`` has looked for the library and
+    not yet claimed its build, while another thread finishes that build.
+    The held thread must take the finished build: one ``nvcc`` start and
+    one ``kernel_built`` report for the library, not a second build renamed
+    over the first."""
+    from ont_tcrconsensus_tpu_torch.obs import device as obs_device
+
+    name = "dovetail"
+    path = os.path.join(str(tmp_path), "lib.so")
+    starts, reports, errors = [], [], []
+    nvcc_started, release_nvcc = threading.Event(), threading.Event()
+    held, build_done = threading.Event(), threading.Event()
+    held_ident = []
+
+    class FakeNvcc:
+        def __init__(self, cmd, **_):
+            self.out = cmd[-1]
+            starts.append(self.out)
+            self.returncode = 0
+            nvcc_started.set()
+
+        def communicate(self):
+            assert release_nvcc.wait(30)
+            with open(self.out, "w") as fh:
+                fh.write("built")
+            return "ptxas info: 0 registers", None
+
+    def holding():
+        """True (once) for the held thread: it then waits for the build."""
+        if held_ident == [threading.get_ident()] and not held.is_set():
+            held.set()
+            assert build_done.wait(30)
+
+    real_exists = os.path.exists
+
+    def exists(p):
+        found = real_exists(p)
+        if p == path:
+            holding()  # between the look at the disk and the claim
+        return found
+
+    class HoldingFuture(concurrent.futures.Future):
+        def result(self, timeout=None):
+            holding()  # a claim seen in flight: wait on it
+            return super().result(timeout)
+
+    class FakeLib:
+        def __getattr__(self, attr):
+            fn = types.SimpleNamespace()
+            setattr(self, attr, fn)
+            return fn
+
+    monkeypatch.setattr(_build, "library_path", lambda n: path)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(_build, "_builds", {})
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "_nvcc_command", lambda n, out: ["nvcc", "-o", out])
+    monkeypatch.setattr(_build.subprocess, "Popen", FakeNvcc)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda p: FakeLib())
+    monkeypatch.setattr(_build.os.path, "exists", exists)
+    monkeypatch.setattr(_build.concurrent.futures, "Future", HoldingFuture)
+    monkeypatch.setattr(obs_device, "kernel_built",
+                        lambda n, s, built: reports.append((n, built)))
+
+    def load(hold):
+        try:
+            if hold:
+                held_ident.append(threading.get_ident())
+            _build.load(name)
+        except BaseException as exc:  # surfaced below
+            errors.append(exc)
+
+    first = threading.Thread(target=load, args=(False,))
+    first.start()
+    assert nvcc_started.wait(30)
+    waiter = threading.Thread(target=load, args=(True,))
+    waiter.start()
+    assert held.wait(30)
+    release_nvcc.set()
+    first.join(30)
+    build_done.set()
+    waiter.join(30)
+    assert not first.is_alive() and not waiter.is_alive() and errors == []
+    assert starts == [path + f".{os.getpid()}.{first.ident}.tmp"]
+    assert reports == [(name, True)]
 
 
 def test_a_failed_build_raises_and_can_run_again(monkeypatch, tmp_path):

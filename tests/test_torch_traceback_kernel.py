@@ -65,7 +65,7 @@ POISON = 0xAB  # what an output row holds before the warp's first write
 
 
 def _kernel_walk(best, planes, reads, W: int, out_len: int, chunk_rows: int = K_ROWS,
-                 stats: Counter | None = None):
+                 stats: Counter | None = None, offs=None, jrow_offset: bool = True):
     """Kernel B3's walk, lane by lane in plain Python, in its order: the
     warp writes its lane's whole row with the fill values; the walk reads
     each cell from a double buffer of staged chunks (rows [hi - K_ROWS + 1,
@@ -77,7 +77,9 @@ def _kernel_walk(best, planes, reads, W: int, out_len: int, chunk_rows: int = K_
     column's run carried. ``chunk_rows`` is how many rows a chunk stages
     (K_ROWS in the kernel; one fewer is a mutation). ``stats`` counts the
     chunks each walk entered, the slots it stood in and the deletion
-    runs."""
+    runs. ``offs`` are the lanes' band centres (None: 0); with
+    ``jrow_offset`` False the step's column leaves the offset out (a
+    mutation: the chunk's first column keeps it)."""
     N, L = reads.shape
     c = W // 2
     cols = K_ROWS + W + 1
@@ -92,7 +94,8 @@ def _kernel_walk(best, planes, reads, W: int, out_len: int, chunk_rows: int = K_
         base_at[n], ins_cnt[n], ins_base[n], pos_at[n] = fill
         slots = [np.array([v] * (cols + 1)) for v in fill]  # base, icnt, ibase, pos
         score, i0, b0 = (int(x) for x in best[n])
-        jend = i0 - c + b0
+        off = 0 if offs is None else int(offs[n])
+        jend = i0 + off - c + b0
         i, b, mode, pending = i0, b0, 0, 0
         done = score <= 0 or i0 < 0 or L <= 0
         rstart, fstart = i0 + 1, jend + 1
@@ -124,7 +127,7 @@ def _kernel_walk(best, planes, reads, W: int, out_len: int, chunk_rows: int = K_
                     ci = min(max(i, 0), L - 1)
                     if ci < lo:
                         break
-                    jrow = i - c + b
+                    jrow = i + (off if jrow_offset else 0) - c + b
                     cb = min(max(b, 0), W - 1)
                     p = int(ring[buf, ci - base, cb])
                     d, m = p & 15, p >> 4
@@ -165,7 +168,7 @@ def _kernel_walk(best, planes, reads, W: int, out_len: int, chunk_rows: int = K_
                     done = is_fresh or diag_stop or ni < 0 or nb < 0 or nb >= W
                     i, b = ni, nb
                     t += 1
-                jc = i - c + b
+                jc = i + off - c + b
                 for s_ in range(min(j0 - jc, cols - 1) + 1):
                     col = j0 - s_
                     if 0 <= col < out_len:

@@ -76,9 +76,14 @@ def test_pileup_columns_equals_jax():
                                   np.zeros(len(lens), np.int32), band_width=64, out_len=256)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    with pytest.raises(ValueError, match="diag_offsets"):
-        pileup.pileup_columns(sub, lens, draft, int(lens[0]), np.ones(len(lens), np.int32),
-                              band_width=64, device="cpu")
+    # nonzero band centres go through the same forward and traceback
+    offs = np.arange(len(lens), dtype=np.int32) - 2
+    got = pileup.pileup_columns(sub, lens, draft, int(lens[0]), offs, band_width=64,
+                                out_len=256, device="cpu")
+    want = jpileup.pileup_columns(sub, lens, jnp.asarray(draft), jnp.int32(lens[0]), offs,
+                                  band_width=64, out_len=256)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
 @pytest.mark.parametrize("seed,rounds,pad_to", [(2, 4, None), (3, 1, 320), (4, 4, 256)])
